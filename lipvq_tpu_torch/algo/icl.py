@@ -1,0 +1,142 @@
+"""ICL (in-context imitation learning) policy, inference half (counterpart of
+``ICLTransformerGMM`` in ``lipvq_tpu/algo/icl.py``).
+
+- networks built from the config, initialized from ``train.seed``;
+- ``process_batch_for_training`` slices the context window and picks the
+  current/future action windows (reference icl.py:759-794);
+- ``get_action`` runs the eval forward under ``torch.inference_mode()`` with
+  low-noise GMM sampling and takes ``[:, 0]`` when ``pred_future_acs`` else
+  ``[:, -1]`` (reference icl.py:845-852).
+
+The two optimizers and the train step come with the training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lipvq_tpu_torch.algo.base import PolicyAlgo, register_algo_factory_func
+from lipvq_tpu_torch.models.base_nets import seeded_init
+from lipvq_tpu_torch.models.distributions import gmm_sample
+from lipvq_tpu_torch.models.obs_nets import obs_spec
+from lipvq_tpu_torch.models.policy_nets import ICLGMMActorNetwork
+from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs
+
+
+@register_algo_factory_func("icl")
+def algo_config_to_class(algo_config):
+    """transformer + gmm -> ICLTransformerGMM."""
+    if not algo_config.transformer.enabled:
+        raise ValueError("the icl algo needs algo.transformer.enabled")
+    if not algo_config.gmm.enabled:
+        raise NotImplementedError("the non-GMM ICLTransformer is ROADMAP queue 1, "
+                                  "item 6; not ported yet")
+    return ICLTransformerGMM, {}
+
+
+def _torch_dtype(name: str) -> torch.dtype | None:
+    """Config dtype string -> torch dtype; "float32" means no cast (None)."""
+    if str(name) == "float32":
+        return None
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+class ICLTransformerGMM(PolicyAlgo):
+    """ICL policy with a transformer GMM head."""
+
+    def _create_networks(self):
+        tc = self.algo_config.transformer
+        self.context_length = int(tc.context_length)
+        self.supervise_all_steps = bool(tc.supervise_all_steps)
+        self.pred_future_acs = bool(tc.pred_future_acs)
+        if self.pred_future_acs and not self.supervise_all_steps:
+            raise ValueError("pred_future_acs needs supervise_all_steps")
+        self.vq_vae_enabled = bool(tc.vq_vae_enabled)
+
+        group_specs = [("obs", obs_spec(self.obs_shapes))]
+        if self.goal_shapes:
+            group_specs.append(("goal", obs_spec(self.goal_shapes)))
+        vq_cfg = self.algo_config.get("vq", {})
+        gmm = self.algo_config.gmm
+        self.nets = ICLGMMActorNetwork(
+            group_specs=tuple(group_specs),
+            ac_dim=self.ac_dim,
+            num_modes=int(gmm.num_modes),
+            min_std=float(gmm.min_std),
+            std_activation=str(gmm.std_activation),
+            low_noise_eval=bool(gmm.low_noise_eval),
+            embed_dim=int(tc.embed_dim),
+            num_layers=int(tc.num_layers),
+            num_heads=int(tc.num_heads),
+            context_length=self.context_length,
+            causal=bool(tc.causal),
+            sinusoidal_embedding=bool(tc.sinusoidal_embedding),
+            nn_parameter_for_timesteps=bool(tc.nn_parameter_for_timesteps),
+            activation=str(tc.activation),
+            compute_dtype=_torch_dtype(tc.get("compute_dtype", "float32")),
+            activation_dtype=_torch_dtype(tc.get("activation_dtype", "float32")),
+            action_input_shape=self.ac_dim,
+            vq_vae_enabled=self.vq_vae_enabled,
+            bin_enabled=bool(tc.bin_enabled),
+            fast_enabled=bool(tc.fast_enabled),
+            ln_act_enabled=bool(tc.ln_act_enabled),
+            vq_num_codes=int(vq_cfg.get("num_codes", 1024)),
+            vq_hidden_dim=int(vq_cfg.get("hidden_dim", 128)),
+            vq_ema_codebook=bool(vq_cfg.get("ema_codebook", False)),
+            encoder_cores=encoder_cores_from_config(self.obs_config, self.obs_shapes),
+        )
+        # initialize on the CPU, then move: one seed, the same weights on
+        # every device
+        seed = int(self.global_config.train.seed)
+        seeded_init(self.nets, torch.Generator().manual_seed(seed))
+        self.nets.to(self.device)
+        self._generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+
+    # -- data prep (host side, numpy) --------------------------------------
+    def process_batch_for_training(self, batch):
+        """Slice the context window + pick action targets
+        (reference icl.py:759-794)."""
+        h = self.context_length
+        out = {}
+        out["obs"] = {
+            k: process_obs(np.asarray(v)[:, :h], obs_key=k)
+            for k, v in batch["obs"].items()
+        }
+        out["goal_obs"] = batch.get("goal_obs", None)
+        actions = np.asarray(batch["actions"])
+        if self.supervise_all_steps:
+            ac_start = h - 1 if self.pred_future_acs else 0
+            out["actions"] = actions[:, ac_start : ac_start + h]
+            if self.pred_future_acs and out["actions"].shape[1] != h:
+                raise ValueError(f"pred_future_acs needs {2 * h - 1} action "
+                                 f"steps, got {actions.shape[1]}")
+        else:
+            # the context stream needs the [B, T, A] window; training
+            # supervises only the final timestep
+            out["actions"] = actions[:, :h]
+        return out
+
+    # -- inference ---------------------------------------------------------
+    def _get_action_impl(self, obs, ctx_obs, ctx_act, goal):
+        dists, _ = self.nets.forward_train(obs, ctx_obs, ctx_act, goal=goal,
+                                           low_noise_eval=True)
+        out = gmm_sample(dists, self._generator)
+        if self.supervise_all_steps and self.pred_future_acs:
+            return out[:, 0]
+        return out[:, -1]
+
+    def get_action(self, obs_dict, context_batch, goal_dict=None):
+        """obs_dict leaves [B, T, ...]; context_batch holds obs/actions
+        leaves [B, T, ...] (reference icl.py:827-853) -> actions [B, A]."""
+        with torch.inference_mode():
+            act = self._get_action_impl(
+                self._put_infer(obs_dict),
+                self._put_infer(context_batch["obs"]),
+                self._put_infer(context_batch["actions"]),
+                self._put_infer(goal_dict) if goal_dict else None,
+            )
+            return act.cpu().numpy()

@@ -1,0 +1,142 @@
+"""Per-algorithm config classes (copy of ``lipvq_tpu/config/algo_configs.py``).
+
+Only ``ICLConfig`` and the helpers it calls are ported so far. Defaults
+mirror the reference per-algo configs so the reference's JSON templates
+apply unchanged (reference: robomimic/config/icl_config.py).
+
+The four mutually-exclusive action-tokenizer switches live under
+``algo.transformer.{vq_vae_enabled,bin_enabled,fast_enabled,ln_act_enabled}``
+(reference icl_config.py:154-157); all-false selects the spectral-norm
+MLP + TransformerEncoder raw-action tokenizer.
+"""
+
+from __future__ import annotations
+
+from lipvq_tpu_torch.config.base import BaseConfig
+
+
+def _policy_optim_defaults(algo):
+    algo.optim_params.policy.optimizer_type = "adam"
+    algo.optim_params.policy.learning_rate.initial = 1e-4
+    algo.optim_params.policy.learning_rate.decay_factor = 0.1
+    algo.optim_params.policy.learning_rate.epoch_schedule = []
+    algo.optim_params.policy.learning_rate.scheduler_type = "constant_with_warmup"
+    algo.optim_params.policy.regularization.L2 = 0.0
+
+
+def _loss_defaults(algo):
+    algo.loss.l2_weight = 1.0
+    algo.loss.l1_weight = 0.0
+    algo.loss.cos_weight = 0.0
+
+
+def _gaussian_defaults(algo):
+    algo.gaussian.enabled = False
+    algo.gaussian.fixed_std = False
+    algo.gaussian.init_std = 0.1
+    algo.gaussian.min_std = 0.01
+    algo.gaussian.std_activation = "softplus"
+    algo.gaussian.low_noise_eval = True
+
+
+def _gmm_defaults(algo):
+    algo.gmm.enabled = False
+    algo.gmm.num_modes = 5
+    algo.gmm.min_std = 1e-4
+    algo.gmm.std_activation = "softplus"
+    algo.gmm.low_noise_eval = True
+
+
+def _vae_defaults(algo):
+    algo.vae.enabled = False
+    algo.vae.latent_dim = 14
+    algo.vae.latent_clip = None
+    algo.vae.kl_weight = 1.0
+    algo.vae.decoder.is_conditioned = True
+    algo.vae.decoder.reconstruction_sum_across_elements = False
+    algo.vae.prior.learn = False
+    algo.vae.prior.is_conditioned = False
+    algo.vae.prior.use_gmm = False
+    algo.vae.prior.gmm_num_modes = 10
+    algo.vae.prior.gmm_learn_weights = False
+    algo.vae.prior.use_categorical = False
+    algo.vae.prior.categorical_dim = 10
+    algo.vae.prior.categorical_gumbel_softmax_hard = False
+    algo.vae.prior.categorical_init_temp = 1.0
+    algo.vae.prior.categorical_temp_anneal_step = 0.001
+    algo.vae.prior.categorical_min_temp = 0.3
+    algo.vae.encoder_layer_dims = [300, 400]
+    algo.vae.decoder_layer_dims = [300, 400]
+    algo.vae.prior_layer_dims = [300, 400]
+
+
+def _rnn_defaults(algo):
+    algo.rnn.enabled = False
+    algo.rnn.horizon = 10
+    algo.rnn.hidden_dim = 400
+    algo.rnn.rnn_type = "LSTM"
+    algo.rnn.num_layers = 2
+    algo.rnn.open_loop = False
+    algo.rnn.kwargs.bidirectional = False
+    algo.rnn.kwargs.do_not_lock_keys()
+
+
+def _seq_backbone_defaults(section):
+    """Shared transformer/mamba backbone settings incl. tokenizer switches."""
+    section.enabled = False
+    section.context_length = 10
+    section.embed_dim = 512
+    section.num_layers = 6
+    section.num_heads = 8
+    section.emb_dropout = 0.1
+    section.attn_dropout = 0.1
+    section.block_output_dropout = 0.1
+    section.sinusoidal_embedding = False
+    section.activation = "gelu"
+    section.fast_enabled = False
+    section.bin_enabled = False
+    section.vq_vae_enabled = False
+    section.ln_act_enabled = True
+    section.supervise_all_steps = False
+    section.nn_parameter_for_timesteps = True
+    section.pred_future_acs = False
+    section.causal = True
+    section.remat = False  # extension: recompute blocks to save memory
+    # extension: backbone matmul precision. "bfloat16" runs the
+    # attention/MLP matmuls in bf16 with fp32 params and accumulation;
+    # softmax, LayerNorm and the residual stream stay fp32, and the VQ
+    # tokenizer always stays fp32 for token-ID parity. Set "float32" for
+    # bit-level reference parity runs.
+    section.compute_dtype = "bfloat16"
+    # extension: backbone residual-stream precision. "bfloat16" keeps the
+    # residual stream in bf16 (LayerNorm statistics, attention softmax and
+    # the final output stay fp32). The fp32 default preserves reference
+    # training dynamics.
+    section.activation_dtype = "float32"
+
+
+class ICLConfig(BaseConfig):
+    ALGO_NAME = "icl"
+
+    def train_config(self):
+        super().train_config()
+        self.train.hdf5_load_next_obs = False
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        _loss_defaults(algo)
+        algo.actor_layer_dims = [1024, 1024]
+        _gaussian_defaults(algo)
+        _gmm_defaults(algo)
+        _vae_defaults(algo)
+        _rnn_defaults(algo)
+        _seq_backbone_defaults(algo.transformer)
+        algo.language_conditioned = False
+        # extensions (absent in reference, defaulted off/neutral):
+        algo.vq.optimizer_lr = 1e-3       # reference icl.py:885-889 hardcodes
+        algo.vq.optimizer_wd = 1e-4       # AdamW(lr=1e-3, weight_decay=1e-4)
+        algo.vq.num_codes = 1024          # reference backbone_lfqvae_v5.py:52
+        algo.vq.hidden_dim = 128
+        algo.vq.ema_codebook = False      # EMA codebook update (extension)
+        algo.vq.ema_decay = 0.99

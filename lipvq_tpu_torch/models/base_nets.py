@@ -1,0 +1,68 @@
+"""Base network building blocks (counterpart of ``lipvq_tpu/models/base_nets.py``).
+
+Parameters are created empty: every module that owns parameters has an
+``init_weights(generator)`` method, and ``seeded_init`` walks a module tree
+in registration order and calls it, so one ``torch.Generator`` decides all
+weights and the global RNG is never touched. Build on the CPU, initialize,
+then move: the same seed then gives the same weights on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialize every parameter of ``module`` from ``generator``."""
+    for m in module.modules():
+        init = getattr(m, "init_weights", None)
+        if init is not None:
+            init(generator)
+    return module
+
+
+class TorchLinear(nn.Module):
+    """Linear layer with torch.nn.Linear's default initialization,
+    U(+-1/sqrt(fan_in)) for weight and bias; fp32 math. ``weight`` is
+    [out, in], the transpose of the flax ``kernel``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+def gelu_exact(x):
+    """torch nn.GELU default: the exact erf formulation."""
+    return F.gelu(x)
+
+
+_ACTIVATIONS: dict[str, Callable] = {
+    "relu": F.relu,
+    "gelu": gelu_exact,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "none": lambda x: x,
+}
+
+
+def get_activation(name_or_fn):
+    if callable(name_or_fn):
+        return name_or_fn
+    return _ACTIVATIONS[name_or_fn]

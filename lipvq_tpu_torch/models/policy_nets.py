@@ -1,0 +1,46 @@
+"""ICL GMM actor (counterpart of ``ICLGMMActorNetwork`` in
+``lipvq_tpu/models/policy_nets.py``): the ICL MIMO composite with GMM output
+heads mean/scale [num_modes, ac_dim] and logits [num_modes], tanh-squashed
+means and low-noise eval."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lipvq_tpu_torch.models.distributions import GMMParams, make_gmm
+from lipvq_tpu_torch.models.obs_nets import ICLMIMOTransformer, ObsSpec, obs_spec
+
+
+def gmm_output_spec(num_modes: int, ac_dim: int) -> ObsSpec:
+    return obs_spec({"mean": (num_modes, ac_dim), "scale": (num_modes, ac_dim),
+                     "logits": (num_modes,)})
+
+
+class ICLGMMActorNetwork(nn.Module):
+    """ICL policy with a GMM head over a transformer backbone. Keyword
+    arguments besides the GMM ones go to ``ICLMIMOTransformer``."""
+
+    def __init__(self, group_specs: ObsSpec, ac_dim: int, *, num_modes: int = 5,
+                 min_std: float = 1e-4, std_activation: str = "softplus",
+                 low_noise_eval: bool = True, use_tanh: bool = False, **net_kwargs):
+        super().__init__()
+        self.min_std = min_std
+        self.std_activation = std_activation
+        self.low_noise_eval = low_noise_eval
+        self.use_tanh = use_tanh
+        self.net = ICLMIMOTransformer(
+            group_specs=group_specs, output_spec=gmm_output_spec(num_modes, ac_dim),
+            **net_kwargs)
+
+    def forward_train(self, obs, context_obs, actions, goal=None,
+                      low_noise_eval: bool | None = None) -> tuple[GMMParams, torch.Tensor]:
+        """(GMMParams over [B, T], vq_aux_loss) of the eval forward. With
+        low-noise eval every sigma is 1e-4."""
+        outputs, aux = self.net(obs, context_obs, actions, goal=goal)
+        if low_noise_eval is None:
+            low_noise_eval = self.low_noise_eval
+        dists = make_gmm(outputs["mean"], outputs["scale"], outputs["logits"],
+                         min_std=self.min_std, std_activation=self.std_activation,
+                         use_tanh_mean=not self.use_tanh, low_noise=bool(low_noise_eval))
+        return dists, aux

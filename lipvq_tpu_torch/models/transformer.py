@@ -1,0 +1,169 @@
+"""minGPT-style transformer backbone (counterpart of
+``lipvq_tpu/models/transformer.py``).
+
+Pre-LN blocks, QKV projection without bias, causal-or-full mask
+(``causal=False`` is *bidirectional* attention, which the ICL template
+uses), GELU or GEGLU MLP with hidden 4x, final LayerNorm, N(0, 0.02) linear
+init. LayerNorm eps is flax's 1e-6, not torch's 1e-5.
+
+``compute_dtype=torch.bfloat16`` follows the JAX package's mixed precision
+exactly: each Dense casts its input, weight and bias to bf16 and returns
+bf16; the attention scores and the attention-weighted values are
+accumulated in fp32 from bf16 operands; softmax, LayerNorm and the residual
+stream stay fp32 (bf16 with ``activation_dtype=torch.bfloat16``).
+
+Attention runs over 30 tokens at the ICL scale, so it is a plain matmul +
+softmax: the JAX package leaves it to XLA too. Dropout is training and is
+not ported yet; this module computes the eval forward.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lipvq_tpu_torch.models.base_nets import gelu_exact
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense(dtype=compute_dtype)`` with the GPT init: weight
+    [out, in] ~ N(0, 0.02), zero bias."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.normal_(0.0, 0.02, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        if cd is None:
+            return F.linear(x, self.weight, self.bias)
+        bias = self.bias.to(cd) if self.bias is not None else None
+        return F.linear(x.to(cd), self.weight.to(cd), bias)
+
+
+def layer_norm(ln: nn.LayerNorm, x):
+    """LayerNorm in fp32 with fp32 output, as flax computes it."""
+    return ln(x.float())
+
+
+class GEGLU(nn.Module):
+    """a * gelu(b) over a channel split."""
+
+    def forward(self, x):
+        a, b = x.chunk(2, dim=-1)
+        return a * gelu_exact(b)
+
+
+def sinusoidal_position_encoding(timesteps: torch.Tensor, embed_dim: int) -> torch.Tensor:
+    """Standard sin/cos positional encoding: timesteps [B, T] float ->
+    [B, T, embed_dim]."""
+    half = torch.as_tensor(np.arange(0, embed_dim, 2), dtype=torch.float32,
+                           device=timesteps.device)
+    div_term = torch.exp(half * (-math.log(10000.0) / embed_dim))
+    args = timesteps[..., None].float() * div_term
+    pe = torch.zeros(timesteps.shape + (embed_dim,), device=timesteps.device)
+    pe[..., 0::2] = torch.sin(args)
+    pe[..., 1::2] = torch.cos(args)
+    return pe
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, embed_dim: int, num_heads: int, context_length: int,
+                 causal: bool = True, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.context_length = context_length
+        self.causal = causal
+        self.compute_dtype = compute_dtype
+        self.qkv = Dense(embed_dim, 3 * embed_dim, bias=False, compute_dtype=compute_dtype)
+        self.output = Dense(embed_dim, embed_dim, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        if d != self.embed_dim or t > self.context_length:
+            raise ValueError(f"attention takes [B, <={self.context_length}, "
+                             f"{self.embed_dim}], got {tuple(x.shape)}")
+        nh = self.num_heads
+        dh = d // nh
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        q, k, v = (a.reshape(b, t, nh, dh).transpose(1, 2) for a in (q, k, v))
+        # fp32 accumulation of bf16 operands: the products are exact in fp32
+        att = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+        if self.causal:
+            mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
+            att = att.masked_fill(~mask, float("-inf"))
+        att = torch.softmax(att, dim=-1)
+        if self.compute_dtype is not None:
+            att = att.to(self.compute_dtype)  # fp32 softmax result -> bf16 operand
+        y = (att.float() @ v.float()).to(x.dtype)
+        y = y.transpose(1, 2).reshape(b, t, d)
+        return self.output(y)
+
+
+class SelfAttentionBlock(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, embed_dim: int, num_heads: int, context_length: int,
+                 causal: bool = True, activation: str = "gelu",
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.attention = SelfAttention(embed_dim, num_heads, context_length,
+                                       causal=causal, compute_dtype=compute_dtype)
+        self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        mult = 2 if activation == "geglu" else 1
+        self.mlp_fc = Dense(embed_dim, 4 * embed_dim * mult, compute_dtype=compute_dtype)
+        self.mlp_act = GEGLU() if activation == "geglu" else gelu_exact
+        self.mlp_proj = Dense(4 * embed_dim, embed_dim, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        # torch promotes bf16 + fp32 to fp32 as JAX does, so the residual
+        # stream keeps the dtype the JAX block gives it
+        x = x + self.attention(layer_norm(self.ln1, x))
+        h = self.mlp_proj(self.mlp_act(self.mlp_fc(layer_norm(self.ln2, x))))
+        return x + h.to(x.dtype)
+
+
+class GPTBackbone(nn.Module):
+    """Stack of SelfAttentionBlocks (``block_{i}``) + output LayerNorm."""
+
+    def __init__(self, embed_dim: int, context_length: int, causal: bool = True,
+                 num_layers: int = 6, num_heads: int = 8, activation: str = "gelu",
+                 compute_dtype: torch.dtype | None = None,
+                 activation_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.context_length = context_length
+        self.num_layers = num_layers
+        self.activation_dtype = activation_dtype
+        for i in range(num_layers):
+            self.add_module(f"block_{i}", SelfAttentionBlock(
+                embed_dim, num_heads, context_length, causal=causal,
+                activation=activation, compute_dtype=compute_dtype))
+        self.output_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
+
+    def forward(self, x):
+        if tuple(x.shape[1:]) != (self.context_length, self.embed_dim):
+            raise ValueError(f"backbone takes [B, {self.context_length}, "
+                             f"{self.embed_dim}], got {tuple(x.shape)}")
+        if self.activation_dtype is not None:
+            x = x.to(self.activation_dtype)
+        for i in range(self.num_layers):
+            x = getattr(self, f"block_{i}")(x)
+        return layer_norm(self.output_ln, x)

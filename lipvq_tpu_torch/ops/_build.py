@@ -1,0 +1,85 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``build/lib<name>-<digest>.so``; the digest covers the source and the
+flags, so an edited source never loads a stale library. Nothing is built when
+a module is imported: the first call that needs a kernel builds it, and
+``build`` starts one nvcc per source, all at once, for callers that want the
+build out of the way up front (``chip_smoke.py``).
+
+There is no fallback: a missing nvcc or a failed compile raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
+                       "kernels of lipvq_tpu_torch build only where it is")
+
+
+def library_path(name: str) -> Path:
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names) -> dict[str, tuple[float, str]]:
+    """Compile every named source that has no up-to-date library, one nvcc
+    process per source, all started together. Returns {name: (seconds,
+    compiler log)}; a library already built reports (0.0, "")."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    results = {}
+    for name in names:
+        out = library_path(name)
+        if out.is_file():
+            results[name] = (0.0, "")
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu (exit "
+                               f"{proc.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        results[name] = (seconds, log)
+    return results
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib

@@ -3,8 +3,10 @@
 - ``register_algo_factory_func`` / ``algo_factory`` (reference algo.py:34-89)
 - ``Algo``: obs-key partitioning and device placement. The port's
   algorithms hold their networks as one ``nn.Module`` (``self.nets``) on
-  ``self.device``. Optimizers and the train step belong to training and are
-  not ported yet.
+  ``self.device``.
+- ``lr_schedule_from_config`` / ``optimizer_from_optim_params``: the optax
+  chain clip-by-global-norm -> (L2) -> Adam/AdamW(schedule) of the JAX
+  package as a ``ScheduledOptimizer`` (reference torch_utils.py:90-196).
 
 Entry points run on the card: with no ``device`` given, ``algo_factory``
 takes CUDA and raises where there is none. Pass ``device="cpu"`` to run on
@@ -13,7 +15,8 @@ the CPU.
 
 from __future__ import annotations
 
-from collections.abc import Callable, Mapping
+import math
+from collections.abc import Callable, Mapping, Sequence
 
 import torch
 
@@ -60,6 +63,123 @@ def algo_factory(algo_name: str, config, obs_key_shapes: dict, ac_dim: int,
     )
 
 
+def lr_schedule_from_config(optim_params, num_training_steps: int | None = None
+                            ) -> Callable[[int], float]:
+    """The learning rate at each update count 0, 1, ... (the optax
+    schedules of the JAX package). As there, ``multistep`` milestones are
+    step counts, not epochs (reference icl.py:204-227 steps the scheduler
+    once per gradient step)."""
+    lr_cfg = optim_params["learning_rate"]
+    lr = float(lr_cfg["initial"])
+    sched_type = lr_cfg.get("scheduler_type", "constant_with_warmup")
+    warmup = int(lr_cfg.get("num_warmup_steps", 10000))
+    decay_factor = float(lr_cfg.get("decay_factor", 0.1))
+
+    def linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+        if steps <= 0:
+            return lambda step: init
+        return lambda step: (init - end) * (1 - min(max(step, 0), steps) / steps) + end
+
+    if sched_type in (None, "none", "constant"):
+        return lambda step: lr
+    if sched_type == "constant_with_warmup":
+        ramp = linear(0.0, lr, warmup)
+        return lambda step: ramp(step) if step < warmup else lr
+    if sched_type == "linear":
+        return linear(lr, lr * decay_factor, warmup)
+    if sched_type == "multistep":
+        milestones = sorted({int(m) for m in lr_cfg["epoch_schedule"]})
+        if not milestones:
+            raise ValueError("the multistep schedule needs epoch_schedule milestones")
+        return lambda step: lr * decay_factor ** sum(step >= m for m in milestones)
+    if sched_type == "cosine":
+        if num_training_steps is None:
+            raise ValueError("the cosine schedule needs num_training_steps")
+        ramp = linear(0.0, lr, warmup)
+        decay_steps = num_training_steps - warmup
+        if decay_steps <= 0:
+            raise ValueError("the cosine schedule needs num_training_steps > "
+                             "num_warmup_steps")
+
+        def cosine(step: int) -> float:
+            if step < warmup:
+                return ramp(step)
+            count = min(step - warmup, decay_steps)
+            return lr * 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+
+        return cosine
+    raise ValueError(f"Invalid LR scheduler type: {sched_type}")
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm), on
+    the device: no host sync."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: when the global norm reaches
+    ``max_norm``, every grad is scaled by max_norm / norm."""
+    norm = global_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(list(grads), scale)
+
+
+class ScheduledOptimizer:
+    """A torch optimizer over ``params`` with an optional global-norm clip
+    run first and a learning rate set from ``schedule`` at each step, as
+    the optax chain of the JAX package applies them."""
+
+    def __init__(self, params, optimizer_cls, schedule: Callable[[int], float],
+                 max_grad_norm: float | None = None, **optimizer_kwargs):
+        self.params = list(params)
+        self.schedule = schedule
+        self.max_grad_norm = max_grad_norm
+        self.optimizer = optimizer_cls(self.params, lr=schedule(0), **optimizer_kwargs)
+        self.steps = 0
+
+    def grads(self) -> list[torch.Tensor]:
+        """Every param's grad; a param that got none gets zeros, so that
+        decay and the moments apply to it as they do in optax."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    def step(self) -> None:
+        """Clip (if set), update with the current learning rate, then
+        advance the schedule."""
+        grads = self.grads()
+        if self.max_grad_norm is not None:
+            clip_by_global_norm_(grads, float(self.max_grad_norm))
+        self.optimizer.step()
+        self.steps += 1
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedule(self.steps)
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+
+def optimizer_from_optim_params(params, optim_params, max_grad_norm: float | None = None,
+                                num_training_steps: int | None = None) -> ScheduledOptimizer:
+    """Adam with L2 added into the gradient (torch ``Adam(weight_decay=)``,
+    optax ``add_decayed_weights`` before ``adam``) or decoupled AdamW, with
+    the schedule and an optional global-norm clip (reference
+    torch_utils.py:90-120 + backprop_for_loss:196)."""
+    schedule = lr_schedule_from_config(optim_params, num_training_steps)
+    wd = float(optim_params["regularization"]["L2"])
+    opt_type = optim_params.get("optimizer_type", "adam")
+    if opt_type == "adam":
+        cls = torch.optim.Adam
+    elif opt_type == "adamw":
+        cls = torch.optim.AdamW
+    else:
+        raise ValueError(opt_type)
+    return ScheduledOptimizer(params, cls, schedule, max_grad_norm=max_grad_norm,
+                              weight_decay=wd, eps=1e-8)
+
+
 class Algo:
     """Base algorithm lifecycle (reference algo.py:92-350)."""
 
@@ -74,6 +194,7 @@ class Algo:
         self.nets: torch.nn.Module | None = None
         self._create_shapes(obs_config.modalities, obs_key_shapes)
         self._create_networks()
+        self._create_optimizers()
 
     def _create_shapes(self, obs_keys, obs_key_shapes):
         """Partition obs keys into obs/goal/subgoal shape dicts
@@ -100,11 +221,31 @@ class Algo:
     def _create_networks(self):
         raise NotImplementedError
 
+    def _create_optimizers(self):
+        pass
+
     def process_batch_for_training(self, batch):
         return batch
 
     def get_action(self, obs_dict, goal_dict=None):
         raise NotImplementedError
+
+    def train_on_batch(self, batch, epoch, validate: bool = False):
+        raise NotImplementedError
+
+    def log_info(self, info) -> dict:
+        return {"Loss": float(info["losses"]["action_loss"])}
+
+    # the train step takes ``train`` explicitly, as the JAX one does, so the
+    # mode switches of the training loop have nothing to do
+    def set_train(self):
+        pass
+
+    def set_eval(self):
+        pass
+
+    def on_epoch_end(self, epoch):
+        pass
 
 
 class PolicyAlgo(Algo):

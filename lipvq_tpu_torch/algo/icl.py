@@ -1,14 +1,20 @@
-"""ICL (in-context imitation learning) policy, inference half (counterpart of
+"""ICL (in-context imitation learning) policy (counterpart of
 ``ICLTransformerGMM`` in ``lipvq_tpu/algo/icl.py``).
 
 - networks built from the config, initialized from ``train.seed``;
+- two optimizers: the policy's (Adam with L2 or AdamW, schedule, global-norm
+  clip) over every parameter outside the action tokenizer, and the
+  tokenizer's AdamW(``vq.optimizer_lr``, wd ``vq.optimizer_wd``), no clip
+  (reference icl.py:885-889);
+- ``train_on_batch``: the first half of the batch is the context, the second
+  the queries (reference icl.py:904-911); GMM NLL of the query actions plus
+  the tokenizer's loss, one backward, both optimizers stepped; with the EMA
+  codebook the smoothed EMA means overwrite the touched codes last;
 - ``process_batch_for_training`` slices the context window and picks the
   current/future action windows (reference icl.py:759-794);
 - ``get_action`` runs the eval forward under ``torch.inference_mode()`` with
   low-noise GMM sampling and takes ``[:, 0]`` when ``pred_future_acs`` else
   ``[:, -1]`` (reference icl.py:845-852).
-
-The two optimizers and the train step come with the training slice.
 """
 
 from __future__ import annotations
@@ -16,9 +22,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lipvq_tpu_torch.algo.base import PolicyAlgo, register_algo_factory_func
+from lipvq_tpu_torch.algo.base import (
+    PolicyAlgo,
+    ScheduledOptimizer,
+    global_norm,
+    optimizer_from_optim_params,
+    register_algo_factory_func,
+)
 from lipvq_tpu_torch.models.base_nets import seeded_init
-from lipvq_tpu_torch.models.distributions import gmm_sample
+from lipvq_tpu_torch.models.distributions import GMMParams, gmm_log_prob, gmm_sample
 from lipvq_tpu_torch.models.obs_nets import obs_spec
 from lipvq_tpu_torch.models.policy_nets import ICLGMMActorNetwork
 from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs
@@ -61,6 +73,7 @@ class ICLTransformerGMM(PolicyAlgo):
         if self.goal_shapes:
             group_specs.append(("goal", obs_spec(self.goal_shapes)))
         vq_cfg = self.algo_config.get("vq", {})
+        self.vq_ema = self.vq_vae_enabled and bool(vq_cfg.get("ema_codebook", False))
         gmm = self.algo_config.gmm
         self.nets = ICLGMMActorNetwork(
             group_specs=tuple(group_specs),
@@ -74,9 +87,13 @@ class ICLTransformerGMM(PolicyAlgo):
             num_heads=int(tc.num_heads),
             context_length=self.context_length,
             causal=bool(tc.causal),
+            emb_dropout=float(tc.emb_dropout),
+            attn_dropout=float(tc.attn_dropout),
+            block_output_dropout=float(tc.block_output_dropout),
             sinusoidal_embedding=bool(tc.sinusoidal_embedding),
             nn_parameter_for_timesteps=bool(tc.nn_parameter_for_timesteps),
             activation=str(tc.activation),
+            remat=bool(tc.get("remat", False)),
             compute_dtype=_torch_dtype(tc.get("compute_dtype", "float32")),
             activation_dtype=_torch_dtype(tc.get("activation_dtype", "float32")),
             action_input_shape=self.ac_dim,
@@ -86,7 +103,8 @@ class ICLTransformerGMM(PolicyAlgo):
             ln_act_enabled=bool(tc.ln_act_enabled),
             vq_num_codes=int(vq_cfg.get("num_codes", 1024)),
             vq_hidden_dim=int(vq_cfg.get("hidden_dim", 128)),
-            vq_ema_codebook=bool(vq_cfg.get("ema_codebook", False)),
+            vq_ema_codebook=self.vq_ema,
+            vq_ema_decay=float(vq_cfg.get("ema_decay", 0.99)),
             encoder_cores=encoder_cores_from_config(self.obs_config, self.obs_shapes),
         )
         # initialize on the CPU, then move: one seed, the same weights on
@@ -95,6 +113,26 @@ class ICLTransformerGMM(PolicyAlgo):
         seeded_init(self.nets, torch.Generator().manual_seed(seed))
         self.nets.to(self.device)
         self._generator = torch.Generator(device=self.device).manual_seed(seed + 2)
+        self._dropout_generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+
+    def _create_optimizers(self):
+        """Policy optimizer over every parameter outside the tokenizer, VQ
+        AdamW over the tokenizer (reference icl.py:885-889)."""
+        vq_params = []
+        if self.vq_vae_enabled:
+            vq_params = list(self.nets.net.encoder.action_network.parameters())
+        vq_ids = {id(p) for p in vq_params}
+        policy_params = [p for p in self.nets.parameters() if id(p) not in vq_ids]
+        self.policy_optimizer = optimizer_from_optim_params(
+            policy_params, self.algo_config.optim_params.policy,
+            max_grad_norm=self.global_config.train.max_grad_norm)
+        self.vq_optimizer = None
+        if vq_params:
+            vq_cfg = self.algo_config.get("vq", {})
+            lr = float(vq_cfg.get("optimizer_lr", 1e-3))
+            self.vq_optimizer = ScheduledOptimizer(
+                vq_params, torch.optim.AdamW, lambda step: lr,
+                weight_decay=float(vq_cfg.get("optimizer_wd", 1e-4)), eps=1e-8)
 
     # -- data prep (host side, numpy) --------------------------------------
     def process_batch_for_training(self, batch):
@@ -119,6 +157,63 @@ class ICLTransformerGMM(PolicyAlgo):
             # supervises only the final timestep
             out["actions"] = actions[:, :h]
         return out
+
+    def _put_batch(self, batch):
+        """Host batch -> float32 tensors on ``self.device`` (None stays)."""
+        return {k: None if v is None else self._put_infer(v) for k, v in batch.items()}
+
+    # -- training ----------------------------------------------------------
+    def _policy_loss(self, dists: GMMParams, target_act) -> torch.Tensor:
+        """GMM NLL (reference icl.py:947-974), the last step only when not
+        every step is supervised."""
+        if not self.supervise_all_steps:
+            dists = GMMParams(*(a[:, -1] for a in dists))
+            target_act = target_act[:, -1]
+        return -torch.mean(gmm_log_prob(dists, target_act))
+
+    def train_on_batch(self, batch, epoch, validate: bool = False):
+        """One step on a processed batch (``process_batch_for_training``).
+        Returns {"losses": {action_loss, log_probs, vq_loss,
+        policy_grad_norms}} as device scalars: nothing is fetched to the
+        host. ``validate=True`` runs the loss without dropout, EMA update or
+        parameter change, with ``policy_grad_norms`` 0."""
+        batch = self._put_batch(batch)
+        obs, actions, goal = batch["obs"], batch["actions"], batch.get("goal_obs")
+        mid = next(iter(obs.values())).shape[0] // 2
+        ctx_obs = {k: v[:mid] for k, v in obs.items()}
+        qry_obs = {k: v[mid:] for k, v in obs.items()}
+        ctx_act, qry_act = actions[:mid], actions[mid:]
+        train = not validate
+        with torch.set_grad_enabled(train):
+            dists, aux = self.nets.forward_train(
+                qry_obs, ctx_obs, ctx_act, goal=goal, train=train, low_noise_eval=False,
+                generator=self._dropout_generator if train else None)
+            action_loss = self._policy_loss(dists, qry_act)
+        if validate:
+            grad_norm = torch.zeros((), device=self.device)
+        else:
+            (action_loss + aux).backward()
+            optimizers = [o for o in (self.policy_optimizer, self.vq_optimizer) if o]
+            # the norm of every grad, taken before the policy's clip
+            grad_norm = global_norm([g for o in optimizers for g in o.grads()])
+            for o in optimizers:
+                o.step()
+                o.zero_grad()
+            if self.vq_ema:
+                self.nets.net.encoder.action_network.apply_ema_codebook()
+        action_loss = action_loss.detach()
+        return {"losses": {"action_loss": action_loss, "log_probs": -action_loss,
+                           "vq_loss": aux.detach(), "policy_grad_norms": grad_norm}}
+
+    def log_info(self, info) -> dict:
+        losses = info["losses"]
+        log = {"Loss": float(losses["action_loss"]),
+               "Log_Likelihood": float(losses["log_probs"])}
+        if self.vq_vae_enabled:
+            log["VQ_Loss"] = float(losses["vq_loss"])
+        if "policy_grad_norms" in losses:
+            log["Policy_Grad_Norms"] = float(losses["policy_grad_norms"])
+        return log
 
     # -- inference ---------------------------------------------------------
     def _get_action_impl(self, obs, ctx_obs, ctx_act, goal):

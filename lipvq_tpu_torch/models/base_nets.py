@@ -47,6 +47,23 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            train: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(u < 1 - p, x / (1 - p), 0)`` with u drawn
+    from ``generator`` (on ``x``'s device); identity outside training or at
+    p = 0. Keeps ``x``'s dtype. ``F.dropout`` takes no generator, so the
+    mask is drawn here."""
+    if not train or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - p
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def gelu_exact(x):
     """torch nn.GELU default: the exact erf formulation."""
     return F.gelu(x)

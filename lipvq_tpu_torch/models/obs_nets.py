@@ -11,7 +11,9 @@
 
 Only the LipVQ-VAE tokenizer and low-dim observations are ported so far; the
 other tokenizers and the visual cores raise ``NotImplementedError`` naming
-their ROADMAP item. Modules compute the eval forward: dropout is training.
+their ROADMAP item. ``train=True`` turns on the embedding and backbone
+dropout (masks from the ``generator`` passed with it) and the tokenizer's
+EMA codebook statistics.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
-from lipvq_tpu_torch.models.base_nets import TorchLinear, get_activation
+from lipvq_tpu_torch.models.base_nets import TorchLinear, dropout, get_activation
 from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from lipvq_tpu_torch.models.transformer import LN_EPS, GPTBackbone
 
@@ -133,7 +135,8 @@ class ICLObservationGroupEncoder(nn.Module):
                  vq_vae_enabled: bool = False, bin_enabled: bool = False,
                  fast_enabled: bool = False, ln_act_enabled: bool = False,
                  vq_num_codes: int = 1024, vq_hidden_dim: int = 128,
-                 vq_ema_codebook: bool = False, encoder_cores: ObsSpec = ()):
+                 vq_ema_codebook: bool = False, vq_ema_decay: float = 0.99,
+                 encoder_cores: ObsSpec = ()):
         super().__init__()
         self.group_encoder = ObservationGroupEncoder(
             group_specs, feature_activation=None, encoder_cores=encoder_cores)
@@ -152,18 +155,19 @@ class ICLObservationGroupEncoder(nn.Module):
         self.action_network = LipVQVAE(
             feature_dim=action_input_shape, latent_dim=self.output_dim,
             num_codes=vq_num_codes, hidden_dim=vq_hidden_dim,
-            ema_codebook=vq_ema_codebook)
+            ema_codebook=vq_ema_codebook, ema_decay=vq_ema_decay)
 
-    def forward(self, obs, prompt_obs, prompt_actions, goal=None):
+    def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False):
         """Flattened [B*T, ...] inputs -> (obs_feat, ctx_obs_feat,
-        ctx_act_feat, vq_aux_loss)."""
+        ctx_act_feat, vq_aux_loss). ``train`` reaches the tokenizer (EMA
+        codebook statistics)."""
         groups = {"obs": obs}
         ctx_groups = {"obs": prompt_obs}
         if goal is not None:
             groups["goal"] = ctx_groups["goal"] = goal
         obs_feat = self.group_encoder(**groups)
         ctx_obs_feat = self.group_encoder(**ctx_groups)
-        ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions)
+        ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
         return obs_feat, ctx_obs_feat, ctx_act_feat, aux_loss
 
 
@@ -173,15 +177,17 @@ class ICLMIMOTransformer(nn.Module):
     def __init__(self, group_specs: ObsSpec, output_spec: ObsSpec,
                  backbone: str = "transformer", embed_dim: int = 512,
                  num_layers: int = 6, num_heads: int = 8, context_length: int = 10,
-                 causal: bool = False, sinusoidal_embedding: bool = False,
+                 causal: bool = False, emb_dropout: float = 0.1,
+                 attn_dropout: float = 0.1, block_output_dropout: float = 0.1,
+                 sinusoidal_embedding: bool = False,
                  nn_parameter_for_timesteps: bool = True, activation: str = "gelu",
-                 compute_dtype: torch.dtype | None = None,
+                 remat: bool = False, compute_dtype: torch.dtype | None = None,
                  activation_dtype: torch.dtype | None = None,
                  action_input_shape: int = 12, vq_vae_enabled: bool = False,
                  bin_enabled: bool = False, fast_enabled: bool = False,
                  ln_act_enabled: bool = False, vq_num_codes: int = 1024,
                  vq_hidden_dim: int = 128, vq_ema_codebook: bool = False,
-                 encoder_cores: ObsSpec = ()):
+                 vq_ema_decay: float = 0.99, encoder_cores: ObsSpec = ()):
         super().__init__()
         if backbone != "transformer":
             raise NotImplementedError("the Mamba backbone is ROADMAP queue 1, "
@@ -191,30 +197,36 @@ class ICLMIMOTransformer(nn.Module):
                                       "ROADMAP queue 1, item 5; not ported yet")
         self.embed_dim = embed_dim
         self.context_length = context_length
+        self.emb_dropout = emb_dropout
         self.encoder = ICLObservationGroupEncoder(
             group_specs, action_input_shape, vq_vae_enabled=vq_vae_enabled,
             bin_enabled=bin_enabled, fast_enabled=fast_enabled,
             ln_act_enabled=ln_act_enabled, vq_num_codes=vq_num_codes,
             vq_hidden_dim=vq_hidden_dim, vq_ema_codebook=vq_ema_codebook,
-            encoder_cores=encoder_cores)
+            vq_ema_decay=vq_ema_decay, encoder_cores=encoder_cores)
         self.embed_encoder = TorchLinear(self.encoder.output_dim, embed_dim)
         self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.embed_timestep = nn.Parameter(torch.empty(1, context_length, embed_dim))
         self.transformer = GPTBackbone(
             embed_dim=embed_dim, context_length=3 * context_length, causal=causal,
+            attn_dropout=attn_dropout, block_output_dropout=block_output_dropout,
             num_layers=num_layers, num_heads=num_heads, activation=activation,
-            compute_dtype=compute_dtype, activation_dtype=activation_dtype)
+            remat=remat, compute_dtype=compute_dtype, activation_dtype=activation_dtype)
         self.decoder = ObservationDecoder(embed_dim, output_spec)
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.embed_timestep.zero_()
 
-    def input_embedding(self, feats):
-        """Linear embed + learned per-timestep offset + LN. feats [B, T, D_in]."""
-        return self.embed_ln(self.embed_encoder(feats) + self.embed_timestep)
+    def input_embedding(self, feats, train: bool = False,
+                        generator: torch.Generator | None = None):
+        """Linear embed + learned per-timestep offset + LN + dropout.
+        feats [B, T, D_in]."""
+        emb = self.embed_ln(self.embed_encoder(feats) + self.embed_timestep)
+        return dropout(emb, self.emb_dropout, generator, train)
 
-    def forward(self, obs, prompt_obs, prompt_actions, goal=None):
+    def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False,
+                generator: torch.Generator | None = None):
         """All obs leaves [B, T, ...]; prompt_actions [B, T, A].
         Returns (outputs dict of [B, T, ...], vq_aux_loss)."""
         b, t = next(iter(obs.values())).shape[:2]
@@ -224,14 +236,14 @@ class ICLMIMOTransformer(nn.Module):
 
         obs_f, ctx_obs_f, ctx_act_f, aux = self.encoder(
             flat(obs), flat(prompt_obs), prompt_actions.reshape(b * t, -1),
-            goal=flat(goal) if goal is not None else None)
-        obs_emb = self.input_embedding(obs_f.reshape(b, t, -1))
-        ctx_obs_emb = self.input_embedding(ctx_obs_f.reshape(b, t, -1))
-        ctx_act_emb = self.input_embedding(ctx_act_f.reshape(b, t, -1))
+            goal=flat(goal) if goal is not None else None, train=train)
+        obs_emb = self.input_embedding(obs_f.reshape(b, t, -1), train, generator)
+        ctx_obs_emb = self.input_embedding(ctx_obs_f.reshape(b, t, -1), train, generator)
+        ctx_act_emb = self.input_embedding(ctx_act_f.reshape(b, t, -1), train, generator)
         # interleave [ctx_obs_0, ctx_act_0, ctx_obs_1, ...], then the T
         # query-obs tokens
         interleaved = torch.stack([ctx_obs_emb, ctx_act_emb], dim=2).reshape(
             b, 2 * t, self.embed_dim)
         tokens = torch.cat([interleaved, obs_emb], dim=1)  # [B, 3T, D]
-        hidden = self.transformer(tokens)
+        hidden = self.transformer(tokens, train, generator)
         return self.decoder(hidden[:, -t:]), aux

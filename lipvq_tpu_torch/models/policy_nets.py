@@ -33,13 +33,18 @@ class ICLGMMActorNetwork(nn.Module):
             group_specs=group_specs, output_spec=gmm_output_spec(num_modes, ac_dim),
             **net_kwargs)
 
-    def forward_train(self, obs, context_obs, actions, goal=None,
-                      low_noise_eval: bool | None = None) -> tuple[GMMParams, torch.Tensor]:
-        """(GMMParams over [B, T], vq_aux_loss) of the eval forward. With
-        low-noise eval every sigma is 1e-4."""
-        outputs, aux = self.net(obs, context_obs, actions, goal=goal)
+    def forward_train(self, obs, context_obs, actions, goal=None, train: bool = False,
+                      low_noise_eval: bool | None = None,
+                      generator: torch.Generator | None = None,
+                      ) -> tuple[GMMParams, torch.Tensor]:
+        """(GMMParams over [B, T], vq_aux_loss). ``train`` turns on dropout
+        (masks from ``generator``) and the EMA codebook statistics. With
+        low-noise eval, outside training, every sigma is 1e-4."""
+        outputs, aux = self.net(obs, context_obs, actions, goal=goal, train=train,
+                                generator=generator)
         if low_noise_eval is None:
             low_noise_eval = self.low_noise_eval
+        low_noise_eval = bool(low_noise_eval) and not train
         dists = make_gmm(outputs["mean"], outputs["scale"], outputs["logits"],
                          min_std=self.min_std, std_activation=self.std_activation,
                          use_tanh_mean=not self.use_tanh, low_noise=bool(low_noise_eval))

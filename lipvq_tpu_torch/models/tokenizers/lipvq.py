@@ -12,9 +12,15 @@
   Linear(hidden, feature)
 - loss = recon + 0.25 * commit + 0.25 * codebook; the returned latent is
   detached, so the policy loss never trains the tokenizer.
+- ``ema_codebook``: the codebook trains through EMA cluster statistics
+  instead of the codebook loss (loss = recon + 0.25 * commit). In a
+  training forward one call of ``vq_nearest_with_stats`` (kernel K2 on the
+  card) gives the ids, counts and sums, which update the buffers
+  ``ema_cluster_size`` [N] and ``ema_embed_sum`` [N, D];
+  ``apply_ema_codebook`` then writes the smoothed means into the codebook
+  after the optimizer step, as the JAX train step does.
 
 The tokenizer always runs in fp32, whatever the backbone's compute dtype.
-The EMA codebook update belongs to training and is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lipvq_tpu_torch.models.base_nets import TorchLinear, gelu_exact
-from lipvq_tpu_torch.ops.vq_lookup import vq_nearest
+from lipvq_tpu_torch.ops.vq_lookup import vq_nearest, vq_nearest_with_stats
 
 
 def lipschitz_normalize(w_row_major: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
@@ -75,6 +81,12 @@ class LFQQuantizer(nn.Module):
         z_q = self.codebook[ids]  # differentiable wrt the codebook
         return z_q, ids
 
+    def forward_with_stats(self, z_e):
+        """As ``forward``, plus the cluster stats (counts [N], sums [N, D]) of
+        the ids, from one lookup."""
+        ids, counts, sums = vq_nearest_with_stats(z_e, self.codebook)
+        return self.codebook[ids], ids, counts, sums
+
     def embed(self, ids):
         return self.codebook[ids]
 
@@ -83,12 +95,15 @@ class LipVQVAE(nn.Module):
     """The paper's LipVQ-VAE tokenizer (reference LLFQVAE_V4)."""
 
     def __init__(self, feature_dim: int, latent_dim: int, num_codes: int = 1024,
-                 hidden_dim: int = 128, ema_codebook: bool = False):
+                 hidden_dim: int = 128, ema_codebook: bool = False,
+                 ema_decay: float = 0.99, ema_eps: float = 1e-5):
         super().__init__()
+        self.ema_codebook = ema_codebook
+        self.ema_decay = ema_decay
+        self.ema_eps = ema_eps
         if ema_codebook:
-            raise NotImplementedError(
-                "the EMA codebook is training (ROADMAP queue 1, item 3); "
-                "not ported yet")
+            self.register_buffer("ema_cluster_size", torch.zeros(num_codes))
+            self.register_buffer("ema_embed_sum", torch.zeros(num_codes, latent_dim))
         self.enc1 = TorchLinear(feature_dim, 64)
         self.enc2 = TorchLinear(64, hidden_dim)
         self.to_latent = LipschitzDense(hidden_dim, latent_dim)
@@ -107,17 +122,37 @@ class LipVQVAE(nn.Module):
         h = gelu_exact(self.dec2(h))
         return self.to_output(h)
 
-    def forward(self, x):
-        """x [B, feature_dim] -> (z_latent [B, latent_dim], loss, ids [B])."""
+    def forward(self, x, train: bool = False):
+        """x [B, feature_dim] -> (z_latent [B, latent_dim], loss, ids [B]).
+        With the EMA codebook, a training forward also updates the EMA
+        buffers (in place, outside autograd)."""
         x = x.float()
         z_e = self.encode(x)
-        z_q, ids = self.quantizer(z_e)
+        if self.ema_codebook and train:
+            z_q, ids, counts, sums = self.quantizer.forward_with_stats(z_e)
+            with torch.no_grad():
+                d = self.ema_decay
+                self.ema_cluster_size.copy_(d * self.ema_cluster_size + (1 - d) * counts)
+                self.ema_embed_sum.copy_(d * self.ema_embed_sum + (1 - d) * sums)
+        else:
+            z_q, ids = self.quantizer(z_e)
         x_recon = self.decode(z_q)
         recon_loss = torch.mean((x_recon - x) ** 2)
         commitment_loss = torch.mean((z_q.detach() - z_e) ** 2)
-        codebook_loss = torch.mean((z_q - z_e.detach()) ** 2)
-        loss = recon_loss + 0.25 * commitment_loss + 0.25 * codebook_loss
+        if self.ema_codebook:
+            loss = recon_loss + 0.25 * commitment_loss
+        else:
+            codebook_loss = torch.mean((z_q - z_e.detach()) ** 2)
+            loss = recon_loss + 0.25 * commitment_loss + 0.25 * codebook_loss
         return z_q.detach(), loss, ids
+
+    @torch.no_grad()
+    def apply_ema_codebook(self) -> None:
+        """Write the EMA codebook into ``quantizer.codebook`` in place; codes
+        never assigned keep their value."""
+        self.quantizer.codebook.copy_(apply_ema_codebook(
+            self.quantizer.codebook, self.ema_cluster_size, self.ema_embed_sum,
+            eps=self.ema_eps))
 
     def tokenize(self, x):
         """Encode + quantize only: x -> token ids."""
@@ -127,3 +162,14 @@ class LipVQVAE(nn.Module):
     def detokenize(self, ids):
         """ids -> reconstructed actions via codebook + decoder."""
         return self.decode(self.quantizer.embed(ids))
+
+
+def apply_ema_codebook(codebook, ema_cluster_size, ema_embed_sum, eps: float = 1e-5):
+    """New codebook from EMA stats (VQ-VAE-2 Laplace smoothing); rows of codes
+    whose EMA count is 0 keep their current value."""
+    num_codes = codebook.shape[0]
+    n = ema_cluster_size.sum()
+    smoothed = (ema_cluster_size + eps) / (n + num_codes * eps) * n
+    new_codebook = ema_embed_sum / smoothed[:, None]
+    touched = (ema_cluster_size > 0)[:, None]
+    return torch.where(touched, new_codebook, codebook)

@@ -13,8 +13,11 @@ accumulated in fp32 from bf16 operands; softmax, LayerNorm and the residual
 stream stay fp32 (bf16 with ``activation_dtype=torch.bfloat16``).
 
 Attention runs over 30 tokens at the ICL scale, so it is a plain matmul +
-softmax: the JAX package leaves it to XLA too. Dropout is training and is
-not ported yet; this module computes the eval forward.
+softmax: the JAX package leaves it to XLA too. Dropout sits where flax puts
+it: on the fp32 softmax (before the bf16 cast), after the attention output
+Dense, and after ``mlp_proj`` once cast to the residual dtype. It is active
+only with ``train=True`` and draws its masks from the ``generator`` passed
+down with it.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lipvq_tpu_torch.models.base_nets import gelu_exact
+from lipvq_tpu_torch.models.base_nets import dropout, gelu_exact
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -84,17 +87,21 @@ def sinusoidal_position_encoding(timesteps: torch.Tensor, embed_dim: int) -> tor
 
 class SelfAttention(nn.Module):
     def __init__(self, embed_dim: int, num_heads: int, context_length: int,
-                 causal: bool = True, compute_dtype: torch.dtype | None = None):
+                 causal: bool = True, attn_dropout: float = 0.1,
+                 output_dropout: float = 0.1,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.context_length = context_length
         self.causal = causal
+        self.attn_dropout = attn_dropout
+        self.output_dropout = output_dropout
         self.compute_dtype = compute_dtype
         self.qkv = Dense(embed_dim, 3 * embed_dim, bias=False, compute_dtype=compute_dtype)
         self.output = Dense(embed_dim, embed_dim, compute_dtype=compute_dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: torch.Generator | None = None):
         b, t, d = x.shape
         if d != self.embed_dim or t > self.context_length:
             raise ValueError(f"attention takes [B, <={self.context_length}, "
@@ -109,22 +116,27 @@ class SelfAttention(nn.Module):
             mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
             att = att.masked_fill(~mask, float("-inf"))
         att = torch.softmax(att, dim=-1)
+        att = dropout(att, self.attn_dropout, generator, train)
         if self.compute_dtype is not None:
             att = att.to(self.compute_dtype)  # fp32 softmax result -> bf16 operand
         y = (att.float() @ v.float()).to(x.dtype)
         y = y.transpose(1, 2).reshape(b, t, d)
-        return self.output(y)
+        return dropout(self.output(y), self.output_dropout, generator, train)
 
 
 class SelfAttentionBlock(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, embed_dim: int, num_heads: int, context_length: int,
-                 causal: bool = True, activation: str = "gelu",
+                 causal: bool = True, attn_dropout: float = 0.1,
+                 output_dropout: float = 0.1, activation: str = "gelu",
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.output_dropout = output_dropout
         self.attention = SelfAttention(embed_dim, num_heads, context_length,
-                                       causal=causal, compute_dtype=compute_dtype)
+                                       causal=causal, attn_dropout=attn_dropout,
+                                       output_dropout=output_dropout,
+                                       compute_dtype=compute_dtype)
         self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
         mult = 2 if activation == "geglu" else 1
@@ -132,22 +144,26 @@ class SelfAttentionBlock(nn.Module):
         self.mlp_act = GEGLU() if activation == "geglu" else gelu_exact
         self.mlp_proj = Dense(4 * embed_dim, embed_dim, compute_dtype=compute_dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: torch.Generator | None = None):
         # torch promotes bf16 + fp32 to fp32 as JAX does, so the residual
         # stream keeps the dtype the JAX block gives it
-        x = x + self.attention(layer_norm(self.ln1, x))
+        x = x + self.attention(layer_norm(self.ln1, x), train, generator)
         h = self.mlp_proj(self.mlp_act(self.mlp_fc(layer_norm(self.ln2, x))))
-        return x + h.to(x.dtype)
+        return x + dropout(h.to(x.dtype), self.output_dropout, generator, train)
 
 
 class GPTBackbone(nn.Module):
     """Stack of SelfAttentionBlocks (``block_{i}``) + output LayerNorm."""
 
     def __init__(self, embed_dim: int, context_length: int, causal: bool = True,
+                 attn_dropout: float = 0.1, block_output_dropout: float = 0.1,
                  num_layers: int = 6, num_heads: int = 8, activation: str = "gelu",
-                 compute_dtype: torch.dtype | None = None,
+                 remat: bool = False, compute_dtype: torch.dtype | None = None,
                  activation_dtype: torch.dtype | None = None):
         super().__init__()
+        if remat:
+            raise NotImplementedError("rematerialized blocks are ROADMAP queue 1, "
+                                      "item 4; not ported yet")
         self.embed_dim = embed_dim
         self.context_length = context_length
         self.num_layers = num_layers
@@ -155,15 +171,16 @@ class GPTBackbone(nn.Module):
         for i in range(num_layers):
             self.add_module(f"block_{i}", SelfAttentionBlock(
                 embed_dim, num_heads, context_length, causal=causal,
+                attn_dropout=attn_dropout, output_dropout=block_output_dropout,
                 activation=activation, compute_dtype=compute_dtype))
         self.output_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False, generator: torch.Generator | None = None):
         if tuple(x.shape[1:]) != (self.context_length, self.embed_dim):
             raise ValueError(f"backbone takes [B, {self.context_length}, "
                              f"{self.embed_dim}], got {tuple(x.shape)}")
         if self.activation_dtype is not None:
             x = x.to(self.activation_dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, train, generator)
         return layer_norm(self.output_ln, x)

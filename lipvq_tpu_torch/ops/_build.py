@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/lib<name>-<digest>.so``; the digest covers the source and the
-flags, so an edited source never loads a stale library. Nothing is built when
+into ``build/lib<name>-<digest>.so``; the digest covers the source, every
+header under ``csrc/`` and the flags, so an edited source or shared header
+never loads a stale library. Nothing is built when
 a module is imported: the first call that needs a kernel builds it, and
 ``build`` starts one nvcc per source, all at once, for callers that want the
 build out of the way up front (``chip_smoke.py``).
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -8,7 +8,9 @@ key by joining with dots, with two renames:
 
 Every other leaf (``bias``, LipschitzDense ``W``/``b``/``ci``, the
 quantizer ``codebook``, ``embed_timestep``) keeps its name and layout. The
-bridge takes the tree as numpy arrays (``jax.tree.map(np.asarray, params)``
+EMA codebook's ``vq_stats`` collection (``ema_cluster_size``,
+``ema_embed_sum``) maps onto the tokenizer's buffers of the same names. The
+bridge takes the trees as numpy arrays (``jax.tree.map(np.asarray, params)``
 on the JAX side), so this module imports no JAX.
 """
 
@@ -40,7 +42,17 @@ def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def load_jax_params(algo, params_np: Mapping) -> None:
-    """Load the JAX algo's ``state.params`` (as numpy) into ``algo.nets``.
-    Every key must match: a missing or extra parameter raises."""
-    algo.nets.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = None) -> None:
+    """Load the JAX algo's ``state.params`` and, with the EMA codebook, its
+    ``state.extra_vars`` (``{"vq_stats": ...}``), as numpy, into
+    ``algo.nets``. Every key must match: a missing or extra parameter or
+    buffer raises."""
+    state = state_dict_from_jax_params(params_np)
+    for collection, tree in (extra_vars_np or {}).items():
+        if collection != "vq_stats":
+            raise KeyError(f"the port has no counterpart of the {collection!r} collection")
+        stats = state_dict_from_jax_params(tree)
+        if stats.keys() & state.keys():
+            raise KeyError(f"vq_stats repeats parameter keys {sorted(stats.keys() & state.keys())}")
+        state.update(stats)
+    algo.nets.load_state_dict(state, strict=True)

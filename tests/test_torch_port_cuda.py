@@ -1,4 +1,4 @@
-"""Kernel K1 on the card against its plain PyTorch version.
+"""Kernels K1 and K2 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and nvcc and skip without them. The machine
 with the card has no JAX, so this file imports none and runs without the
@@ -11,7 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from lipvq_tpu_torch.ops.vq_lookup import vq_nearest, vq_nearest_cuda, vq_nearest_reference
+from lipvq_tpu_torch.ops.vq_lookup import (
+    vq_cluster_stats,
+    vq_nearest,
+    vq_nearest_cuda,
+    vq_nearest_reference,
+    vq_nearest_with_stats,
+    vq_nearest_with_stats_cuda,
+    vq_nearest_with_stats_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +68,81 @@ def test_k1_wrapper_checks_and_counts(cuda):
     assert vq_nearest_cuda.launches == before
     vq_nearest(z, c)
     assert vq_nearest_cuda.launches == before + 1
+
+
+# K2's sums add each code's rows in ascending order; the plain version's
+# one_hot^T z is a cuBLAS fp32 product that may order them otherwise
+SUMS_RTOL, SUMS_ATOL = 1e-5, 1e-5
+
+
+def _k2_both(z, c, dev):
+    zt, ct = torch.from_numpy(z).to(dev), torch.from_numpy(c).to(dev)
+    got = vq_nearest_with_stats_cuda(zt, ct)
+    torch.cuda.synchronize()
+    want = vq_nearest_with_stats_reference(zt, ct)
+    return [a.cpu().numpy() for a in got], [a.cpu().numpy() for a in want]
+
+
+@pytest.mark.parametrize("b,n,d", [(300, 64, 16), (1, 1, 1), (70, 65, 791),
+                                   (300, 1024, 208)])
+def test_k2_equals_reference(cuda, b, n, d):
+    rng = np.random.default_rng(0)
+    z = rng.standard_normal((b, d), dtype=np.float32)
+    c = rng.standard_normal((n, d), dtype=np.float32)
+    (ids, counts, sums), (want_ids, want_counts, want_sums) = _k2_both(z, c, cuda)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(counts, want_counts)
+    assert counts.sum() == b
+    np.testing.assert_allclose(sums, want_sums, rtol=SUMS_RTOL, atol=SUMS_ATOL)
+
+
+def test_k2_ties_take_lowest_index(cuda):
+    z = np.asarray([[1.0, 0.0], [0.0, 1.0], [1.0, 0.0]], np.float32)
+    c = np.asarray([[5.0, 5.0], [1.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.0, 1.0]],
+                   np.float32)
+    (ids, counts, sums), _ = _k2_both(z, c, cuda)
+    np.testing.assert_array_equal(ids, [1, 3, 1])
+    np.testing.assert_array_equal(counts, [0, 2, 0, 1, 0])
+    np.testing.assert_array_equal(sums, [[0, 0], [2, 0], [0, 0], [0, 1], [0, 0]])
+
+
+def test_k2_sums_follow_row_order_and_repeat_bit_for_bit(cuda):
+    """Many rows on few codes: the sums equal a sequential fp32 sum over
+    ascending rows, exactly, and a second call gives the same bits."""
+    rng = np.random.default_rng(1)
+    z = (rng.standard_normal((4000, 33)) * 10.0 ** rng.integers(-3, 3, (4000, 1))
+         ).astype(np.float32)
+    c = rng.standard_normal((5, 33)).astype(np.float32)
+    zt, ct = torch.from_numpy(z).to(cuda), torch.from_numpy(c).to(cuda)
+    ids, counts, sums = vq_nearest_with_stats_cuda(zt, ct)
+    again = vq_nearest_with_stats_cuda(zt, ct)
+    torch.cuda.synchronize()
+    for a, b in zip((ids, counts, sums), again):
+        assert torch.equal(a, b)
+    ids_np = ids.cpu().numpy()
+    want = np.zeros((5, 33), np.float32)
+    for r in range(len(z)):
+        want[ids_np[r]] += z[r]  # one fp32 add per row, ascending
+    np.testing.assert_array_equal(sums.cpu().numpy(), want)
+    ref_counts, _ = vq_cluster_stats(zt, ids, 5)
+    assert torch.equal(counts, ref_counts)
+
+
+def test_k2_wrapper_checks_and_counts(cuda):
+    z = torch.zeros(4, 3, device=cuda)
+    c = torch.zeros(8, 3, device=cuda)
+    before = vq_nearest_with_stats_cuda.launches
+    k1_before = vq_nearest_cuda.launches
+    with pytest.raises(ValueError):
+        vq_nearest_with_stats_cuda(z.double(), c.double())
+    with pytest.raises(ValueError):
+        vq_nearest_with_stats_cuda(torch.zeros(3, 4, device=cuda).T, c)
+    with pytest.raises(ValueError):
+        vq_nearest_with_stats_cuda(z.cpu(), c)
+    with pytest.raises(ValueError):
+        vq_nearest_with_stats_cuda(z, torch.zeros(8, 4, device=cuda))
+    assert vq_nearest_with_stats_cuda.launches == before
+    ids, counts, sums = vq_nearest_with_stats(z, c)
+    assert vq_nearest_with_stats_cuda.launches == before + 1
+    assert vq_nearest_cuda.launches == k1_before  # K2 does not go through K1's wrapper
+    assert ids.is_cuda and counts.shape == (8,) and sums.shape == (8, 3)

@@ -21,7 +21,10 @@ import lipvq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lipvq_tpu_torch.__path__, "lipvq_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "lipvq_tpu_torch.algo.icl" in names and "lipvq_tpu_torch.ops.vq_lookup" in names, names
+for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
+             "lipvq_tpu_torch.utils.train_utils", "lipvq_tpu_torch.data.loaders",
+             "lipvq_tpu_torch.utils.tensor_utils"):
+    assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print(len(names), loaded)
 assert not loaded, loaded

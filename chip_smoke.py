@@ -18,8 +18,13 @@ all started together). Phases:
    tolerance, counts exactly equal to the plain stats of K2's own ids, sums
    within 1e-5 + 1e-5 |s| + 4 n u S (n the code's count, u = 2^-24, S the
    sum of the rows' magnitudes: the recursive-summation bound of both
-   sides). Times per call are CUDA-event medians; device times come from
-   torch.profiler.
+   sides). A skewed K2 case at the corpus shape puts every row on one code
+   (code 0 is the mean of z, the others lie far away): counts exact, the
+   sums within the same bound and equal, bit for bit, to a sequential
+   ascending fp32 sum (numpy's cumsum), two calls bit-identical. Times per
+   call are CUDA-event medians; device times come from torch.profiler, per
+   kernel and, for K2, per stage (cn, lookup, sort, sums); K1's wrapper
+   host time is the median time from entry to return on an idle card.
 3. Serve: the flagship ICLTransformerGMM at full width (6 layers x 512 x 8
    heads, 30 tokens, 1024 x 791 codebook, bf16 compute) behind
    ICLRolloutPolicy answers 5 requests for 16 envs and 3 single-env
@@ -109,6 +114,31 @@ def host_ms(fn, reps: int = 20) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def wrapper_host_ms(fn, reps: int = 50) -> float:
+    """Median host time of one call of ``fn`` from entry to return, the
+    card idle before each call: what the Python wrapper costs the caller."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+# K2's kernels by stage, matched on the profiler's kernel names
+K2_STAGES = {"cn": ("code_norms",), "lookup": ("nearest_tile", "reduce_splits"),
+             "sort": ("hist_kernel", "colscan", "codescan", "scatter"),
+             "sums": ("short_sums", "long_sums")}
+
+
+def stage_ms(kernels: dict) -> dict:
+    return {stage: sum(ms for name, ms in kernels.items() if any(k in name for k in keys))
+            for stage, keys in K2_STAGES.items()}
 
 
 def profile_device(fn, reps: int) -> tuple[float | None, dict]:
@@ -225,14 +255,17 @@ def kernel_phase(card: str) -> dict:
         library_ms = cuda_ms(
             lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), reps)
         device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c), reps)
+        wrapper_ms = wrapper_host_ms(lambda: vq_nearest_cuda(z, c), reps)
         bound_ms, bound_by = vq_bound(b, n, d)
         results[label] = {"shape": [b, n, d], "mismatches": mismatches,
                           "max_abs_err": max_gap, "ms": ms, "device_ms": device_ms,
+                          "wrapper_host_ms": wrapper_ms, "kernel_ms": kernels,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"K1 {label} {b}x{n}x{d}: {mismatches} rows differ within the tie "
               f"tolerance (max fp64 gap {max_gap:.3g}); K1 {ms:.4f} ms per call "
-              f"(device busy {device_ms} ms: {kernels}), plain {plain_ms:.4f} ms, "
+              f"(wrapper host {wrapper_ms:.4f} ms; device busy {device_ms} ms: {kernels}), "
+              f"plain {plain_ms:.4f} ms, "
               f"addmm+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]")
         del z, c, got, want
@@ -306,18 +339,59 @@ def stats_phase(card: str) -> dict:
         bound_ms, bound_by = stats_bound(b, n, d)
         results[label] = {"shape": [b, n, d], "mismatches": mismatches, "max_id_gap": max_gap,
                           "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
-                          "kernel_ms": kernels, "plain_ms": plain_ms,
+                          "stage_ms": stage_ms(kernels), "kernel_ms": kernels,
+                          "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "codes_used": int((counts > 0).sum())}
         print(f"K2 {label} {b}x{n}x{d}: {mismatches} rows differ within the tie "
               f"tolerance (max fp64 gap {max_gap:.3g}); counts equal; sums max abs err "
               f"{max_err:.3g} ({int((counts > 0).sum())} codes used); K2 {ms:.4f} ms per "
-              f"call (device busy {device_ms} ms: {kernels}), plain {plain_ms:.4f} ms, "
-              f"addmm+argmin+bincount+index_add_ {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}) [{card}]")
+              f"call (device busy {device_ms} ms, by stage {stage_ms(kernels)}: {kernels}), "
+              f"plain {plain_ms:.4f} ms, addmm+argmin+bincount+index_add_ "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
         del z, c, ids, counts, sums, again, want_counts, want_sums, abs_sums, err, allowed
     torch.cuda.empty_cache()
+    results["skewed"] = skewed_stats(card, gen)
     return results
+
+
+def skewed_stats(card: str, gen) -> dict:
+    """K2 at the corpus shape with every row on code 0, as at random init."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_cluster_stats, vq_nearest_with_stats_cuda
+
+    b, n, d = CORPUS_SHAPE
+    dev = torch.device("cuda")
+    z = torch.randn(b, d, generator=gen, device=dev)
+    c = 100.0 + torch.randn(n, d, generator=gen, device=dev)
+    c[0] = z.mean(0)
+    ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
+    again = vq_nearest_with_stats_cuda(z, c)
+    if not all(torch.equal(x, y) for x, y in zip((ids, counts, sums), again)):
+        raise AssertionError("K2 is not deterministic in the skewed case")
+    if int(ids.abs().sum()) != 0 or float(counts[0]) != b or float(counts.sum()) != b:
+        raise AssertionError(f"skewed K2: {int((ids != 0).sum())} rows off code 0, "
+                             f"counts[0] = {float(counts[0])}")
+    want_counts, want_sums = vq_cluster_stats(z, ids, n)
+    _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
+    if not torch.equal(counts, want_counts):
+        raise AssertionError("skewed K2 counts differ from the plain stats")
+    err = (sums - want_sums).abs()
+    allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
+    if (err > allowed).any():
+        raise AssertionError(f"skewed K2 sums exceed the summation bound on "
+                             f"{int((err > allowed).sum())} entries")
+    sequential = torch.from_numpy(np.cumsum(z.cpu().numpy(), axis=0, dtype=np.float32)[-1])
+    if not (torch.equal(sums[0].cpu(), sequential) and int(sums[1:].abs().sum()) == 0):
+        raise AssertionError("skewed K2 sums are not the sequential ascending fp32 sum")
+    ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 5)
+    device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), 5)
+    stages = stage_ms(kernels)
+    print(f"K2 skewed {b}x{n}x{d} (all rows on code 0): counts exact, sums bit-equal to a "
+          f"sequential fp32 sum (plain one-hot product within {float(err.max()):.3g}), two "
+          f"calls bit-identical; K2 {ms:.4f} ms per call (device busy {device_ms} ms, by "
+          f"stage {stages}: {kernels}) [{card}]")
+    return {"shape": [b, n, d], "max_abs_err": float(err.max()), "ms": ms,
+            "device_ms": device_ms, "stage_ms": stages, "kernel_ms": kernels}
 
 
 def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
@@ -690,6 +764,7 @@ def main() -> int:
         "launches_by_path": k1_paths,
         "fixtures_exact": True,
         **{k: k1["slice"][k] for k in keys},
+        "wrapper_host_ms": k1["slice"]["wrapper_host_ms"],
         "train_shape": k1["train"],
         "corpus": k1["corpus"],
         "card": card,
@@ -702,7 +777,9 @@ def main() -> int:
         "launches_by_path": k2_paths,
         "fixtures_exact": True,
         **{k: k2["train"][k] for k in keys},
+        "stage_ms": k2["train"]["stage_ms"],
         "corpus": k2["corpus"],
+        "skewed": k2["skewed"],
         "card": card,
     }], "serve": served, "train": trained}))
     print(card)

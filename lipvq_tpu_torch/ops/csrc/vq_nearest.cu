@@ -9,15 +9,19 @@
 
 extern "C" {
 
-// z [B, D], c [N, D], cn [N] fp32 and ids [B] int32, all contiguous on the
-// current device. codes_per_split is a multiple of BN; with splits > 1,
-// part_d [splits, B] fp32 and part_i [splits, B] int32 are scratch.
-// Returns the cudaError_t of the launches (0 on success).
-int vq_nearest_launch(const float* z, const float* c, const float* cn, int* ids,
-                      float* part_d, int* part_i, int B, int N, int D,
-                      int codes_per_split, int splits, void* stream) {
-  return static_cast<int>(vq::launch_nearest(z, c, cn, ids, part_d, part_i, B, N,
-                                             D, codes_per_split, splits,
+// 4-byte elements of scratch that vq_nearest_launch needs.
+size_t vq_nearest_scratch_elems(int B, int N, int splits) {
+  return vq::lookup_scratch_elems(B, N, splits);
+}
+
+// z [B, D], c [N, D] fp32, ids [B] int32 and scratch (see above), all
+// contiguous on the current device; config and codes_per_split as in
+// vq::launch_nearest. Enqueues everything on `stream`, allocates nothing,
+// and returns the first cudaError_t (0 on success).
+int vq_nearest_launch(const float* z, const float* c, int* ids, void* scratch, int B, int N,
+                      int D, int config, int codes_per_split, int splits, void* stream) {
+  return static_cast<int>(vq::launch_nearest(z, c, ids, scratch, B, N, D, config,
+                                             codes_per_split, splits,
                                              static_cast<cudaStream_t>(stream)));
 }
 

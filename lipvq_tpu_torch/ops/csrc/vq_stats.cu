@@ -9,120 +9,382 @@
 //     counts[n] = #{b : ids[b] = n}                 (fp32, exact integers)
 //     sums[n]   = sum over b with ids[b] = n of z[b], in ascending b
 //
-// Bound. The lookup's 2*B*N*D fp32 operations dominate (the stats add only
-// B*D adds and write N*(D + 1) floats), so the fp32 SIMT rate bounds K2 as
-// it bounds K1.
+// Bound. The lookup's 2*B*N*D fp32 operations dominate; the stats need one
+// read of z (B*D*4 bytes: 872 MB, 0.26 ms at 3.35 TB/s at the corpus shape
+// 2^20 x 1024 x 208) and B*D adds. What bounds a deterministic stats pass
+// is the order: each sum must be one fp32 chain over its rows in ascending
+// order, so a code that owns all B rows is B dependent adds per column
+// (~4 cycles each: about 2.1 ms at B = 2^20 and 1980 MHz, whatever the
+// design).
 //
-// Design. Phase 1 is K1's lookup, enqueued by the same launcher. Phase 2 is
-// deterministic and uses no atomics: a CTA owns STATS_CODES codes x
-// STATS_COLS columns and is the only writer of that block of sums and (for
-// the first column block) of those counts. It walks the ids in ascending row
-// order, STATS_COLS rows at a time: each thread tests one id, a stable
-// ballot + prefix compaction lists the tile's matching rows in row order,
-// then every thread adds z[row, its column] of each listed row into its own
-// column of a shared-memory accumulator. Each sum is therefore one fp32 chain
-// over ascending rows, the order of a sequential one_hot^T z, and two runs
-// give bit-identical stats. The Pallas kernel carried the stats across its
-// sequential grid; here the blocks own disjoint outputs instead, and no
-// padded rows exist to subtract (nothing is padded in memory).
+// Design: a deterministic counting sort of the rows by code, then per-code
+// sums. No float atomics; integer atomics only in the histogram.
+//   1. hist: each tile of STATS_TILE_ROWS rows counts its ids in a shared
+//      histogram [N] (warp-aggregated with __match_any_sync) and writes its
+//      counts to tile_counts [N, T] (code-major, T tiles).
+//   2. colscan: one warp per code turns its row of tile_counts into
+//      exclusive offsets over tiles and writes the code's total.
+//   3. codescan: one CTA scans the totals over codes into code_start [N + 1],
+//      writes counts = float(total), and lists the codes with more than
+//      LONG_BUCKET rows.
+//   4. scatter: one warp per tile walks its rows in ascending order; each
+//      row's rank among the earlier rows of its code is the code's running
+//      base in shared memory plus its rank in the warp (__match_any_sync and
+//      the lane-mask prefix), so order [B] ends up equal to
+//      torch.argsort(ids, stable=True).
+//   5. sums: one warp per (code, 32 columns) walks order[code_start[n] :
+//      code_start[n + 1]] with a lane per column, 32 rows' loads issued
+//      before their adds, each column one fp32 register from 0.f: the chain
+//      of a sequential ascending sum, bit for bit. The next 32 row indices
+//      are read before this batch's loads. Buckets of up to LONG_BUCKET rows
+//      only.
+//   6. long sums: a code with more rows (at random init every latent maps to
+//      one code, so the EMA path's first steps put all B rows there) gets a
+//      CTA per 32 columns whose 8 loader warps keep up to LONG_STAGES x 256
+//      rows of loads in flight through a cp.async ring (each stage's row
+//      indices read one stage earlier) while one more warp adds them in
+//      order. At D = 208 that is only 7 busy CTAs, and the dependent adds
+//      bound them (see Bound); splitting a code's rows into separately summed
+//      chunks would change the order, and so the bits.
+// The Pallas kernel carried the stats across its sequential grid; nothing
+// is padded in memory here, so there are no pad rows to subtract.
 
 #include "vq_nearest_tile.cuh"
 
 namespace {
 
-constexpr int STATS_CODES = 16;   // codes per CTA
-constexpr int STATS_COLS = 128;   // columns per CTA = threads = rows per tile
-constexpr int STATS_WARPS = STATS_COLS / 32;
-constexpr int UNROLL = 4;
+constexpr int STATS_TILE_ROWS = 2048;  // rows per histogram / scatter tile
+constexpr int LONG_BUCKET = 1024;      // longer buckets go to long_sums_kernel
+constexpr int MAX_CODES = 49152;       // the shared histogram holds N ints
+constexpr int SUM_COLS = 32;           // columns per warp in the sums
+constexpr int LONG_LOADERS = 8;        // loader warps; one more warp adds
+constexpr int LONG_THREADS = 32 * (LONG_LOADERS + 1);
+constexpr int LONG_ROWS = 256;         // rows per stage of the long ring
+constexpr int LONG_LD = LONG_ROWS + 4; // a column's stride in the ring
+constexpr int LONG_STAGES = 4;
+constexpr int LONG_GRID = 128;         // CTAs per column block of the long sums
+constexpr size_t LONG_SMEM = sizeof(float) * LONG_STAGES * SUM_COLS * LONG_LD;
 
-__global__ void __launch_bounds__(STATS_COLS)
-cluster_stats_kernel(const float* __restrict__ z, const int* __restrict__ ids,
-                     int B, int N, int D, float* __restrict__ counts,
-                     float* __restrict__ sums) {
-  __shared__ float acc[STATS_CODES][STATS_COLS];
-  __shared__ int rows[STATS_COLS];
-  __shared__ int codes[STATS_COLS];
-  __shared__ int warp_hits[STATS_WARPS];
+struct StatsScratch {
+  int* tile_counts;  // [N, T]
+  int* totals;       // [N]
+  int* code_start;   // [N + 1]
+  int* long_list;    // [1 + N]: count, then codes
+  int* order;        // [B]
+};
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int code0 = blockIdx.x * STATS_CODES;
-  const int col = blockIdx.y * STATS_COLS + t;
-  const bool col_ok = col < D;
+int tiles_of(int B) { return (B + STATS_TILE_ROWS - 1) / STATS_TILE_ROWS; }
 
+// order comes first, so that a test can find it at a fixed offset
+StatsScratch stats_scratch(void* base, int B, int N) {
+  int* p = static_cast<int*>(base);
+  StatsScratch s;
+  s.order = p;
+  p += vq::align4(B);
+  s.tile_counts = p;
+  p += vq::align4(static_cast<size_t>(N) * tiles_of(B));
+  s.totals = p;
+  p += vq::align4(N);
+  s.code_start = p;
+  p += vq::align4(static_cast<size_t>(N) + 1);
+  s.long_list = p;
+  return s;
+}
+
+size_t stats_scratch_elems(int B, int N) {
+  return vq::align4(B) + vq::align4(static_cast<size_t>(N) * tiles_of(B)) + vq::align4(N) +
+         2 * vq::align4(static_cast<size_t>(N) + 1);
+}
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  return (1u << (threadIdx.x & 31)) - 1u;
+}
+
+__global__ void hist_kernel(const int* __restrict__ ids, int B, int N, int T,
+                            int* __restrict__ tile_counts) {
+  extern __shared__ int hist[];
+  const int t = blockIdx.x;
+  const int r0 = t * STATS_TILE_ROWS, r1 = min(B, r0 + STATS_TILE_ROWS);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) hist[n] = 0;
+  __syncthreads();
+  for (int base = r0; base < r1; base += blockDim.x) {
+    const int r = base + threadIdx.x;
+    const int id = r < r1 ? ids[r] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, id);
+    if (id >= 0 && (peers & lanemask_lt()) == 0) atomicAdd(&hist[id], __popc(peers));
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += blockDim.x)
+    tile_counts[static_cast<size_t>(n) * T + t] = hist[n];
+}
+
+__global__ void colscan_kernel(int* __restrict__ tile_counts, int N, int T,
+                               int* __restrict__ totals) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (n >= N) return;
+  int* a = tile_counts + static_cast<size_t>(n) * T;
+  int carry = 0;
+  for (int t0 = 0; t0 < T; t0 += 32) {
+    const int t = t0 + lane;
+    const int v = t < T ? a[t] : 0;
+    int incl = v;
 #pragma unroll
-  for (int k = 0; k < STATS_CODES; ++k) acc[k][t] = 0.f;
-  int count = 0;  // rows of code code0 + t, kept by threads t < STATS_CODES
-
-  for (int r0 = 0; r0 < B; r0 += STATS_COLS) {
-    const int r = r0 + t;
-    const int k = r < B ? ids[r] - code0 : -1;
-    const bool hit = k >= 0 && k < STATS_CODES;
-    const unsigned mask = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(mask);
-    __syncthreads();
-    int offset = 0, m = 0;
-#pragma unroll
-    for (int w = 0; w < STATS_WARPS; ++w) {
-      offset += w < warp ? warp_hits[w] : 0;
-      m += warp_hits[w];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
     }
-    if (hit) {
-      const int slot = offset + __popc(mask & ((1u << lane) - 1u));
-      rows[slot] = r;
-      codes[slot] = k;
-    }
-    __syncthreads();
+    if (t < T) a[t] = carry + incl - v;
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (lane == 0) totals[n] = carry;
+}
 
-    // each thread adds into its own column only: no races, rows in order
-    int j = 0;
-    for (; j + UNROLL <= m; j += UNROLL) {
-      float v[UNROLL];
+// Exclusive scan of v over a CTA of 1024 threads; *total gets the sum.
+__device__ int block_exclusive_scan(int v, int* ws, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        v[u] = col_ok ? z[(size_t)rows[j + u] * D + col] : 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) ws[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int w = ws[lane];
+    int winc = w;
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        acc[codes[j + u]][t] += v[u];
-        count += codes[j + u] == t;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, winc, off);
+      if (lane >= off) winc += y;
+    }
+    ws[lane] = winc - w;
+    if (lane == 31) ws[32] = winc;
+  }
+  __syncthreads();
+  const int out = ws[warp] + incl - v;
+  *total = ws[32];
+  __syncthreads();  // ws is reused by the next scan
+  return out;
+}
+
+__global__ void __launch_bounds__(1024)
+codescan_kernel(const int* __restrict__ totals, int N, int* __restrict__ code_start,
+                float* __restrict__ counts, int* __restrict__ long_list) {
+  __shared__ int ws[33];
+  const int chunk = (N + 1023) / 1024;
+  const int n0 = min(N, static_cast<int>(threadIdx.x) * chunk), n1 = min(N, n0 + chunk);
+  int sum = 0, longs = 0;
+  for (int n = n0; n < n1; ++n) {
+    sum += totals[n];
+    longs += totals[n] > LONG_BUCKET;
+  }
+  int total, total_longs;
+  int run = block_exclusive_scan(sum, ws, &total);
+  int k = block_exclusive_scan(longs, ws, &total_longs);
+  for (int n = n0; n < n1; ++n) {
+    const int m = totals[n];
+    code_start[n] = run;
+    counts[n] = static_cast<float>(m);
+    run += m;
+    if (m > LONG_BUCKET) long_list[1 + k++] = n;
+  }
+  if (threadIdx.x == 0) {
+    code_start[N] = total;
+    long_list[0] = total_longs;
+  }
+}
+
+__global__ void scatter_kernel(const int* __restrict__ ids, int B, int N, int T,
+                               const int* __restrict__ tile_counts,
+                               const int* __restrict__ code_start, int* __restrict__ order) {
+  extern __shared__ int next_slot[];  // per code: the next free slot of this tile
+  const int t = blockIdx.x, lane = threadIdx.x;
+  for (int n = lane; n < N; n += 32)
+    next_slot[n] = code_start[n] + tile_counts[static_cast<size_t>(n) * T + t];
+  __syncwarp();
+  const int r0 = t * STATS_TILE_ROWS, r1 = min(B, r0 + STATS_TILE_ROWS);
+  int next_id = r0 + lane < r1 ? ids[r0 + lane] : -1;
+  for (int base = r0; base < r1; base += 32) {
+    const int id = next_id;
+    next_id = base + 32 + lane < r1 ? ids[base + 32 + lane] : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, id);
+    const int slot = id >= 0 ? next_slot[id] : 0;
+    __syncwarp();
+    if (id >= 0) {
+      order[slot + __popc(peers & lanemask_lt())] = base + lane;
+      if ((peers & lanemask_lt()) == 0) next_slot[id] = slot + __popc(peers);
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void short_sums_kernel(const float* __restrict__ z, const int* __restrict__ order,
+                                  const int* __restrict__ code_start, int N, int D,
+                                  int col_blocks, float* __restrict__ sums) {
+  const int lane = threadIdx.x & 31;
+  const long long g = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (g >= static_cast<long long>(N) * col_blocks) return;
+  const int n = static_cast<int>(g / col_blocks);
+  const int col = static_cast<int>(g % col_blocks) * SUM_COLS + lane;
+  const int start = code_start[n], end = code_start[n + 1];
+  if (end - start > LONG_BUCKET) return;  // long_sums_kernel's
+  float acc = 0.f;
+  int next = start + lane < end ? order[start + lane] : 0;
+  for (int j0 = start; j0 < end; j0 += 32) {
+    const int m = min(32, end - j0);
+    const int mine = next;
+    next = j0 + 32 + lane < end ? order[j0 + 32 + lane] : 0;  // the next 32 rows
+    float v[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int row = __shfl_sync(0xffffffffu, mine, u);
+      v[u] = u < m && col < D ? z[static_cast<size_t>(row) * D + col] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u)
+      if (u < m) acc += v[u];
+  }
+  if (col < D) sums[static_cast<size_t>(n) * D + col] = acc;
+}
+
+// Warp 0 adds; warps 1..LONG_LOADERS each copy LONG_ROWS / LONG_LOADERS rows
+// of every stage, with the row indices of a stage read one iteration before
+// its copies start. The ring is column-major ([col][row], padded), so the
+// adding lane reads 4 rows of its column per 16-byte load.
+__global__ void __launch_bounds__(LONG_THREADS)
+long_sums_kernel(const float* __restrict__ z, const int* __restrict__ order,
+                 const int* __restrict__ code_start, const int* __restrict__ long_list,
+                 int D, float* __restrict__ sums) {
+  extern __shared__ __align__(16) float ring[];  // [LONG_STAGES][SUM_COLS][LONG_LD]
+  constexpr int WARP_ROWS = LONG_ROWS / LONG_LOADERS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool loader = warp > 0;
+  const int lw = warp - 1;
+  const int col = blockIdx.y * SUM_COLS + lane;
+  const int num_long = long_list[0];
+  for (int k = blockIdx.x; k < num_long; k += gridDim.x) {
+    const int n = long_list[1 + k];
+    const int start = code_start[n], end = code_start[n + 1];
+    const int stages = (end - start + LONG_ROWS - 1) / LONG_ROWS;
+    auto rows_of = [&](int s) {
+      const int j = start + s * LONG_ROWS + lw * WARP_ROWS + lane;
+      return lane < WARP_ROWS && j < end ? order[j] : 0;
+    };
+    auto copy = [&](int s, int rows) {
+      const int j0 = start + s * LONG_ROWS + lw * WARP_ROWS;
+      float* dst = ring + ((s % LONG_STAGES) * SUM_COLS + lane) * LONG_LD + lw * WARP_ROWS;
+#pragma unroll
+      for (int i = 0; i < WARP_ROWS; ++i) {
+        const int row = __shfl_sync(0xffffffffu, rows, i);
+        const bool ok = j0 + i < end && col < D;
+        vq::cp_async4(dst + i, ok ? z + static_cast<size_t>(row) * D + col : z, ok);
       }
-    }
-    for (; j < m; ++j) {
-      acc[codes[j]][t] += col_ok ? z[(size_t)rows[j] * D + col] : 0.f;
-      count += codes[j] == t;
-    }
-    __syncthreads();  // rows, codes and warp_hits are refilled next tile
-  }
-
-  if (col_ok) {
+    };
+    int next = loader ? rows_of(0) : 0;
 #pragma unroll
-    for (int k = 0; k < STATS_CODES; ++k)
-      if (code0 + k < N) sums[(size_t)(code0 + k) * D + col] = acc[k][t];
+    for (int s = 0; s < LONG_STAGES - 1; ++s) {
+      if (loader) {
+        const int rows = next;
+        next = rows_of(s + 1);
+        if (s < stages) copy(s, rows);
+      }
+      vq::cp_async_commit();
+    }
+    float acc = 0.f;
+    for (int s = 0; s < stages; ++s) {
+      vq::cp_async_wait<LONG_STAGES - 2>();
+      __syncthreads();  // stage s has landed; warp 0 is done with stage s - 1
+      if (loader) {
+        const int t = s + LONG_STAGES - 1;
+        const int rows = next;
+        next = rows_of(t + 1);
+        if (t < stages) copy(t, rows);
+      } else {
+        const float* src = ring + ((s % LONG_STAGES) * SUM_COLS + lane) * LONG_LD;
+        const int m = min(LONG_ROWS, end - start - s * LONG_ROWS);
+        if (m == LONG_ROWS) {
+#pragma unroll
+          for (int r = 0; r < LONG_ROWS; r += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(src + r);
+            acc += v.x;
+            acc += v.y;
+            acc += v.z;
+            acc += v.w;
+          }
+        } else {
+          for (int r = 0; r < m; ++r) acc += src[r];
+        }
+      }
+      vq::cp_async_commit();
+    }
+    if (!loader && col < D) sums[static_cast<size_t>(n) * D + col] = acc;
+    vq::cp_async_wait<0>();
+    __syncthreads();  // the ring is refilled for the next code
   }
-  if (blockIdx.y == 0 && t < STATS_CODES && code0 + t < N)
-    counts[code0 + t] = static_cast<float>(count);
+}
+
+cudaError_t smem_attr(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
 
 extern "C" {
 
-// z [B, D], c [N, D], cn [N] fp32; ids [B] int32; counts [N] and sums [N, D]
-// fp32, all contiguous on the current device. codes_per_split, splits,
-// part_d and part_i are the lookup's, as in vq_nearest_launch. Every element
-// of counts and sums is written. Returns the cudaError_t of the launches.
-int vq_stats_launch(const float* z, const float* c, const float* cn, int* ids,
-                    float* part_d, int* part_i, float* counts, float* sums, int B,
-                    int N, int D, int codes_per_split, int splits, void* stream) {
+// 4-byte elements of scratch that vq_stats_launch needs: the lookup's,
+// then the sort's, whose first B are the row order.
+size_t vq_stats_scratch_elems(int B, int N, int splits) {
+  return vq::lookup_scratch_elems(B, N, splits) + stats_scratch_elems(B, N);
+}
+
+// z [B, D], c [N, D] fp32; ids [B] int32; counts [N] and sums [N, D] fp32;
+// scratch of vq_stats_scratch_elems 4-byte elements; all contiguous on the
+// current device. config, codes_per_split and splits are the lookup's, as in
+// vq_nearest_launch. Enqueues everything on `stream`, allocates nothing,
+// writes every element of counts and sums, and returns the first
+// cudaError_t (cudaErrorInvalidValue for N > MAX_CODES).
+int vq_stats_launch(const float* z, const float* c, int* ids, float* counts, float* sums,
+                    void* scratch, int B, int N, int D, int config, int codes_per_split,
+                    int splits, void* stream) {
+  if (N > MAX_CODES) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = vq::launch_nearest(z, c, cn, ids, part_d, part_i, B, N, D,
-                                       codes_per_split, splits, s);
+  cudaError_t err = vq::launch_nearest(z, c, ids, scratch, B, N, D, config, codes_per_split,
+                                       splits, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + STATS_CODES - 1) / STATS_CODES,
-                  (D + STATS_COLS - 1) / STATS_COLS);
-  cluster_stats_kernel<<<grid, STATS_COLS, 0, s>>>(z, ids, B, N, D, counts, sums);
-  return static_cast<int>(cudaGetLastError());
+  StatsScratch st = stats_scratch(
+      static_cast<int*>(scratch) + vq::lookup_scratch_elems(B, N, splits), B, N);
+  const int T = tiles_of(B);
+  const size_t hist_smem = sizeof(int) * N;
+  if ((err = smem_attr(reinterpret_cast<const void*>(hist_kernel), hist_smem)) != cudaSuccess ||
+      (err = smem_attr(reinterpret_cast<const void*>(scatter_kernel), hist_smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  hist_kernel<<<T, 256, hist_smem, s>>>(ids, B, N, T, st.tile_counts);
+  colscan_kernel<<<(N + 7) / 8, 256, 0, s>>>(st.tile_counts, N, T, st.totals);
+  codescan_kernel<<<1, 1024, 0, s>>>(st.totals, N, st.code_start, counts, st.long_list);
+  scatter_kernel<<<T, 32, hist_smem, s>>>(ids, B, N, T, st.tile_counts, st.code_start,
+                                          st.order);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int col_blocks = (D + SUM_COLS - 1) / SUM_COLS;
+  const long long warps = static_cast<long long>(N) * col_blocks;
+  short_sums_kernel<<<static_cast<unsigned>((warps + 7) / 8), 256, 0, s>>>(
+      z, st.order, st.code_start, N, D, col_blocks, sums);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int max_long = B / (LONG_BUCKET + 1);  // codes that can hold more rows
+  if (max_long > 0) {
+    if ((err = smem_attr(reinterpret_cast<const void*>(long_sums_kernel), LONG_SMEM)) !=
+        cudaSuccess)
+      return static_cast<int>(err);
+    const dim3 grid(min(max_long, LONG_GRID), col_blocks);
+    long_sums_kernel<<<grid, LONG_THREADS, LONG_SMEM, s>>>(z, st.order, st.code_start,
+                                                          st.long_list, D, sums);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

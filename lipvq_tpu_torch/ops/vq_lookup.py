@@ -13,7 +13,9 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
 - ``vq_nearest_expand``: ``||c||^2 - 2 z.c`` with ``||z||^2`` dropped, in
   fp32 (TF32 must stay off for exact ids).
 - ``vq_nearest_cuda``: kernel K1 (``csrc/vq_nearest.cu``); it launches on
-  CUDA tensors and raises on anything else.
+  CUDA tensors and raises on anything else. ``plan_lookup`` picks its tile
+  configuration and code splits; the plan and the scratch size are cached
+  per device and shape, and all scratch is one ``torch.empty``.
 - ``vq_nearest``: the dispatcher the quantizer calls: K1 on a CUDA tensor,
   the plain reference on a CPU tensor.
 - ``vq_cluster_stats``: the one-hot counts [N] and sums [N, D] of given ids.
@@ -28,6 +30,7 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -67,20 +70,94 @@ def vq_nearest_expand(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor
     return torch.argmin(cn[None, :] - 2.0 * (z @ c.T), dim=-1).to(torch.int32)
 
 
-def _bind(name: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with ``entry`` declared: ``n_ptrs``
-    pointers, the five ints (B, N, D, codes per split, splits), the stream."""
-    lib = _build.load(name)
-    if not getattr(lib, "_bound", False):
-        fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# tile shapes (rows, codes) of the lookup's configurations, as in
+# csrc/vq_nearest_tile.cuh; _bind checks them against the library
+LARGE, MEDIUM, SMALL = 0, 1, 2
+TILE_SHAPES = {LARGE: (128, 256), MEDIUM: (32, 64), SMALL: (32, 32)}
+
+
+class LookupPlan(NamedTuple):
+    """Grid of the lookup: configuration, row tiles, code splits and the
+    codes of each split (a multiple of the configuration's tile)."""
+
+    config: int
+    row_tiles: int
+    splits: int
+    codes_per_split: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.splits
+
+
+def plan_lookup(b: int, n: int, sms: int) -> LookupPlan:
+    """The lookup's launch plan for B rows, N codes on a card with ``sms``
+    SMs: LARGE when its row tiles alone give every SM two CTAs (the corpus);
+    else MEDIUM when its row and code tiles give every SM a CTA (train
+    batches), else SMALL (served requests). The codes are split into
+    contiguous ranges until the grid has about two CTAs per SM."""
+    def tiles(config):
+        rows, codes = TILE_SHAPES[config]
+        return -(-b // rows), -(-n // codes)
+
+    if tiles(LARGE)[0] >= 2 * sms:
+        config = LARGE
+    elif tiles(MEDIUM)[0] * tiles(MEDIUM)[1] >= sms:
+        config = MEDIUM
+    else:
+        config = SMALL
+    row_tiles, code_tiles = tiles(config)
+    splits = min(code_tiles, max(1, -(-2 * sms // row_tiles)))
+    tiles_per_split = -(-code_tiles // splits)
+    splits = -(-code_tiles // tiles_per_split)
+    return LookupPlan(config, row_tiles, splits, tiles_per_split * TILE_SHAPES[config][1])
+
+
+_POINTERS = {"vq_nearest": 4, "vq_stats": 6}  # pointer args of each entry point
+_LIBS: dict[str, ctypes.CDLL] = {}
+_SMS: dict[int, int] = {}
+_PLANS: dict[tuple, tuple[LookupPlan, int, int]] = {}
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with its entry point
+    ``<name>_launch`` declared: the pointers, six ints (B, N, D, config,
+    codes per split, splits), the stream."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        for scratch in (getattr(lib, f"{name}_scratch_elems"), lib.vq_lookup_scratch_elems):
+            scratch.argtypes = [ctypes.c_int] * 3
+            scratch.restype = ctypes.c_size_t
         lib.vq_error_string.argtypes = [ctypes.c_int]
         lib.vq_error_string.restype = ctypes.c_char_p
-        lib.vq_nearest_block_rows.restype = ctypes.c_int
-        lib.vq_nearest_block_codes.restype = ctypes.c_int
-        lib._bound = True
+        for config, shape in TILE_SHAPES.items():
+            got = (lib.vq_tile_rows(config), lib.vq_tile_codes(config))
+            if got != shape:
+                raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
+                                   f"library, {shape} in vq_lookup.py")
+        _LIBS[name] = lib
     return lib
+
+
+def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int):
+    """(plan, scratch elements of ``name``, of which the lookup's come
+    first) at this shape, cached per device and shape, with the device's SM
+    count cached once."""
+    key = (name, dev.index, b, n)
+    hit = _PLANS.get(key)
+    if hit is None:
+        sms = _SMS.get(dev.index)
+        if sms is None:
+            sms = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = plan_lookup(b, n, sms)
+        hit = _PLANS[key] = (plan, getattr(lib, f"{name}_scratch_elems")(b, n, plan.splits),
+                             lib.vq_lookup_scratch_elems(b, n, plan.splits))
+    return hit
 
 
 def _check_inputs(kernel: str, z_e: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -102,39 +179,24 @@ def _check_inputs(kernel: str, z_e: torch.Tensor, codebook: torch.Tensor) -> Non
         raise ValueError(f"{kernel} takes B, N and D below 2**31")
 
 
-def _lookup_args(lib: ctypes.CDLL, z_e: torch.Tensor, codebook: torch.Tensor):
-    """Outputs and scratch of the shared lookup: (ids, the temporaries to
-    hold until the launch is enqueued, the pointer args through the split
-    scratch, the int args). The codes are split over grid rows until the
-    card has ~2 CTAs per SM."""
-    b, d = z_e.shape
-    n = codebook.shape[0]
-    dev = z_e.device
-    block_rows = lib.vq_nearest_block_rows()
-    block_codes = lib.vq_nearest_block_codes()
-    row_tiles = -(-b // block_rows)
-    code_tiles = -(-n // block_codes)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = min(code_tiles, max(1, -(-2 * sms // row_tiles)))
-    tiles_per_split = -(-code_tiles // splits)
-    splits = -(-code_tiles // tiles_per_split)
-
-    cn = (codebook * codebook).sum(dim=1)
-    ids = torch.empty(b, dtype=torch.int32, device=dev)
-    keep = [cn, ids]
-    scratch = [None, None]
-    if splits > 1:
-        keep += [torch.empty((splits, b), dtype=torch.float32, device=dev),
-                 torch.empty((splits, b), dtype=torch.int32, device=dev)]
-        scratch = [keep[2].data_ptr(), keep[3].data_ptr()]
-    ptrs = [z_e.data_ptr(), codebook.data_ptr(), cn.data_ptr(), ids.data_ptr(), *scratch]
-    return ids, keep, ptrs, [b, n, d, tiles_per_split * block_codes, splits]
+def _ids_and_scratch(b: int, scratch_elems: int, dev: torch.device):
+    """One int32 allocation: ids [B] first, then the scratch (16-byte
+    aligned); returns (buffer, ids, the scratch's address)."""
+    head = -(-b // 4) * 4
+    buf = torch.empty(head + scratch_elems, dtype=torch.int32, device=dev)
+    return buf, buf[:b], buf.data_ptr() + 4 * head
 
 
-def _launch(kernel: str, lib: ctypes.CDLL, entry: str, dev: torch.device, ptrs, ints) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*ptrs, *ints, stream)
+def _launch(kernel: str, lib: ctypes.CDLL, name: str, dev: torch.device, ptrs, ints) -> None:
+    """Call ``<name>_launch`` on the current stream of ``dev``; raise on a
+    non-zero cudaError_t."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = getattr(lib, f"{name}_launch")
+    if dev.index == torch.cuda.current_device():
+        err = fn(*ptrs, *ints, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*ptrs, *ints, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: "
                            f"{lib.vq_error_string(err).decode()} ({err})")
@@ -147,9 +209,13 @@ def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     ``vq_nearest_cuda.launches`` counts the calls that launched the kernel.
     """
     _check_inputs("K1", z_e, codebook)
-    lib = _bind("vq_nearest", "vq_nearest_launch", 6)
-    ids, _keep, ptrs, ints = _lookup_args(lib, z_e, codebook)
-    _launch("K1", lib, "vq_nearest_launch", z_e.device, ptrs, ints)
+    lib = _bind("vq_nearest")
+    (b, d), n, dev = z_e.shape, codebook.shape[0], z_e.device
+    plan, scratch_elems, _ = _plan(lib, "vq_nearest", dev, b, n)
+    _, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
+    _launch("K1", lib, "vq_nearest", dev,
+            [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch],
+            [b, n, d, plan.config, plan.codes_per_split, plan.splits])
     vq_nearest_cuda.launches += 1
     return ids
 
@@ -190,25 +256,37 @@ def vq_nearest_with_stats_reference(z_e: torch.Tensor, codebook: torch.Tensor):
     return (ids, *vq_cluster_stats(z_e, ids, codebook.shape[0]))
 
 
+def _vq_stats_launch(z_e: torch.Tensor, codebook: torch.Tensor):
+    """Launch K2 and count it: (ids, counts, sums, order), ``order`` [B]
+    int32 being the rows sorted stably by id (a view into the scratch)."""
+    _check_inputs("K2", z_e, codebook)
+    lib = _bind("vq_stats")
+    (b, d), n, dev = z_e.shape, codebook.shape[0], z_e.device
+    plan, scratch_elems, lookup_elems = _plan(lib, "vq_stats", dev, b, n)
+    buf, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
+    counts = torch.empty(n, dtype=torch.float32, device=dev)
+    sums = torch.empty((n, d), dtype=torch.float32, device=dev)
+    _launch("K2", lib, "vq_stats", dev,
+            [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+             sums.data_ptr(), scratch],
+            [b, n, d, plan.config, plan.codes_per_split, plan.splits])
+    vq_nearest_with_stats_cuda.launches += 1
+    start = len(buf) - scratch_elems + lookup_elems  # the sort's scratch starts with it
+    order = buf[start:start + b]
+    return ids, counts, sums, order
+
+
 def vq_nearest_with_stats_cuda(z_e: torch.Tensor, codebook: torch.Tensor):
     """Kernel K2 on the card. z_e [B, D], codebook [N, D]: fp32, contiguous,
     on one CUDA device -> (ids [B] int32, counts [N] fp32, sums [N, D] fp32).
-    Raises on anything else. The stats are deterministic: each sum adds its
-    rows in ascending order.
+    Raises on anything else, and from the launch for N > 49152 (the
+    histograms of the row sort live in shared memory). The stats are
+    deterministic: each sum adds its rows in ascending order.
 
     ``vq_nearest_with_stats_cuda.launches`` counts the calls that launched
     the kernel.
     """
-    _check_inputs("K2", z_e, codebook)
-    lib = _bind("vq_stats", "vq_stats_launch", 8)
-    ids, _keep, ptrs, ints = _lookup_args(lib, z_e, codebook)
-    n, d = codebook.shape
-    counts = torch.empty(n, dtype=torch.float32, device=z_e.device)
-    sums = torch.empty((n, d), dtype=torch.float32, device=z_e.device)
-    ptrs = [*ptrs, counts.data_ptr(), sums.data_ptr()]
-    _launch("K2", lib, "vq_stats_launch", z_e.device, ptrs, ints)
-    vq_nearest_with_stats_cuda.launches += 1
-    return ids, counts, sums
+    return _vq_stats_launch(z_e, codebook)[:3]
 
 
 vq_nearest_with_stats_cuda.launches = 0

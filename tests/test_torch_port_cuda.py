@@ -146,3 +146,102 @@ def test_k2_wrapper_checks_and_counts(cuda):
     assert vq_nearest_with_stats_cuda.launches == before + 1
     assert vq_nearest_cuda.launches == k1_before  # K2 does not go through K1's wrapper
     assert ids.is_cuda and counts.shape == (8,) and sums.shape == (8, 3)
+
+
+# All three lookup configurations and their ragged edges. With the SM count
+# taken as 1 the plan picks MEDIUM up to 128 rows and LARGE from 129 on, with
+# one code split; with the card's own count, SMALL (up to 256 rows at
+# N = 1024, and at N <= 65) and MEDIUM, with code splits.
+SHAPES_B = [1, 63, 65, 160, 500, 4097]
+SHAPES_N = [1, 65, 1024]
+SHAPES_D = [1, 3, 208, 791]
+
+
+@pytest.fixture(params=["card_sms", "one_sm"])
+def plan_sms(request, cuda, monkeypatch):
+    import lipvq_tpu_torch.ops.vq_lookup as vq_lookup
+
+    monkeypatch.setattr(vq_lookup, "_PLANS", {})
+    if request.param == "one_sm":
+        monkeypatch.setattr(vq_lookup, "_SMS", {cuda.index or 0: 1})
+    return request.param
+
+
+def _ids_within_ties(z, c, got, want):
+    """Ids may differ only where the chosen codes' fp64 distances differ by
+    <= 1e-5 * max(1, d), the tie tolerance chip_smoke.py states."""
+    bad = (got != want).nonzero().flatten()
+    if bad.numel() == 0:
+        return
+    zb = z[bad].double()
+    d_got = ((zb - c[got[bad].long()].double()) ** 2).sum(1)
+    d_want = ((zb - c[want[bad].long()].double()) ** 2).sum(1)
+    allowed = 1e-5 * torch.clamp(torch.minimum(d_got, d_want), min=1.0)
+    assert bool(((d_got - d_want).abs() <= allowed).all()), f"{bad.numel()} ids differ"
+
+
+def _gauss(b, n, d, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    z = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(dev)
+    c = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(dev)
+    return z, c
+
+
+@pytest.mark.parametrize("d", SHAPES_D)
+@pytest.mark.parametrize("n", SHAPES_N)
+@pytest.mark.parametrize("b", SHAPES_B)
+def test_k1_shapes_and_configs(cuda, plan_sms, b, n, d):
+    z, c = _gauss(b, n, d, cuda)
+    got = vq_nearest_cuda(z, c)
+    torch.cuda.synchronize()
+    assert got.shape == (b,) and got.dtype == torch.int32
+    assert int(got.min()) >= 0 and int(got.max()) < n
+    _ids_within_ties(z, c, got, vq_nearest_reference(z, c))
+
+
+def _sequential_sums(z, ids, n):
+    """Each code's rows added one fp32 add at a time, ascending."""
+    want = np.zeros((n, z.shape[1]), np.float32)
+    np.add.at(want, ids.cpu().numpy(), z.cpu().numpy())
+    return want
+
+
+def _check_k2(z, c, got, order):
+    ids, counts, sums = got
+    n = c.shape[0]
+    _ids_within_ties(z, c, ids, vq_nearest_reference(z, c))
+    want_counts, _ = vq_cluster_stats(z, ids, n)
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(order.long(), torch.argsort(ids.long(), stable=True))
+    np.testing.assert_array_equal(sums.cpu().numpy(), _sequential_sums(z, ids, n))
+
+
+@pytest.mark.parametrize("d", SHAPES_D)
+@pytest.mark.parametrize("n", SHAPES_N)
+@pytest.mark.parametrize("b", SHAPES_B)
+def test_k2_shapes_and_configs(cuda, plan_sms, b, n, d):
+    from lipvq_tpu_torch.ops.vq_lookup import _vq_stats_launch
+
+    z, c = _gauss(b, n, d, cuda)
+    *got, order = _vq_stats_launch(z, c)
+    torch.cuda.synchronize()
+    _check_k2(z, c, got, order)
+
+
+@pytest.mark.parametrize("b,d", [(4097, 33), (70000, 208)])
+def test_k2_all_rows_on_one_code(cuda, b, d):
+    """One bucket longer than a histogram tile and than a short bucket: the
+    sums are still the sequential ascending ones, and repeat bit for bit."""
+    from lipvq_tpu_torch.ops.vq_lookup import _vq_stats_launch
+
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(cuda)
+    c = torch.full((65, d), 100.0, device=cuda)
+    c[0] = z.mean(0)
+    *got, order = _vq_stats_launch(z, c)
+    again = vq_nearest_with_stats_cuda(z, c)
+    torch.cuda.synchronize()
+    assert int(got[1][0]) == b and int(got[1].sum()) == b
+    _check_k2(z, c, got, order)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)

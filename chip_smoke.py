@@ -42,18 +42,40 @@ all started together). Phases:
    1e-3 lr + rtol 1e-6), the EMA buffers and the rows the EMA wrote to
    rtol 1e-5 / atol 1e-7 (``train_parity`` says why the parameters are
    held to their own gradient's step).
-5. Output: a ``kernels`` JSON line, the card line, and last the result line
-   ``{"ok": true, "device": {...}}``.
+5. Script: the port's own entry points at full width. Two seeded synthetic
+   exports (40 demos x 300 steps each, the flagship's obs keys and 12-d
+   actions) go as a ``train.data`` list (a MetaDataset) to
+   ``lipvq_tpu_torch.scripts.train.main`` with phase 4's loss-codebook
+   settings (the template's warmup): 2 epochs x 10 steps, a checkpoint
+   every epoch, and each epoch one wave of batched rollouts in 16
+   SyntheticKitchen envs, 50 steps, no early stop. K1 must launch once per
+   train step and once per rollout request (2 x 10 + 2 x 50 = 120), K2
+   never; both checkpoints and ``latest_full.state`` must exist and every
+   logged number be finite. The last checkpoint, reloaded on the card with
+   ``policy_from_checkpoint``, must give GMM parameters bit-equal to the
+   in-process algo's; a fresh algo loaded from ``latest_full.state`` must
+   take the writer's next step with losses within rtol 1e-5 (one K1 launch
+   each); ``eval_checkpoint`` runs 2 episodes x 50 steps on one env (one K1
+   launch per step). Printed: ``Time_*`` per step, the idle share over the
+   last epoch's steps (torch.profiler), ms per batched rollout step against
+   phase 3's bare request and the 16 envs' own step, the checkpoint's size
+   and save / load times.
+6. Output: a ``kernels`` JSON line (with the launches of every path), the
+   card line, and last the result line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -154,6 +176,13 @@ def profile_device(fn, reps: int) -> tuple[float | None, dict]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return device_busy(prof, reps)
+
+
+def device_busy(prof, reps: int = 1) -> tuple[float | None, dict]:
+    """(busy ms, {kernel name: ms}) per rep from a finished torch.profiler
+    run, busy being the union of the device intervals; (None, {}) where it
+    recorded no device activity."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
@@ -396,9 +425,11 @@ def skewed_stats(card: str, gen) -> dict:
 
 def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
     """The paper's template widths with the flagship switches. ``train``
-    ({"ema": bool, "dropout": float, "warmup": int}) adds the training
-    settings of exps/templates/icl.json: batch 100, AdamW lr 1e-4 with L2
-    0.01 and a constant_with_warmup schedule, clip 100."""
+    ({"ema": bool, "dropout": float, "warmup": int or None}) adds the
+    training settings of exps/templates/icl.json: batch 100, AdamW lr 1e-4
+    with L2 0.01 and a constant_with_warmup schedule, clip 100. A warmup of
+    None keeps the template's (no ``num_warmup_steps`` key: 10000 steps),
+    so the config loads again through ``config_factory``."""
     from lipvq_tpu_torch.config import config_factory
 
     cfg = config_factory("icl", {
@@ -424,7 +455,8 @@ def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
             policy.regularization.L2 = 0.01
             policy.learning_rate.initial = 1e-4
             policy.learning_rate.scheduler_type = "constant_with_warmup"
-            policy.learning_rate.num_warmup_steps = train["warmup"]
+            if train["warmup"] is not None:
+                policy.learning_rate.num_warmup_steps = train["warmup"]
             cfg.algo.vq.ema_codebook = train["ema"]
             for key in ("emb_dropout", "attn_dropout", "block_output_dropout"):
                 setattr(cfg.algo.transformer, key, train["dropout"])
@@ -726,6 +758,251 @@ def train_parity(items) -> dict:
     return {"losses": {k: float(v) for k, v in got.items()}, "worst": worst}
 
 
+SCRIPT_EXPORTS, SCRIPT_DEMOS, SCRIPT_DEMO_LEN = 2, 40, 300
+SCRIPT_EPOCHS, SCRIPT_STEPS = 2, 10
+ROLLOUT_HORIZON = 50  # N_ENVS envs, n = N_ENVS: one wave of 50 batched requests an epoch
+EVAL_EPISODES, EVAL_HORIZON = 2, 50
+
+
+def script_config(exports: list[str], output_dir: str) -> dict:
+    """The config file of the script phase: train_phase's loss-codebook
+    settings with the template's warmup, the exports as a ``train.data``
+    list (a MetaDataset), the template's windows (frame_stack and
+    seq_length 10) and low_dim cache, a checkpoint every
+    epoch and one wave of batched rollouts per epoch."""
+    cfg = json.loads(icl_config(train={"ema": False, "dropout": 0.1, "warmup": None}).dump())
+    cfg["train"].update({"data": exports, "output_dir": output_dir,
+                         "num_epochs": SCRIPT_EPOCHS, "hdf5_cache_mode": "low_dim",
+                         "hdf5_load_next_obs": False, "frame_stack": 10, "seq_length": 10})
+    exp = cfg["experiment"]
+    exp.update({"name": "chip_smoke", "epoch_every_n_steps": SCRIPT_STEPS,
+                "render_video": False})
+    exp["logging"].update({"terminal_output_to_txt": False, "log_tb": False})
+    exp["save"].update({"enabled": True, "every_n_epochs": 1})
+    exp["rollout"].update({"enabled": True, "batched": True, "num_batch_envs": N_ENVS,
+                           "n": N_ENVS, "horizon": ROLLOUT_HORIZON, "rate": 1,
+                           "warmstart": 0, "terminate_on_success": False})
+    return cfg
+
+
+def per_step_ms(logs: dict, key: str, steps: int) -> list[float]:
+    """A ``Time_*`` log (minutes per epoch) as ms per step, one per epoch."""
+    return [v * 60e3 / steps for v in logs[key]]
+
+
+def script_phase(card: str, served: dict) -> dict:
+    """scripts/train.py on two seeded exports at full width, then the
+    checkpoint reloaded, the full state resumed and eval_checkpoint run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.scripts.eval_checkpoint import evaluate_checkpoint
+    from lipvq_tpu_torch.utils import file_utils, train_utils
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        obs_shapes = {k: tuple(s) for k, s in OBS_SHAPES.items() if k != "lang_emb"}
+        exports = [make_synthetic_export(os.path.join(tmp, f"export{i}"), n_demos=SCRIPT_DEMOS,
+                                         demo_len=SCRIPT_DEMO_LEN, action_dim=AC_DIM,
+                                         obs_key_shapes=obs_shapes,
+                                         lang=f"synthetic task {i}", seed=i)
+                   for i in range(SCRIPT_EXPORTS)]
+        export_s = time.perf_counter() - t0
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(script_config(exports, os.path.join(tmp, "out")), f)
+
+        # run_epoch, observed: the in-process algo, K1's launches inside the
+        # train steps, and the device's busy time over the last epoch's steps
+        seen = {"algo": None, "k1_steps": 0, "profile": None}
+        run_epoch = train_utils.run_epoch
+
+        def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+            seen["algo"] = model
+            before = vq_nearest_cuda.launches
+            if epoch != SCRIPT_EPOCHS or validate:
+                log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+            else:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    log = run_epoch(model, loader, epoch, validate=validate,
+                                    num_steps=num_steps)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                busy_ms, kernels = device_busy(prof)
+                seen["profile"] = {
+                    "wall_ms": wall_ms, "busy_ms": busy_ms,
+                    "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+                    "top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
+            seen["k1_steps"] += vq_nearest_cuda.launches - before
+            return log
+
+        out = io.StringIO()
+        train_utils.run_epoch = observed_run_epoch
+        try:
+            # the main path: the training script, counted
+            vq_nearest_cuda.launches = vq_nearest_with_stats_cuda.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            script_s = time.perf_counter() - t0
+            k1, k2 = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+        except BaseException:
+            print(out.getvalue()[-8000:])
+            raise
+        finally:
+            train_utils.run_epoch = run_epoch
+        for line in out.getvalue().splitlines():
+            if line.startswith(("Rollout Epoch", "save checkpoint", "Rollout disabled")):
+                print(f"  script: {line}")
+
+        k1_steps, want_steps = seen["k1_steps"], SCRIPT_EPOCHS * SCRIPT_STEPS
+        k1_rollout, want_rollout = k1 - k1_steps, SCRIPT_EPOCHS * ROLLOUT_HORIZON
+        if (k1_steps, k1_rollout, k2) != (want_steps, want_rollout, 0):
+            raise AssertionError(
+                f"script: K1 launched {k1_steps} times in the train steps (want {want_steps}) "
+                f"and {k1_rollout} in the rollouts (want {want_rollout}), K2 {k2} (want 0)")
+        names = sorted(os.listdir(ckpt_dir))
+        ckpts = {e: [n for n in names if n.startswith(f"model_epoch_{e}") and n.endswith(".ckpt")]
+                 for e in range(1, SCRIPT_EPOCHS + 1)}
+        if not all(len(v) == 1 for v in ckpts.values()) or not {
+                "latest_full.state", "latest_full.state.epoch"} <= set(names):
+            raise AssertionError(f"script: checkpoint files {names}")
+        with open(os.path.join(ckpt_dir, "latest_full.state.epoch")) as f:
+            assert f.read() == str(SCRIPT_EPOCHS)
+        with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+            logs = json.load(f)
+        bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
+        if bad or len(logs.get("Rollout/Success_Rate/SyntheticKitchen", [])) != SCRIPT_EPOCHS:
+            raise AssertionError(f"script: non-finite or missing logs {bad or sorted(logs)}")
+        print(f"script: {SCRIPT_EPOCHS} epochs x {SCRIPT_STEPS} steps over {SCRIPT_EXPORTS} "
+              f"exports ({SCRIPT_DEMOS} demos x {SCRIPT_DEMO_LEN} steps each, written in "
+              f"{export_s:.2f} s) through MetaDataset, {N_ENVS}-env batched rollouts of "
+              f"{ROLLOUT_HORIZON} steps each epoch, in {script_s:.1f} s; K1 launched "
+              f"{k1_steps} times in train steps + {k1_rollout} in rollouts, K2 {k2}; files "
+              f"{names}; Train/Loss {logs['Train/Loss']}")
+
+        # reload: the last checkpoint on the card against the in-process algo
+        algo = seen["algo"]
+        last = os.path.join(ckpt_dir, ckpts[SCRIPT_EPOCHS][0])
+        t0 = time.perf_counter()
+        reloaded, ckpt = file_utils.policy_from_checkpoint(last)  # CUDA by default
+        torch.cuda.synchronize()
+        policy_load_ms = (time.perf_counter() - t0) * 1e3
+        assert reloaded.device.type == "cuda" and algo.device.type == "cuda"
+        rng = np.random.default_rng(8)
+        t = algo.context_length
+        inputs = (random_obs(rng, (N_ENVS, t)), random_obs(rng, (N_ENVS, t)),
+                  rng.uniform(-1, 1, (N_ENVS, t, AC_DIM)).astype(np.float32))
+        dists = []
+        with torch.inference_mode():
+            for a in (algo, reloaded):
+                dists.append(a.nets.forward_train(*(a._put_infer(x) for x in inputs),
+                                                  low_noise_eval=True)[0])
+        if not all(torch.equal(x, y) for x, y in zip(*dists)):
+            raise AssertionError("the reloaded checkpoint's GMM parameters differ from the "
+                                 "in-process algo's")
+        print("script reload: policy_from_checkpoint on the card gives GMM parameters "
+              "bit-equal to the in-process algo's")
+
+        # resume: a fresh algo from latest_full.state takes the writer's next step
+        config = file_utils.config_from_checkpoint(ckpt)
+        shape_meta = json.loads(ckpt["shape_metadata"])
+        fresh = algo_factory("icl", config, shape_meta["all_shapes"], ac_dim=shape_meta["ac_dim"])
+        state_path = os.path.join(ckpt_dir, "latest_full.state")
+        fresh.deserialize_full(torch.load(state_path, map_location="cpu", weights_only=True))
+        batch = fresh.process_batch_for_training(
+            next(iter(DataLoader(SequenceItems(BATCH, seed=9), BATCH, seed=10))))
+        vq_nearest_cuda.launches = vq_nearest_with_stats_cuda.launches = 0
+        got = fresh.train_on_batch(batch, SCRIPT_EPOCHS + 1)["losses"]
+        want = algo.train_on_batch(batch, SCRIPT_EPOCHS + 1)["losses"]
+        k1_resume, k2_resume = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+        if (k1_resume, k2_resume) != (2, 0):
+            raise AssertionError(f"resume: K1 launched {k1_resume}, K2 {k2_resume} in 2 steps")
+        for k in want:
+            np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, err_msg=k)
+        bit_exact = all(torch.equal(got[k], want[k]) for k in want) and all(
+            torch.equal(p, q) for p, q in zip(fresh.nets.state_dict().values(),
+                                              algo.nets.state_dict().values()))
+        print(f"script resume: the resumed step's losses agree to rtol 1e-5 "
+              f"({ {k: float(v) for k, v in got.items()} }); bit-exact losses and weights: "
+              f"{bit_exact}; K1 launched once per step")
+
+        # checkpoint size and save / load times
+        probe = os.path.join(tmp, "probe.ckpt")
+        save_ms = host_ms(lambda: file_utils.save_checkpoint(
+            probe, algo, config, shape_meta=shape_meta), reps=3)
+        state_probe = os.path.join(tmp, "probe.state")
+        save_state_ms = host_ms(lambda: torch.save(algo.serialize_full(), state_probe), reps=3)
+
+        def load():
+            fresh.deserialize(file_utils.load_checkpoint_dict(probe)["model"])
+            torch.cuda.synchronize()
+
+        load_ms = host_ms(load, reps=3)
+        ckpt_bytes, state_bytes = os.path.getsize(last), os.path.getsize(state_path)
+        del fresh, reloaded
+
+        # eval_checkpoint on one env, counted
+        vq_nearest_cuda.launches = vq_nearest_with_stats_cuda.launches = 0
+        t0 = time.perf_counter()
+        stats = evaluate_checkpoint(last, n=EVAL_EPISODES, horizon=EVAL_HORIZON,
+                                    terminate_on_success=False, verbose=False)
+        eval_s = time.perf_counter() - t0
+        k1_eval, k2_eval = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+        want_eval = EVAL_EPISODES * EVAL_HORIZON
+        if (k1_eval, k2_eval) != (want_eval, 0) or stats["episodes"] != EVAL_EPISODES or \
+                stats["Horizon"] != EVAL_HORIZON or not all(
+                    np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"eval_checkpoint: K1 {k1_eval} (want {want_eval}), K2 "
+                                 f"{k2_eval}, stats {stats}")
+
+    # the host's share of a rollout step: 16 synthetic envs stepped with
+    # their frame stacks, no request
+    from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
+    from lipvq_tpu_torch.envs.vector_env import VectorEnv
+
+    vec = VectorEnv([SyntheticKitchenEnv for _ in range(N_ENVS)], frame_stack=algo.context_length,
+                    obs_keys=[k for k in OBS_SHAPES if k != "lang_emb"])
+    vec.reset()
+    acts = np.random.default_rng(11).uniform(-1, 1, (N_ENVS, AC_DIM)).astype(np.float32)
+    env_step_ms = host_ms(lambda: vec.step(acts), reps=50)
+
+    steps = SCRIPT_STEPS
+    timing = {k: per_step_ms(logs, f"Timing_Stats/Train_{k}", steps)
+              for k in ("Data_Loading", "Process_Batch", "Train_Batch", "Log_Info")}
+    rollout_step_ms = per_step_ms(logs, "Timing_Stats/Rollout_SyntheticKitchen_Rollouts",
+                                  ROLLOUT_HORIZON)
+    prof = seen["profile"]
+    print(f"script Time_* per step, epoch 1 and epoch {SCRIPT_EPOCHS} (profiler on): "
+          f"{ {k: [round(x, 3) for x in v] for k, v in timing.items()} } ms; device busy "
+          f"{prof['busy_ms']} ms of {prof['wall_ms']:.1f} ms over epoch {SCRIPT_EPOCHS}'s "
+          f"{steps} steps, idle share {prof['idle_share']}; top {prof['top_ops_ms']} [{card}]")
+    print(f"script rollout: {[round(x, 3) for x in rollout_step_ms]} ms per batched step of "
+          f"{N_ENVS} envs, env stepping included (epochs 1, {SCRIPT_EPOCHS}), against "
+          f"{served['batched_request_ms']:.3f} ms per bare {N_ENVS}-env request and "
+          f"{env_step_ms:.3f} ms per step of the {N_ENVS} envs alone [{card}]")
+    print(f"script checkpoint: {ckpt_bytes} bytes (full state {state_bytes}); save "
+          f"{save_ms:.1f} ms, full-state save {save_state_ms:.1f} ms, load into an algo "
+          f"{load_ms:.1f} ms, policy_from_checkpoint {policy_load_ms:.1f} ms (median of 3) "
+          f"[{card}]")
+    print(f"eval_checkpoint: {EVAL_EPISODES} episodes x {EVAL_HORIZON} steps in {eval_s:.1f} s, "
+          f"K1 launched {k1_eval} times; {stats}")
+    return {"k1_train_steps": k1_steps, "k1_rollout": k1_rollout, "k1_eval": k1_eval,
+            "k2_script": k2, "k2_eval": k2_eval, "script_s": script_s,
+            "time_ms_per_step": timing, "rollout_step_ms": rollout_step_ms,
+            "env_step_ms": env_step_ms,
+            "profile": prof, "ckpt_bytes": ckpt_bytes, "state_bytes": state_bytes,
+            "save_ms": save_ms, "save_state_ms": save_state_ms, "load_ms": load_ms,
+            "policy_load_ms": policy_load_ms, "resume_bit_exact": bit_exact,
+            "eval": stats, "eval_s": eval_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -748,13 +1025,18 @@ def main() -> int:
     k2 = stats_phase(card)
     served = slice_phase(card)
     trained = train_phase(card)
+    scripted = script_phase(card, served)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     k1_paths = {"serve": served["launches"], "train": trained["train"]["k1_launches"],
-                "train_ema": trained["train_ema"]["k1_launches"]}
+                "train_ema": trained["train_ema"]["k1_launches"],
+                "train_script": scripted["k1_train_steps"], "rollout": scripted["k1_rollout"],
+                "eval_checkpoint": scripted["k1_eval"]}
     k2_paths = {"serve": served["k2_launches"], "train": trained["train"]["k2_launches"],
-                "train_ema": trained["train_ema"]["k2_launches"]}
+                "train_ema": trained["train_ema"]["k2_launches"],
+                "train_script": scripted["k2_script"], "rollout": 0,
+                "eval_checkpoint": scripted["k2_eval"]}
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -781,7 +1063,7 @@ def main() -> int:
         "corpus": k2["corpus"],
         "skewed": k2["skewed"],
         "card": card,
-    }], "serve": served, "train": trained}))
+    }], "serve": served, "train": trained, "script": scripted}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

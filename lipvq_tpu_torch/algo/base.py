@@ -1,9 +1,10 @@
 """Algorithm registry + base class (counterpart of ``lipvq_tpu/algo/base.py``).
 
 - ``register_algo_factory_func`` / ``algo_factory`` (reference algo.py:34-89)
-- ``Algo``: obs-key partitioning and device placement. The port's
-  algorithms hold their networks as one ``nn.Module`` (``self.nets``) on
-  ``self.device``.
+- ``Algo``: obs-key partitioning, device placement and checkpointing. The
+  port's algorithms hold their networks as one ``nn.Module`` (``self.nets``)
+  on ``self.device``; ``serialize`` is its state_dict, ``serialize_full``
+  adds the optimizers and random generators (reference algo.py:267-301).
 - ``lr_schedule_from_config`` / ``optimizer_from_optim_params``: the optax
   chain clip-by-global-norm -> (L2) -> Adam/AdamW(schedule) of the JAX
   package as a ``ScheduledOptimizer`` (reference torch_utils.py:90-196).
@@ -160,6 +161,15 @@ class ScheduledOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> dict:
+        """The torch optimizer's state and the schedule's step counter."""
+        return {"steps": self.steps, "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        """The torch state carries each group's current lr as well."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.steps = int(state["steps"])
+
 
 def optimizer_from_optim_params(params, optim_params, max_grad_norm: float | None = None,
                                 num_training_steps: int | None = None) -> ScheduledOptimizer:
@@ -235,6 +245,46 @@ class Algo:
 
     def log_info(self, info) -> dict:
         return {"Loss": float(info["losses"]["action_loss"])}
+
+    # -- checkpointing -----------------------------------------------------
+    def optimizers(self) -> dict[str, ScheduledOptimizer]:
+        """The optimizers a full train state carries, by name."""
+        return {}
+
+    def generators(self) -> dict[str, torch.Generator]:
+        """The random generators a full train state carries, by name."""
+        return {}
+
+    def serialize(self) -> dict[str, torch.Tensor]:
+        """The nets' state_dict (parameters and buffers, such as the EMA
+        codebook's), copied to the CPU (reference algo.py:323)."""
+        return {k: v.detach().to("cpu", copy=True) for k, v in self.nets.state_dict().items()}
+
+    def deserialize(self, payload: Mapping[str, torch.Tensor]) -> None:
+        """Load a ``serialize`` payload onto the nets' device; every key must
+        match."""
+        self.nets.load_state_dict(payload, strict=True)
+
+    def serialize_full(self) -> dict:
+        """The whole train state: ``serialize``, each optimizer's state and
+        schedule step, and each generator's state, so a resumed run takes the
+        next step as the run it came from would have."""
+        return {"model": self.serialize(),
+                "optimizers": {k: o.state_dict() for k, o in self.optimizers().items()},
+                "generators": {k: g.get_state() for k, g in self.generators().items()}}
+
+    def deserialize_full(self, payload: Mapping) -> None:
+        optimizers, generators = self.optimizers(), self.generators()
+        if set(payload["optimizers"]) != set(optimizers) or set(
+                payload["generators"]) != set(generators):
+            raise KeyError(f"the train state holds optimizers {sorted(payload['optimizers'])} "
+                           f"and generators {sorted(payload['generators'])}; this algo has "
+                           f"{sorted(optimizers)} and {sorted(generators)}")
+        self.deserialize(payload["model"])
+        for k, o in optimizers.items():
+            o.load_state_dict(payload["optimizers"][k])
+        for k, g in generators.items():
+            g.set_state(payload["generators"][k])
 
     # the train step takes ``train`` explicitly, as the JAX one does, so the
     # mode switches of the training loop have nothing to do

@@ -134,6 +134,15 @@ class ICLTransformerGMM(PolicyAlgo):
                 vq_params, torch.optim.AdamW, lambda step: lr,
                 weight_decay=float(vq_cfg.get("optimizer_wd", 1e-4)), eps=1e-8)
 
+    def optimizers(self) -> dict[str, ScheduledOptimizer]:
+        out = {"policy": self.policy_optimizer}
+        if self.vq_optimizer is not None:
+            out["vq"] = self.vq_optimizer
+        return out
+
+    def generators(self) -> dict[str, torch.Generator]:
+        return {"dropout": self._dropout_generator, "sample": self._generator}
+
     # -- data prep (host side, numpy) --------------------------------------
     def process_batch_for_training(self, batch):
         """Slice the context window + pick action targets

@@ -157,7 +157,7 @@ class BaseConfig(Config, metaclass=ConfigMeta):
         t.action_config = Config()
         t.action_config.do_not_lock_keys()
         t.goal_mode = None
-        t.cuda = True  # kept for template compat; algo_factory takes the device
+        t.cuda = True  # scripts/train.py runs on CUDA unless this is false
         # data-parallel device count: None = single-device (reference
         # parity), -1 = all visible devices, N = first N devices. When set,
         # train() builds a Mesh and shards every batch (SURVEY.md §2.5).

@@ -1,0 +1,114 @@
+"""Batched environment rollout (counterpart of ``lipvq_tpu/envs/vector_env.py``).
+
+``VectorEnv`` steps N envs in lock-step in this process, and
+``batched_icl_rollout`` runs them to completion with one policy request per
+step: the rollout policy's batched path takes obs [N, T, ...] to actions
+[N, A], so N envs share one forward on the card (and one K1 launch). The
+subprocess variant (``SubprocVectorEnv``, for MuJoCo-class simulators) is
+not ported yet (ROADMAP §1 item 7).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+
+from lipvq_tpu_torch.envs.wrappers import FrameStackWrapper
+
+
+class VectorEnv:
+    """Lock-step batch of environments (in-process).
+
+    ``obs_keys`` filters the stacked observation dict to the keys the
+    policy consumes: env members of one task can sample different object
+    counts, making task-object keys ragged across the batch (unstackable);
+    proprio/camera keys are shape-stable."""
+
+    def __init__(self, env_fns, frame_stack: int | None = None,
+                 obs_keys=None):
+        self.envs = [fn() for fn in env_fns]
+        if frame_stack:
+            self.envs = [FrameStackWrapper(e, frame_stack) for e in self.envs]
+        self.num_envs = len(self.envs)
+        self.obs_keys = set(obs_keys) if obs_keys is not None else None
+
+    def reset(self):
+        obs = [e.reset() for e in self.envs]
+        return self._stack(obs, self.obs_keys)
+
+    def step(self, actions: np.ndarray):
+        results = [e.step(actions[i]) for i, e in enumerate(self.envs)]
+        obs, rews, dones, infos = zip(*results)
+        return (self._stack(obs, self.obs_keys), np.asarray(rews),
+                np.asarray(dones), infos)
+
+    def is_success(self):
+        return [e.is_success() for e in self.envs]
+
+    @property
+    def action_dimension(self):
+        return self.envs[0].action_dimension
+
+    @property
+    def ep_lang_str(self):
+        return getattr(self.envs[0], "ep_lang_str", None)
+
+    @property
+    def ep_lang_strs(self):
+        """Per-env episode language (valid after reset)."""
+        out = []
+        for e in self.envs:
+            lang = getattr(e, "ep_lang_str", None)
+            if lang is None and hasattr(e, "unwrapped"):
+                lang = getattr(e.unwrapped, "_ep_lang_str", None)
+            out.append(lang)
+        return out
+
+    @staticmethod
+    def _stack(obs_list, obs_keys=None):
+        keys = [
+            k for k in obs_list[0]
+            if obs_keys is None or k in obs_keys
+        ]
+        return {k: np.stack([o[k] for o in obs_list]) for k in keys}
+
+
+def batched_icl_rollout(
+    policy,
+    vec_env,
+    context_batch,
+    horizon: int,
+    terminate_on_success: bool = True,
+):
+    """Run all envs to completion with one policy request per step.
+    Returns the per-env means of {Return, Horizon, Success_Rate}."""
+    obs = vec_env.reset()
+    langs = getattr(vec_env, "ep_lang_strs", None)
+    if langs is not None and any(langs):
+        policy.start_episode(lang=[l or "" for l in langs])
+    else:
+        policy.start_episode(lang=getattr(vec_env, "ep_lang_str", None))
+    n = vec_env.num_envs
+    returns = np.zeros(n)
+    horizons = np.zeros(n, int)
+    success = np.zeros(n, bool)
+    active = np.ones(n, bool)
+    for _t in range(horizon):
+        acts = policy.batched(obs, context_batch)
+        obs, rews, dones, infos = vec_env.step(acts)
+        returns += rews * active
+        horizons += active
+        for i, info in enumerate(infos):
+            s = info.get("is_success", {}).get("task", False)
+            success[i] = success[i] or bool(s)
+        if terminate_on_success:
+            active &= ~success
+        active &= ~np.asarray(dones, bool)
+        if not active.any():
+            break
+    return OrderedDict(
+        Return=float(returns.mean()),
+        Horizon=float(horizons.mean()),
+        Success_Rate=float(success.mean()),
+    )

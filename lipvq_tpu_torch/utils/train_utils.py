@@ -1,12 +1,15 @@
 """Training-loop utilities (counterpart of ``lipvq_tpu/utils/train_utils.py``).
 
+- ``dataset_factory`` / ``load_data_for_training`` (reference :94, :164)
+  over dataset exports, and ``make_loaders``;
 - ``run_epoch`` (reference :1238): fixed num_steps per epoch, cycling the
   loader on exhaustion, per-phase wall-clock timers emitted as ``Time_*``
   minutes (reference :1279-1328);
 - ``get_exp_dir`` and ``should_save_from_rollout_logs``, the output tree
   and the checkpoint policy (reference :32-90, :1112).
 
-The HDF5 dataset factory and the loader factory come with the data slice.
+Only the in-process loader is ported: ``train.num_data_workers`` 1 or more
+and ``train.hdf5_cache_mode="device"`` raise (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -19,7 +22,123 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from lipvq_tpu_torch.data.loaders import CyclingIterator
+from lipvq_tpu_torch.data.dataset import MetaDataset, SequenceDataset
+from lipvq_tpu_torch.data.loaders import CyclingIterator, DataLoader
+
+
+def dataset_factory(config, obs_keys, filter_by_attribute=None,
+                    dataset_path=None, lang_encoder=None) -> SequenceDataset:
+    """Build a SequenceDataset over an export from config (reference
+    train_utils.py:164-218)."""
+    if dataset_path is None:
+        dataset_path = config.train.data
+    return SequenceDataset(
+        hdf5_path=dataset_path,
+        obs_keys=obs_keys,
+        dataset_keys=tuple(config.train.dataset_keys),
+        action_keys=tuple(config.train.action_keys),
+        action_config=config.train.action_config.to_dict()
+        if hasattr(config.train.action_config, "to_dict")
+        else dict(config.train.action_config),
+        frame_stack=config.train.frame_stack,
+        seq_length=config.train.seq_length,
+        pad_frame_stack=config.train.pad_frame_stack,
+        pad_seq_length=config.train.pad_seq_length,
+        goal_mode=config.train.goal_mode,
+        # "device" is a loader-level mode (make_loaders); the dataset
+        # caches low_dim for it, as in the JAX package
+        hdf5_cache_mode=("low_dim"
+                         if config.train.hdf5_cache_mode == "device"
+                         else config.train.hdf5_cache_mode),
+        hdf5_use_swmr=config.train.hdf5_use_swmr,
+        filter_by_attribute=filter_by_attribute,
+        load_next_obs=config.train.hdf5_load_next_obs,
+        lang_encoder=lang_encoder,
+    )
+
+
+def load_data_for_training(config, obs_keys, lang_encoder=None):
+    """(train_dataset, valid_dataset) (reference train_utils.py:94-161).
+
+    ``config.train.data`` may be one export path or a list of dataset specs
+    ({"path": ..., "weight"?: ..., "filter_key"?: ...}); a list builds a
+    MetaDataset with shared normalization stats and no validation set.
+    """
+    train_filter = config.train.hdf5_filter_key
+    valid_filter = config.train.hdf5_validation_filter_key
+    data = config.train.data
+
+    if isinstance(data, (list, tuple)):
+        datasets, weights = [], []
+        for spec in data:
+            if isinstance(spec, str):
+                spec = {"path": spec}
+            ds = dataset_factory(
+                config, obs_keys,
+                filter_by_attribute=spec.get("filter_key", train_filter),
+                dataset_path=spec["path"], lang_encoder=lang_encoder,
+            )
+            datasets.append(ds)
+            weights.append(float(spec.get("weight", 1.0)))
+        train_ds = MetaDataset(
+            datasets, ds_weights=weights,
+            normalize_weights_by_ds_size=bool(
+                config.train.get("normalize_weights_by_ds_size", False)
+            ),
+        )
+        return train_ds, None
+
+    train_ds = dataset_factory(
+        config, obs_keys, filter_by_attribute=train_filter,
+        lang_encoder=lang_encoder,
+    )
+    valid_ds = None
+    if config.experiment.validate:
+        valid_ds = dataset_factory(
+            config, obs_keys, filter_by_attribute=valid_filter,
+            lang_encoder=lang_encoder,
+        )
+        valid_ds.set_action_normalization_stats(
+            train_ds.get_action_normalization_stats()
+        )
+    return train_ds, valid_ds
+
+
+def make_loaders(config, train_ds, valid_ds, model=None):
+    """(train_loader, valid_loader, context_loader) (reference
+    train_utils.py:229-294): the train loader follows the MetaDataset's
+    sampler when it has one; the rollout context loader draws one training
+    item at a time (reference train.py:217-224)."""
+    n_workers = int(config.train.num_data_workers or 0)
+    if config.train.hdf5_cache_mode == "device" or n_workers:
+        raise NotImplementedError(
+            "only train.num_data_workers=0 with a host cache is ported; the "
+            "PrefetchLoader (1 worker), MultiprocessLoader (> 1) and "
+            "DeviceCachedLoader (hdf5_cache_mode='device') are ROADMAP §1 item 7")
+    sampler = None
+    if hasattr(train_ds, "get_dataset_sampler"):
+        group_bs = (
+            config.train.batch_size
+            if config.train.get("group_task_batches", False) else None
+        )
+        sampler = train_ds.get_dataset_sampler(
+            seed=config.train.seed, batch_size=group_bs
+        )
+    train_loader = DataLoader(
+        train_ds, batch_size=config.train.batch_size, shuffle=True,
+        seed=config.train.seed, sampler=sampler,
+    )
+    valid_loader = None
+    if valid_ds is not None:
+        valid_loader = DataLoader(
+            valid_ds, batch_size=config.train.batch_size, shuffle=True,
+            seed=config.train.seed + 1,
+        )
+    context_loader = DataLoader(
+        train_ds, batch_size=1, shuffle=True, seed=config.train.seed + 2,
+        drop_last=False,
+    )
+    return train_loader, valid_loader, context_loader
 
 
 def _stack_to_host(infos: list):

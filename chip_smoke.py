@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's served and training paths on one NVIDIA GPU and
-hold its CUDA kernels against their plain PyTorch versions.
+"""Run the PyTorch port's served, training and corpus paths and the
+tokenizer-ablation arms on one NVIDIA GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -21,10 +22,15 @@ all started together). Phases:
    sides). A skewed K2 case at the corpus shape puts every row on one code
    (code 0 is the mean of z, the others lie far away): counts exact, the
    sums within the same bound and equal, bit for bit, to a sequential
-   ascending fp32 sum (numpy's cumsum), two calls bit-identical. Times per
-   call are CUDA-event medians; device times come from torch.profiler, per
-   kernel and, for K2, per stage (cn, lookup, sort, sums); K1's wrapper
-   host time is the median time from entry to return on an idle card.
+   ascending fp32 sum (numpy's cumsum), two calls bit-identical. K1f (one
+   bf16 pass on the tensor cores): exact ids on bf16-exact fixtures; at the
+   three shapes ids may differ from its plain version only on near-ties of
+   the fp32 expand form over bf16 operands (``tie_gap`` in ops/vq_lookup.py
+   states the bound), counted; the share of ids that differ from K1's.
+   Times per call are CUDA-event medians; device times come from
+   torch.profiler, per kernel and, for K2, per stage (cn, lookup, sort,
+   sums); K1's wrapper host time is the median time from entry to return
+   on an idle card.
 3. Serve: the flagship ICLTransformerGMM at full width (6 layers x 512 x 8
    heads, 30 tokens, 1024 x 791 codebook, bf16 compute) behind
    ICLRolloutPolicy answers 5 requests for 16 envs and 3 single-env
@@ -36,12 +42,9 @@ all started together). Phases:
    sequence items, once with the loss-based codebook (one K1 launch per
    step, no K2) and once with the EMA codebook (one K2 launch per step, no
    K1). One fp32 EMA-codebook step without dropout on the card and on the
-   CPU from the same weights must agree: equal context ids, losses to rtol
-   1e-4, every gradient to rtol 1e-3 + 1e-4 of its tensor's largest |g|,
-   every parameter to the AdamW step of its own device's gradient (atol
-   1e-3 lr + rtol 1e-6), the EMA buffers and the rows the EMA wrote to
-   rtol 1e-5 / atol 1e-7 (``train_parity`` says why the parameters are
-   held to their own gradient's step).
+   CPU from the same weights must agree as ``hold_step`` states (losses,
+   gradients, each device's AdamW step, buffers) with equal context ids and
+   the codebook rows the EMA wrote to rtol 1e-5 / atol 1e-7.
 5. Script: the port's own entry points at full width. Two seeded synthetic
    exports (40 demos x 300 steps each, the flagship's obs keys and 12-d
    actions) go as a ``train.data`` list (a MetaDataset) to
@@ -60,8 +63,26 @@ all started together). Phases:
    last epoch's steps (torch.profiler), ms per batched rollout step against
    phase 3's bare request and the 16 envs' own step, the checkpoint's size
    and save / load times.
-6. Output: a ``kernels`` JSON line (with the launches of every path), the
-   card line, and last the result line ``{"ok": true, "device": {...}}``.
+6. Corpus: ``lipvq_tpu_torch.scripts.tokenize_corpus`` on a seeded export
+   of 2^20 action rows (1024 demos x 1024 steps of smooth trajectories) at
+   full width (latent 208, 1024 codes), the tokenizer from a state_dict
+   file: a dry run and a writing run with K1 and a dry run with K1f, each
+   launching its kernel exactly once per chunk of 2^16 rows (16) and no
+   other. The ids must equal the plain tokenize's on the card but for
+   near-ties of the fp32 expand form (``tie_gap``; the latents' squared
+   norms of ~50 make its cancellation decide some), the tokens read back
+   from the export must equal the ids, and K1f's ids must hold against its
+   plain version; printed: rows per second of each run, the share of ids
+   K1f changes, the device busy time and idle share of one tokenization.
+7. Arms: the other arms of the paper's tokenizer ablation at full width
+   (``arms_phase``): bin, ln_act and raw on the GPT backbone, ln_act and
+   LipVQ on icl_mamba, each serving 8 requests of 16 envs and taking 10
+   train steps (K1 once per request and step for LipVQ only), its fp32
+   forward on the card held against the CPU, and one fp32 step of the bin
+   and the raw arm held against the CPU step by ``hold_step``.
+8. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+   every path), the card line, and last the result line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -81,8 +102,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM published peaks (dense, at the full 700 W power limit)
+# H100 SXM published peaks (NVIDIA's data sheet: dense, at the full 700 W
+# power limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 OBS_SHAPES = {
@@ -423,8 +446,111 @@ def skewed_stats(card: str, gen) -> dict:
             "device_ms": device_ms, "stage_ms": stages, "kernel_ms": kernels}
 
 
-def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
-    """The paper's template widths with the flagship switches. ``train``
+def fast_bound(b: int, n: int, d: int) -> tuple[float, str]:
+    """Least time (ms) for K1f: 2*B*N*D bf16 operations over the dense bf16
+    tensor peak, against z and c (fp32) read once and the ids written once."""
+    ops_ms = 2 * b * n * d / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = 4 * (b * d + n * d + b) / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def check_near_ties(z, c, got, want, bf16: bool = True) -> tuple[int, float, float]:
+    """Ids may differ only on near-ties of the fp32 expand form (over bf16
+    operands with ``bf16``: K1f against its plain version), as ``tie_gap``
+    states. Returns (differing rows, largest fp64 distance gap, largest gap
+    over its allowance)."""
+    from lipvq_tpu_torch.ops.vq_lookup import tie_gap
+
+    gap, allowed = tie_gap(z, c, got, want, bf16=bf16)
+    if (gap > allowed).any():
+        raise AssertionError(f"ids differ beyond the near-tie bound on "
+                             f"{int((gap > allowed).sum())} rows")
+    if not gap.numel():
+        return 0, 0.0, 0.0
+    return gap.numel(), float(gap.max()), float((gap / allowed).max())
+
+
+def fast_phase(card: str) -> dict:
+    """K1f against its plain version: exact ids on bf16-exact fixtures, the
+    near-tie rule of ``check_near_ties`` at the served, train and corpus
+    shapes, the share of ids that differ from K1's, times."""
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest_cuda,
+        vq_nearest_fast_reference,
+    )
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 must stay off"
+    dev = torch.device("cuda")
+    # operands k/8 with |k| < 256 are bf16-exact and every sum is exact in
+    # fp32, so the ids are exactly the plain version's
+    fixtures = []
+    for b, n, d in [(80, 128, 12), (300, 1024, 208), (70, 65, 791), (1, 1, 1)]:
+        rng = np.random.default_rng(0)
+        z = np.round(np.clip(rng.standard_normal((b, d)) * 8, -255, 255)) / 8
+        c = np.round(np.clip(rng.standard_normal((n, d)) * 8, -255, 255)) / 8
+        fixtures.append((f"dyadic{b}x{n}x{d}", z.astype(np.float32), c.astype(np.float32)))
+    fixtures.append(("ties", np.asarray([[1.0, 0.0], [0.0, 1.0]], np.float32),
+                     np.asarray([[5, 5], [1, 0], [1, 0], [0, 1], [0, 1]], np.float32)))
+    for name, z, c in fixtures:
+        zt, ct = torch.from_numpy(z).to(dev), torch.from_numpy(c).to(dev)
+        got = vq_nearest_cuda(zt, ct, precision="fast")
+        want = vq_nearest_fast_reference(zt, ct)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K1f ids differ from the plain version on {name}: "
+                                 f"{int((got != want).sum())} rows")
+        if name == "ties" and got.tolist() != [1, 3]:
+            raise AssertionError(f"K1f tie rule: got {got.tolist()}, want [1, 3]")
+    print(f"K1f fixtures: ids exactly equal to the plain version on {len(fixtures)} "
+          f"bf16-exact fixtures")
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    for label, (b, n, d), reps, plain_reps in (("slice", SLICE_SHAPE, 50, 10),
+                                               ("train", TRAIN_SHAPE, 50, 10),
+                                               ("corpus", CORPUS_SHAPE, 10, 3)):
+        z = torch.randn(b, d, generator=gen, device=dev)
+        c = torch.randn(n, d, generator=gen, device=dev)
+        got = vq_nearest_cuda(z, c, precision="fast")
+        want = vq_nearest_fast_reference(z, c)
+        exceptions, max_gap, worst = check_near_ties(z, c, got, want)
+        flips = float((got != vq_nearest_cuda(z, c)).float().mean())
+        ms = cuda_ms(lambda: vq_nearest_cuda(z, c, precision="fast"), reps)
+        plain_ms = cuda_ms(lambda: vq_nearest_fast_reference(z, c), plain_reps)
+        library_ms = cuda_ms(lambda: ((c * c).sum(1) - 2.0 * (
+            z.bfloat16() @ c.bfloat16().T).float()).argmin(1), reps)
+        device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c, precision="fast"),
+                                            reps)
+        bound_ms, bound_by = fast_bound(b, n, d)
+        results[label] = {"shape": [b, n, d], "mismatches": exceptions,
+                          "max_abs_err": max_gap, "max_gap_over_allowance": worst,
+                          "flip_rate_vs_k1": flips, "ms": ms,
+                          "device_ms": device_ms, "kernel_ms": kernels, "plain_ms": plain_ms,
+                          "library_ms": library_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+        print(f"K1f {label} {b}x{n}x{d}: {exceptions} rows differ from the plain version, "
+              f"all within the near-tie bound (largest fp64 gap {max_gap:.3g}, "
+              f"{worst:.3g} of its allowance); "
+              f"ids differ from K1's on {flips:.4%} of rows; K1f {ms:.4f} ms per call "
+              f"(device busy {device_ms} ms: {kernels}), plain {plain_ms:.4f} ms, bf16 "
+              f"matmul+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16) [{card}]")
+        del z, c, got, want
+    torch.cuda.empty_cache()
+    return results
+
+
+# the tokenizer switches of each arm of the paper's ablation
+ARM_SWITCHES = {"vq": {"vq_vae_enabled": True, "ln_act_enabled": False},
+                "bin": {"bin_enabled": True, "ln_act_enabled": False},
+                "ln_act": {"ln_act_enabled": True},
+                "raw": {"ln_act_enabled": False}}
+
+
+def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None,
+               algo: str = "icl", arm: str = "vq"):
+    """The paper's template widths with the flagship switches (``arm`` picks
+    another tokenizer, ``algo="icl_mamba"`` the Mamba backbone). ``train``
     ({"ema": bool, "dropout": float, "warmup": int or None}) adds the
     training settings of exps/templates/icl.json: batch 100, AdamW lr 1e-4
     with L2 0.01 and a constant_with_warmup schedule, clip 100. A warmup of
@@ -432,15 +558,15 @@ def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
     so the config loads again through ``config_factory``."""
     from lipvq_tpu_torch.config import config_factory
 
-    cfg = config_factory("icl", {
+    section = "mamba" if algo == "icl_mamba" else "transformer"
+    cfg = config_factory(algo, {
         "algo": {
             "gmm": {"enabled": True, "num_modes": 5},
-            "transformer": {
+            section: {
                 "enabled": True, "context_length": 10, "embed_dim": 512,
                 "num_layers": 6, "num_heads": 8, "causal": False,
                 "supervise_all_steps": True, "pred_future_acs": True,
-                "vq_vae_enabled": True, "ln_act_enabled": False,
-                "compute_dtype": compute_dtype,
+                "compute_dtype": compute_dtype, **ARM_SWITCHES[arm],
             },
             "vq": {"num_codes": 1024, "hidden_dim": 128},
         },
@@ -459,7 +585,7 @@ def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None):
                 policy.learning_rate.num_warmup_steps = train["warmup"]
             cfg.algo.vq.ema_codebook = train["ema"]
             for key in ("emb_dropout", "attn_dropout", "block_output_dropout"):
-                setattr(cfg.algo.transformer, key, train["dropout"])
+                setattr(cfg.algo[section], key, train["dropout"])
     return cfg
 
 
@@ -645,28 +771,26 @@ def train_phase(card: str) -> dict:
     return results
 
 
-def train_parity(items) -> dict:
-    """One fp32 step without dropout, EMA codebook on, from the same weights
-    on the card and on the CPU (warmup 0, so both optimizers move).
+def hold_step(card, cpu, batch, keep=None, zero=()) -> tuple[dict, dict]:
+    """One fp32 train step of ``card`` and ``cpu`` (the same weights) on
+    ``batch``, held as follows.
 
     Adam's first step moves an element by lr * g / (|g| + 1e-8): where |g| is
     near that eps, the last digits of g, which differ between the two
     devices' reduction orders, decide much of the step, so the parameters of
     the two devices are not compared directly. The check holds instead
     (1) the losses to rtol 1e-4; (2) each gradient the optimizers receive,
-    card against CPU, to rtol 1e-3 + atol 1e-4 * the tensor's largest |g|;
-    (3) on each device, every parameter to the first AdamW step of its own
-    gradient, p0 (1 - lr wd) - lr g / (|g| + eps), to atol 1e-3 lr + rtol
-    1e-6, except the codebook rows the EMA wrote; (4) the EMA buffers and
-    those rows, card against CPU, to rtol 1e-5 / atol 1e-7.
-    """
-    from lipvq_tpu_torch.algo import algo_factory
-    from lipvq_tpu_torch.data.loaders import DataLoader
-
-    def make(device=None):
-        return algo_factory("icl", icl_config("float32", {"ema": True, "dropout": 0.0,
-                                                          "warmup": 0}),
-                            OBS_SHAPES, ac_dim=AC_DIM, device=device)
+    card against CPU, to rtol 1e-3 + atol 1e-4 * the tensor's largest |g|,
+    except the parameters named in ``zero``, whose gradient is 0 in exact
+    arithmetic (the key bias of attention, to which the softmax is
+    invariant): they hold only rounding noise, which differs between the
+    devices, and are held below 1e-6 of the step's largest |g| on both; (3) on
+    each device, every parameter to the first AdamW step of its own gradient,
+    p0 (1 - lr wd) - lr g / (|g| + eps), to atol 1e-3 lr + rtol 1e-6, but
+    for the elements ``keep(cpu)`` ({name: mask}) excludes; (4) every
+    buffer, card against CPU, to rtol 1e-5 / atol 1e-7. Returns (the card's
+    losses, the worst errors)."""
+    optimizers = [o for o in (cpu.policy_optimizer, cpu.vq_optimizer) if o is not None]
 
     def capture_grads(algo) -> dict:
         """The grads each optimizer step receives, by parameter name."""
@@ -679,8 +803,70 @@ def train_parity(items) -> dict:
                     grads[names[id(p)]] = p.grad.detach().cpu().clone()
 
         for o in (algo.policy_optimizer, algo.vq_optimizer):
-            o.optimizer.register_step_pre_hook(hook)
+            if o is not None:
+                o.optimizer.register_step_pre_hook(hook)
         return grads
+
+    start = {n: p.detach().cpu().clone() for n, p in cpu.nets.named_parameters()}
+    grads = {"card": capture_grads(card), "cpu": capture_grads(cpu)}
+    got = card.train_on_batch(batch, 1)["losses"]
+    want = cpu.train_on_batch(batch, 1)["losses"]
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, err_msg=k)
+
+    hyper = {}
+    for o in optimizers:
+        g = o.optimizer.param_groups[0]
+        for p in o.params:
+            hyper[id(p)] = (g["lr"], g["weight_decay"], g["eps"])
+    masks = keep(cpu) if keep is not None else {}
+    worst = {"grad_err_over_max": 0.0, "zero_grads_over_max": 0.0, "step_err_in_lr": 0.0,
+             "card_vs_cpu_in_lr": 0.0, "buffers": 0.0}
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    for (name, p), (_, q) in zip(card.nets.named_parameters(), cpu.nets.named_parameters()):
+        g_card, g_cpu = grads["card"][name], grads["cpu"][name]
+        scale = float(g_cpu.abs().max())
+        if name in zero:
+            largest = max(scale, float(g_card.abs().max()))
+            if largest >= 1e-6 * top:
+                raise AssertionError(f"the gradient of {name} should be 0, is {largest}")
+            worst["zero_grads_over_max"] = max(worst["zero_grads_over_max"], largest / top)
+        else:
+            np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), rtol=1e-3,
+                                       atol=1e-4 * scale, err_msg=f"grad of {name}")
+            worst["grad_err_over_max"] = max(
+                worst["grad_err_over_max"],
+                float((g_card - g_cpu).abs().max()) / max(scale, 1e-30))
+        lr, wd, eps = hyper[id(q)]
+        mask = masks.get(name, torch.ones_like(q, dtype=torch.bool))
+        for after, g in ((p.detach().cpu(), g_card), (q.detach(), g_cpu)):
+            adam = start[name] * (1 - lr * wd) - lr * g / (g.abs() + eps)
+            np.testing.assert_allclose(after[mask].numpy(), adam[mask].numpy(), rtol=1e-6,
+                                       atol=1e-3 * lr, err_msg=f"AdamW step of {name}")
+            worst["step_err_in_lr"] = max(worst["step_err_in_lr"],
+                                          float((after - adam)[mask].abs().max()) / lr)
+        worst["card_vs_cpu_in_lr"] = max(worst["card_vs_cpu_in_lr"],
+                                         float((p.detach().cpu() - q.detach()).abs().max()) / lr)
+    for (name, b), (_, c) in zip(card.nets.named_buffers(), cpu.nets.named_buffers()):
+        np.testing.assert_allclose(b.cpu().numpy(), c.numpy(), rtol=1e-5, atol=1e-7,
+                                   err_msg=name)
+        worst["buffers"] = max(worst["buffers"], float((b.cpu().double() - c.double()).abs()
+                                                       .max()))
+    return {k: float(v) for k, v in got.items()}, worst
+
+
+def train_parity(items) -> dict:
+    """One fp32 step without dropout, EMA codebook on, from the same weights
+    on the card and on the CPU (warmup 0, so both optimizers move), held by
+    ``hold_step``; the codebook rows the EMA wrote are held, card against
+    CPU, to rtol 1e-5 / atol 1e-7 in place of the AdamW rule."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.data.loaders import DataLoader
+
+    def make(device=None):
+        return algo_factory("icl", icl_config("float32", {"ema": True, "dropout": 0.0,
+                                                          "warmup": 0}),
+                            OBS_SHAPES, ac_dim=AC_DIM, device=device)
 
     card, cpu = make(), make("cpu")
     batch = card.process_batch_for_training(next(iter(DataLoader(items, BATCH, seed=7))))
@@ -706,56 +892,307 @@ def train_parity(items) -> dict:
     if not torch.equal(card_ids, cpu_ids):
         raise AssertionError(f"{int((card_ids != cpu_ids).sum())} context tokens differ "
                              f"between the card and the CPU")
-    start = {n: p.detach().cpu().clone() for n, p in cpu.nets.named_parameters()}
-    grads = {"card": capture_grads(card), "cpu": capture_grads(cpu)}
-    got = card.train_on_batch(batch, 1)["losses"]
-    want = cpu.train_on_batch(batch, 1)["losses"]
-    for k in want:
-        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, err_msg=k)
-
-    hyper = {}
-    for o in (cpu.policy_optimizer, cpu.vq_optimizer):
-        g = o.optimizer.param_groups[0]
-        for p in o.params:
-            hyper[id(p)] = (g["lr"], g["weight_decay"], g["eps"])
-    touched = cpu.nets.net.encoder.action_network.ema_cluster_size > 0
     codebook = "net.encoder.action_network.quantizer.codebook"
-    worst = {"grad_err_over_max": 0.0, "step_err_in_lr": 0.0, "card_vs_cpu_in_lr": 0.0,
-             "buffers_and_ema_rows": 0.0}
-    for (name, p), (_, q) in zip(card.nets.named_parameters(), cpu.nets.named_parameters()):
-        g_card, g_cpu = grads["card"][name], grads["cpu"][name]
-        scale = float(g_cpu.abs().max())
-        np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), rtol=1e-3,
-                                   atol=1e-4 * scale, err_msg=f"grad of {name}")
-        worst["grad_err_over_max"] = max(worst["grad_err_over_max"],
-                                         float((g_card - g_cpu).abs().max()) / max(scale, 1e-30))
-        lr, wd, eps = hyper[id(q)]
-        keep = ~touched[:, None].expand_as(q) if name == codebook else torch.ones_like(
-            q, dtype=torch.bool)
-        for after, g in ((p.detach().cpu(), g_card), (q.detach(), g_cpu)):
-            adam = start[name] * (1 - lr * wd) - lr * g / (g.abs() + eps)
-            np.testing.assert_allclose(after[keep].numpy(), adam[keep].numpy(), rtol=1e-6,
-                                       atol=1e-3 * lr, err_msg=f"AdamW step of {name}")
-            worst["step_err_in_lr"] = max(worst["step_err_in_lr"],
-                                          float((after - adam)[keep].abs().max()) / lr)
-        worst["card_vs_cpu_in_lr"] = max(worst["card_vs_cpu_in_lr"],
-                                         float((p.detach().cpu() - q.detach()).abs().max()) / lr)
-    written = [(codebook + " (EMA rows)", card.nets.get_parameter(codebook)[touched.cuda()],
-                cpu.nets.get_parameter(codebook)[touched])]
-    written += [(name, b, c) for (name, b), (_, c) in zip(card.nets.named_buffers(),
-                                                          cpu.nets.named_buffers())]
-    for name, b, c in written:
-        np.testing.assert_allclose(b.detach().cpu().numpy(), c.detach().numpy(), rtol=1e-5,
-                                   atol=1e-7, err_msg=name)
-        worst["buffers_and_ema_rows"] = max(worst["buffers_and_ema_rows"],
-                                            float((b.detach().cpu() - c.detach()).abs().max()))
+
+    def untouched(algo):
+        touched = algo.nets.net.encoder.action_network.ema_cluster_size > 0
+        return {codebook: ~touched[:, None].expand_as(algo.nets.get_parameter(codebook))}
+
+    losses, worst = hold_step(card, cpu, batch, keep=untouched)
+    touched = ~untouched(cpu)[codebook][:, 0]
+    np.testing.assert_allclose(card.nets.get_parameter(codebook)[touched.cuda()].detach()
+                               .cpu().numpy(),
+                               cpu.nets.get_parameter(codebook)[touched].detach().numpy(),
+                               rtol=1e-5, atol=1e-7, err_msg="the codebook rows the EMA wrote")
     assert int(touched.sum()) > 0
     print(f"train parity: one fp32 step on the card == the CPU step; losses within rtol "
-          f"1e-4 ({ {k: float(v) for k, v in got.items()} }); context ids equal; "
-          f"{int(touched.sum())} codebook rows written by the EMA; worst {worst} (gradient "
-          f"error over the tensor's max |g|; error against the AdamW step of each device's "
-          f"own gradient, and card against CPU, in units of lr)")
-    return {"losses": {k: float(v) for k, v in got.items()}, "worst": worst}
+          f"1e-4 ({losses}); context ids equal; {int(touched.sum())} codebook rows written "
+          f"by the EMA; worst {worst} (gradient error over the tensor's max |g|; error "
+          f"against the AdamW step of each device's own gradient, and card against CPU, in "
+          f"units of lr; buffers, card against CPU)")
+    return {"losses": losses, "worst": worst}
+
+
+ARMS = (("icl", "bin"), ("icl", "ln_act"), ("icl", "raw"), ("icl_mamba", "ln_act"),
+        ("icl_mamba", "vq"))
+ARM_REQUESTS, ARM_STEPS = 8, 10
+
+
+def arms_phase(card: str) -> dict:
+    """The other arms of the tokenizer ablation at full width (6 layers x
+    512, the flagship's obs, latent 791, batch 100): bin, ln_act and raw on
+    the GPT backbone, ln_act and LipVQ on icl_mamba. Each is built on the
+    card, serves 8 requests of 16 envs and takes 10 train steps (launches
+    counted: K1 once per request and step for LipVQ, never for the others;
+    K1f and K2 never); its fp32 forward on the card is held against the CPU
+    (rtol 1e-3 / atol 1e-4, as the served flagship's); one fp32 step of the
+    bin and the raw arm is held against the CPU step by ``hold_step`` (the
+    running bounds, step count and spectral-norm vectors among the buffers)."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+    from lipvq_tpu_torch.utils.train_utils import run_epoch
+
+    items = SequenceItems(2 * BATCH, seed=14)
+    results = {}
+    for algo_name, arm in ARMS:
+        label = f"{algo_name}/{arm}"
+        rng = np.random.default_rng(15)
+        algo = algo_factory(algo_name, icl_config(
+            train={"ema": False, "dropout": 0.1, "warmup": 10}, algo=algo_name, arm=arm),
+            OBS_SHAPES, ac_dim=AC_DIM)  # CUDA by default
+        algo32 = algo_factory(algo_name, icl_config("float32", algo=algo_name, arm=arm),
+                              OBS_SHAPES, ac_dim=AC_DIM)
+        algo_cpu = algo_factory(algo_name, icl_config("float32", algo=algo_name, arm=arm),
+                                OBS_SHAPES, ac_dim=AC_DIM, device="cpu")
+        net = algo.nets.net
+        assert algo.device.type == "cuda" and net.embed_dim == 512
+        assert type(net.transformer).__name__ == (
+            "MambaBackbone" if algo_name == "icl_mamba" else "GPTBackbone")
+        t = algo.context_length
+        context = {"obs": random_obs(rng, (1, t)),
+                   "actions": rng.uniform(-1, 1, (1, t, AC_DIM)).astype(np.float32)}
+        if arm == "vq":
+            set_codebook(algo_cpu.nets.net.encoder.action_network, (algo, algo32, algo_cpu),
+                         rng, context["actions"][0])
+        requests = [random_obs(rng, (N_ENVS, t)) for _ in range(ARM_REQUESTS)]
+        policy = ICLRolloutPolicy(algo)
+
+        # the main path: 8 served requests, then 10 train steps, each counted
+        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+        vq_nearest_with_stats_cuda.launches = 0
+        served = [policy.batched(o, context) for o in requests]
+        serve_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                        vq_nearest_with_stats_cuda.launches)
+        loader = DataLoader(items, BATCH, seed=5)
+        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+        vq_nearest_with_stats_cuda.launches = 0
+        log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
+        train_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                        vq_nearest_with_stats_cuda.launches)
+        k1 = arm == "vq"
+        if serve_counts != (ARM_REQUESTS * k1, 0, 0) or train_counts != (ARM_STEPS * k1, 0, 0):
+            raise AssertionError(f"{label}: launches (K1, K1f, K2) {serve_counts} serving "
+                                 f"{ARM_REQUESTS} requests, {train_counts} in {ARM_STEPS} steps")
+        if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
+            raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
+        if not all(np.isfinite(v) for v in log.values()):
+            raise AssertionError(f"{label}: non-finite step log {log}")
+        tok = net.encoder.action_network
+        if arm == "bin" and int(tok.num_step) != ARM_STEPS:
+            raise AssertionError(f"{label}: the bin bounds advanced {int(tok.num_step)} times")
+
+        # fp32 on the card against the CPU, the last request's inputs
+        ctx = {"obs": {k: np.repeat(v, N_ENVS, 0) for k, v in context["obs"].items()},
+               "actions": np.repeat(context["actions"], N_ENVS, 0)}
+        outs = []
+        with torch.inference_mode():
+            for a in (algo32, algo_cpu):
+                inputs = (a._put_infer(x) for x in (requests[-1], ctx["obs"], ctx["actions"]))
+                outs.append([x.float().cpu().numpy() for x in a.nets.forward_train(
+                    *inputs, low_noise_eval=False)[0]])
+        for field, got, want in zip(("means", "scales", "logits"), *outs):
+            np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4,
+                                       err_msg=f"{label} fp32 {field}")
+        fwd_err = max(float(np.abs(g - w).max()) for g, w in zip(*outs))
+
+        request_ms = host_ms(lambda: policy.batched(requests[0], context), reps=10)
+        request_busy, _ = profile_device(lambda: policy.batched(requests[0], context), 5)
+        batch = algo.process_batch_for_training(next(iter(loader)))
+
+        def step():
+            algo.train_on_batch(batch, 1)
+            torch.cuda.synchronize()
+
+        step_ms = host_ms(step, reps=5)
+        step_busy, kernels = profile_device(lambda: algo.train_on_batch(batch, 1), 3)
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+        results[label] = {
+            "serve_launches": serve_counts, "train_launches": train_counts, "log": log,
+            "fp32_forward_max_abs_err": fwd_err, "request_ms": request_ms,
+            "request_busy_ms": request_busy,
+            "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
+            "step_ms": step_ms, "step_busy_ms": step_busy,
+            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+            "step_top_ops_ms": top}
+        r = results[label]
+        print(f"arm {label}: {ARM_REQUESTS} requests of {N_ENVS} envs and {ARM_STEPS} steps of "
+              f"batch {BATCH}, launches (K1, K1f, K2) {serve_counts} / {train_counts}; Loss "
+              f"{log['Loss']:.4f}; fp32 card == CPU within rtol 1e-3 / atol 1e-4 (max abs "
+              f"{fwd_err:.3g}); request {request_ms:.3f} ms (device busy {request_busy} ms, "
+              f"idle share {r['request_idle_share']}), step {step_ms:.3f} ms (device busy "
+              f"{step_busy} ms, idle share {r['step_idle_share']}), top {top} [{card}]")
+
+        if arm in ("bin", "raw"):
+            def make(device=None, algo_name=algo_name, arm=arm):
+                return algo_factory(algo_name, icl_config(
+                    "float32", {"ema": False, "dropout": 0.0, "warmup": 0}, algo=algo_name,
+                    arm=arm), OBS_SHAPES, ac_dim=AC_DIM, device=device)
+
+            card_algo, cpu_algo = make(), make("cpu")
+            pbatch = card_algo.process_batch_for_training(
+                next(iter(DataLoader(items, BATCH, seed=7))))
+            key_biases = [n for n, _ in cpu_algo.nets.named_parameters()
+                          if ".action_network.attn_" in n and n.endswith(".key.bias")]
+            assert len(key_biases) == (4 if arm == "raw" else 0), key_biases
+            losses, worst = hold_step(card_algo, cpu_algo, pbatch, zero=key_biases)
+            r["train_parity"] = {"losses": losses, "worst": worst}
+            print(f"arm {label} train parity: one fp32 step on the card == the CPU step "
+                  f"(hold_step: losses rtol 1e-4, gradients, each device's AdamW step, "
+                  f"buffers rtol 1e-5 / atol 1e-7); losses {losses}; worst {worst}")
+            del card_algo, cpu_algo
+        del algo, algo32, algo_cpu, policy, net, tok, batch
+        torch.cuda.empty_cache()
+    return results
+
+
+CORPUS_DEMOS, CORPUS_DEMO_LEN = 1024, 1024  # 2^20 action rows of 12
+CORPUS_CHUNK = 1 << 16  # tokenize_array's default chunk: one lookup per chunk
+
+
+def corpus_phase(card: str) -> dict:
+    """scripts/tokenize_corpus on a seeded export of 2^20 action rows at
+    full width (latent 208, 1024 codes), the tokenizer from a state_dict
+    file: a dry run and a writing run with K1, a dry run with K1f; launches
+    counted, the ids held against the plain tokenize on the card, the
+    written tokens read back, and K1f's ids against K1's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipvq_tpu_torch.data.export import Export, ExportWriter
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest_cuda,
+        vq_nearest_fast_reference,
+        vq_nearest_reference,
+        vq_nearest_with_stats_cuda,
+    )
+    from lipvq_tpu_torch.parallel.corpus import tokenize_array
+    from lipvq_tpu_torch.scripts import tokenize_corpus
+
+    latent, codes = CORPUS_SHAPE[2], CORPUS_SHAPE[1]
+    rows = CORPUS_DEMOS * CORPUS_DEMO_LEN
+    assert rows == CORPUS_SHAPE[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(12)
+        t = np.arange(CORPUS_DEMO_LEN, dtype=np.float32)[None, :, None]
+        phase = rng.uniform(0, 2 * np.pi, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
+        freq = rng.uniform(0.05, 0.2, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
+        actions = (0.8 * np.sin(freq * t + phase)).astype(np.float32)  # smooth trajectories
+        writer = ExportWriter(os.path.join(tmp, "corpus"))
+        for i in range(CORPUS_DEMOS):
+            writer.add_demo(f"demo_{i}", {"num_samples": CORPUS_DEMO_LEN},
+                            {"actions": actions[i]})
+        root = writer.finish({"total": rows, "env_args": json.dumps(
+            {"env_name": "SyntheticKitchen", "type": 1, "env_kwargs": {}})}, {})
+        export_s = time.perf_counter() - t0
+
+        # the tokenizer file: a seeded init with its Lipschitz bound raised
+        # to 30 and its codebook set to the latents of seeded actions, so
+        # the ids spread over the codes as a trained tokenizer's do
+        model = LipVQVAE(AC_DIM, latent, num_codes=codes)
+        seeded_init(model, torch.Generator().manual_seed(13))
+        with torch.no_grad():
+            model.to_latent.ci.fill_(30.0)
+            model.quantizer.codebook.copy_(model.encode(torch.from_numpy(
+                rng.uniform(-1, 1, (codes, AC_DIM)).astype(np.float32))))
+        ckpt = os.path.join(tmp, "tokenizer.pt")
+        torch.save(model.state_dict(), ckpt)
+        args = ["--datasets", root, "--ckpt", ckpt, "--latent_dim", str(latent),
+                "--num_codes", str(codes)]
+        want_launches = -(-rows // CORPUS_CHUNK)
+
+        def run(extra):
+            """The CLI once, counted: (stats, K1, K1f, K2 launches, printed)."""
+            vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+            vq_nearest_with_stats_cuda.launches = 0
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                stats = tokenize_corpus.main(args + extra)
+            counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                      vq_nearest_with_stats_cuda.launches)
+            return stats, counts, out.getvalue()
+
+        # the main path: the CLI, a dry run and a writing run with K1, then a
+        # dry run with K1f, each counted
+        dry, dry_counts, printed = run(["--dry_run"])
+        wrote, wrote_counts, _ = run([])
+        fast, fast_counts, _ = run(["--dry_run", "--precision", "fast"])
+        if dry_counts != (want_launches, 0, 0) or wrote_counts != (want_launches, 0, 0) or \
+                fast_counts != (0, want_launches, 0):
+            raise AssertionError(f"corpus: launches (K1, K1f, K2) {dry_counts} dry, "
+                                 f"{wrote_counts} writing, {fast_counts} fast; want "
+                                 f"{want_launches} per run")
+        if not printed.startswith("device: cuda") or json.loads(
+                printed[printed.index("{"):]) != dry:
+            raise AssertionError(f"corpus CLI printed {printed[:200]!r}")
+        for stats in (dry, wrote, fast):
+            if (stats["files"], stats["demos"], stats["chunks"]) != (1, CORPUS_DEMOS, rows):
+                raise AssertionError(f"corpus stats {stats}")
+
+        # the ids against the plain tokenize on the card, and read back
+        dev = torch.device("cuda")
+        model.to(dev)
+        with torch.inference_mode():
+            x = torch.from_numpy(actions.reshape(rows, AC_DIM)).to(dev)
+            z = torch.cat([model.encode(xc) for xc in x.split(CORPUS_CHUNK)])
+            ids = torch.from_numpy(tokenize_array(model, x.cpu().numpy())).to(dev)
+            fast_ids = torch.from_numpy(tokenize_array(model, x.cpu().numpy(),
+                                                       precision="fast")).to(dev)
+            codebook = model.quantizer.codebook
+            # the latents lie in [0, 1]^208 with ||z||^2 ~ 50 and their
+            # nearest codes close by, so the expand form's cancellation (K1,
+            # as the Pallas kernel) decides some near-ties against the exact
+            # difference form of the plain tokenize: held by tie_gap
+            mismatches, max_gap, _ = check_near_ties(z, codebook, ids,
+                                                     vq_nearest_reference(z, codebook),
+                                                     bf16=False)
+            fast_exceptions = check_near_ties(z, codebook, fast_ids,
+                                              vq_nearest_fast_reference(z, codebook))[0]
+        reader = Export(root)
+        stored = np.concatenate([reader.load(d, "tokens/lipvq_tokens")
+                                 for d in sorted(reader.demos, key=lambda e: int(e[5:]))])
+        if not np.array_equal(stored, ids.cpu().numpy()):
+            raise AssertionError(f"corpus: {int((stored != ids.cpu().numpy()).sum())} tokens "
+                                 f"read back differ from the ids")
+        used = int(torch.unique(ids).numel())
+        flips = float((fast_ids != ids).float().mean())
+
+        # device busy time and idle share of the tokenization (dry run, K1)
+        host = np.ascontiguousarray(actions.reshape(rows, AC_DIM))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tokenize_array(model, host)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, kernels = device_busy(prof)
+        idle = None if busy_ms is None else 1.0 - busy_ms / wall_ms
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
+    print(f"corpus: {rows} action rows in {CORPUS_DEMOS} demos (export written in "
+          f"{export_s:.1f} s); tokenize_corpus dry run {dry['chunks_per_sec']:.4g} rows/s "
+          f"({dry['seconds'] * 1e3:.1f} ms), writing run {wrote['chunks_per_sec']:.4g} "
+          f"rows/s, K1f dry run {fast['chunks_per_sec']:.4g} rows/s; launches (K1, K1f, K2) "
+          f"{dry_counts} / {wrote_counts} / {fast_counts} ({want_launches} chunks of "
+          f"{CORPUS_CHUNK}); ids vs the plain tokenize on the card: {mismatches} differ, "
+          f"all near-ties of the fp32 expand form (max fp64 gap {max_gap:.3g}); {used} codes "
+          f"used; the "
+          f"tokens read back equal the ids; K1f ids within the near-tie bound of its plain "
+          f"version ({fast_exceptions} differ), {flips:.4%} differ from K1's [{card}]")
+    print(f"corpus device: tokenize_array of {rows} rows {wall_ms:.2f} ms wall, device busy "
+          f"{busy_ms} ms, idle share {idle}; top {top} [{card}]")
+    return {"rows": rows, "launches": {"dry": dry_counts, "write": wrote_counts,
+                                       "fast": fast_counts},
+            "chunks_per_sec": {"dry": dry["chunks_per_sec"], "write": wrote["chunks_per_sec"],
+                               "fast": fast["chunks_per_sec"]},
+            "seconds": {"dry": dry["seconds"], "write": wrote["seconds"],
+                        "fast": fast["seconds"]},
+            "mismatches": mismatches, "codes_used": used, "fast_flip_rate": flips,
+            "fast_exceptions": fast_exceptions, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "idle_share": idle, "top_ops_ms": top,
+            "export_s": export_s}
 
 
 SCRIPT_EXPORTS, SCRIPT_DEMOS, SCRIPT_DEMO_LEN = 2, 40, 300
@@ -1014,7 +1451,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"card: {card}")
     t0 = time.perf_counter()
-    logs = _build.build(["vq_nearest", "vq_stats"])
+    logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in logs.items():
         for line in log.splitlines():
@@ -1023,20 +1460,32 @@ def main() -> int:
 
     k1 = kernel_phase(card)
     k2 = stats_phase(card)
+    k1f = fast_phase(card)
     served = slice_phase(card)
     trained = train_phase(card)
     scripted = script_phase(card, served)
+    corpus = corpus_phase(card)
+    arms = arms_phase(card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     k1_paths = {"serve": served["launches"], "train": trained["train"]["k1_launches"],
                 "train_ema": trained["train_ema"]["k1_launches"],
                 "train_script": scripted["k1_train_steps"], "rollout": scripted["k1_rollout"],
-                "eval_checkpoint": scripted["k1_eval"]}
+                "eval_checkpoint": scripted["k1_eval"],
+                "corpus": corpus["launches"]["dry"][0] + corpus["launches"]["write"][0],
+                "corpus_fast": corpus["launches"]["fast"][0]}
+    k1f_paths = {path: 0 for path in k1_paths}
+    k1f_paths["corpus"] = corpus["launches"]["dry"][1] + corpus["launches"]["write"][1]
+    k1f_paths["corpus_fast"] = corpus["launches"]["fast"][1]
     k2_paths = {"serve": served["k2_launches"], "train": trained["train"]["k2_launches"],
                 "train_ema": trained["train_ema"]["k2_launches"],
                 "train_script": scripted["k2_script"], "rollout": 0,
-                "eval_checkpoint": scripted["k2_eval"]}
+                "eval_checkpoint": scripted["k2_eval"],
+                "corpus": sum(corpus["launches"][run][2] for run in ("dry", "write", "fast"))}
+    for label, r in arms.items():
+        for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+            paths[f"arm {label}"] = r["serve_launches"][i] + r["train_launches"][i]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -1051,6 +1500,19 @@ def main() -> int:
         "corpus": k1["corpus"],
         "card": card,
     }, {
+        "name": "vq_nearest_fast (K1f)",
+        "route": "cuda",
+        "source": "lipvq_tpu_torch/ops/csrc/vq_nearest_fast.cu",
+        "replaces": "lipvq_tpu/ops/vq_lookup.py:68",
+        "launches": sum(k1f_paths.values()),
+        "launches_by_path": k1f_paths,
+        "fixtures_exact": True,
+        **{k: k1f["corpus"][k] for k in keys},
+        "flip_rate_vs_k1": k1f["corpus"]["flip_rate_vs_k1"],
+        "slice_shape": k1f["slice"],
+        "train_shape": k1f["train"],
+        "card": card,
+    }, {
         "name": "vq_nearest_with_stats (K2)",
         "route": "cuda",
         "source": "lipvq_tpu_torch/ops/csrc/vq_stats.cu",
@@ -1063,7 +1525,8 @@ def main() -> int:
         "corpus": k2["corpus"],
         "skewed": k2["skewed"],
         "card": card,
-    }], "serve": served, "train": trained, "script": scripted}))
+    }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
+        "arms": arms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

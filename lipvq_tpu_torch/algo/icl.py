@@ -1,20 +1,31 @@
-"""ICL (in-context imitation learning) policy (counterpart of
-``ICLTransformerGMM`` in ``lipvq_tpu/algo/icl.py``).
+"""ICL (in-context imitation learning) policies (counterpart of
+``lipvq_tpu/algo/icl.py``): ``ICLTransformerGMM``, ``ICLMambaGMM`` (the same
+with the Mamba backbone, the ``icl_mamba`` algo) and the non-GMM
+``ICLTransformer`` (either backbone).
 
-- networks built from the config, initialized from ``train.seed``;
-- two optimizers: the policy's (Adam with L2 or AdamW, schedule, global-norm
-  clip) over every parameter outside the action tokenizer, and the
-  tokenizer's AdamW(``vq.optimizer_lr``, wd ``vq.optimizer_wd``), no clip
-  (reference icl.py:885-889);
+- networks built from the config's sequence section (``algo.transformer``,
+  or ``algo.mamba`` for the Mamba backbone), initialized from
+  ``train.seed``;
+- with the LipVQ tokenizer two optimizers: the policy's (Adam with L2 or
+  AdamW, schedule, global-norm clip) over every parameter outside the
+  action tokenizer, and the tokenizer's AdamW(``vq.optimizer_lr``, wd
+  ``vq.optimizer_wd``), no clip (reference icl.py:885-889); with any other
+  arm the policy optimizer covers every parameter, the tokenizer's too;
+- the tokenizers' running statistics (the EMA codebook, the bin bounds, the
+  spectral-norm vectors: the JAX package's mutable collections) are
+  buffers that advance in a training step only, never in validation or
+  ``get_action``;
 - ``train_on_batch``: the first half of the batch is the context, the second
-  the queries (reference icl.py:904-911); GMM NLL of the query actions plus
-  the tokenizer's loss, one backward, both optimizers stepped; with the EMA
-  codebook the smoothed EMA means overwrite the touched codes last;
+  the queries (reference icl.py:904-911); GMM NLL of the query actions (the
+  non-GMM head: weighted L2 + SmoothL1 + cosine) plus the tokenizer's loss,
+  one backward, the optimizers stepped; with the EMA codebook the smoothed
+  EMA means overwrite the touched codes last;
 - ``process_batch_for_training`` slices the context window and picks the
   current/future action windows (reference icl.py:759-794);
 - ``get_action`` runs the eval forward under ``torch.inference_mode()`` with
-  low-noise GMM sampling and takes ``[:, 0]`` when ``pred_future_acs`` else
-  ``[:, -1]`` (reference icl.py:845-852).
+  low-noise GMM sampling (the non-GMM head's actions as they are) and takes
+  ``[:, 0]`` when ``pred_future_acs`` else ``[:, -1]`` (reference
+  icl.py:845-852).
 """
 
 from __future__ import annotations
@@ -32,19 +43,30 @@ from lipvq_tpu_torch.algo.base import (
 from lipvq_tpu_torch.models.base_nets import seeded_init
 from lipvq_tpu_torch.models.distributions import GMMParams, gmm_log_prob, gmm_sample
 from lipvq_tpu_torch.models.obs_nets import obs_spec
-from lipvq_tpu_torch.models.policy_nets import ICLGMMActorNetwork
+from lipvq_tpu_torch.models.policy_nets import ICLActorNetwork, ICLGMMActorNetwork
 from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs
 
 
 @register_algo_factory_func("icl")
 def algo_config_to_class(algo_config):
-    """transformer + gmm -> ICLTransformerGMM."""
+    """transformer + gmm -> ICLTransformerGMM, else ICLTransformer."""
     if not algo_config.transformer.enabled:
         raise ValueError("the icl algo needs algo.transformer.enabled")
-    if not algo_config.gmm.enabled:
-        raise NotImplementedError("the non-GMM ICLTransformer is ROADMAP queue 1, "
-                                  "item 6; not ported yet")
-    return ICLTransformerGMM, {}
+    if algo_config.gmm.enabled:
+        return ICLTransformerGMM, {}
+    return ICLTransformer, {}
+
+
+@register_algo_factory_func("icl_mamba")
+def mamba_algo_config_to_class(algo_config):
+    """gmm -> ICLMambaGMM, else ICLTransformer on the Mamba backbone."""
+    if algo_config.gmm.enabled:
+        return ICLMambaGMM, {}
+    return ICLTransformer, {"backbone": "mamba"}
+
+
+def _seq_section(algo_config, backbone: str):
+    return algo_config.mamba if backbone == "mamba" else algo_config.transformer
 
 
 def _torch_dtype(name: str) -> torch.dtype | None:
@@ -58,10 +80,26 @@ def _torch_dtype(name: str) -> torch.dtype | None:
 
 
 class ICLTransformerGMM(PolicyAlgo):
-    """ICL policy with a transformer GMM head."""
+    """ICL policy with a GMM head over the transformer (or Mamba) backbone.
+    As in the JAX package, ``algo.mamba.{d_state,d_conv,expand}`` are not
+    read: the Mamba backbone takes ICLMIMOTransformer's defaults (8, 4, 2)."""
+
+    backbone = "transformer"
+    net_cls = ICLGMMActorNetwork
+
+    def __init__(self, *args, backbone: str | None = None, **kwargs):
+        if backbone is not None:
+            self.backbone = backbone
+        super().__init__(*args, **kwargs)
+
+    def _head_kwargs(self) -> dict:
+        gmm = self.algo_config.gmm
+        return {"num_modes": int(gmm.num_modes), "min_std": float(gmm.min_std),
+                "std_activation": str(gmm.std_activation),
+                "low_noise_eval": bool(gmm.low_noise_eval)}
 
     def _create_networks(self):
-        tc = self.algo_config.transformer
+        tc = _seq_section(self.algo_config, self.backbone)
         self.context_length = int(tc.context_length)
         self.supervise_all_steps = bool(tc.supervise_all_steps)
         self.pred_future_acs = bool(tc.pred_future_acs)
@@ -74,14 +112,11 @@ class ICLTransformerGMM(PolicyAlgo):
             group_specs.append(("goal", obs_spec(self.goal_shapes)))
         vq_cfg = self.algo_config.get("vq", {})
         self.vq_ema = self.vq_vae_enabled and bool(vq_cfg.get("ema_codebook", False))
-        gmm = self.algo_config.gmm
-        self.nets = ICLGMMActorNetwork(
+        self.nets = self.net_cls(
             group_specs=tuple(group_specs),
             ac_dim=self.ac_dim,
-            num_modes=int(gmm.num_modes),
-            min_std=float(gmm.min_std),
-            std_activation=str(gmm.std_activation),
-            low_noise_eval=bool(gmm.low_noise_eval),
+            **self._head_kwargs(),
+            backbone=self.backbone,
             embed_dim=int(tc.embed_dim),
             num_layers=int(tc.num_layers),
             num_heads=int(tc.num_heads),
@@ -171,15 +206,19 @@ class ICLTransformerGMM(PolicyAlgo):
         """Host batch -> float32 tensors on ``self.device`` (None stays)."""
         return {k: None if v is None else self._put_infer(v) for k, v in batch.items()}
 
-    # -- training ----------------------------------------------------------
+    # -- head-specific pieces (overridden by the non-GMM variant) ----------
+    def _slice_last_step(self, dists: GMMParams) -> GMMParams:
+        return GMMParams(*(a[:, -1] for a in dists))
+
     def _policy_loss(self, dists: GMMParams, target_act) -> torch.Tensor:
-        """GMM NLL (reference icl.py:947-974), the last step only when not
-        every step is supervised."""
-        if not self.supervise_all_steps:
-            dists = GMMParams(*(a[:, -1] for a in dists))
-            target_act = target_act[:, -1]
+        """GMM NLL (reference icl.py:947-974)."""
         return -torch.mean(gmm_log_prob(dists, target_act))
 
+    def _action_from_head(self, dists: GMMParams) -> torch.Tensor:
+        """GMM: sample (reference policy_nets.py:2583-2599)."""
+        return gmm_sample(dists, self._generator)
+
+    # -- training ----------------------------------------------------------
     def train_on_batch(self, batch, epoch, validate: bool = False):
         """One step on a processed batch (``process_batch_for_training``).
         Returns {"losses": {action_loss, log_probs, vq_loss,
@@ -197,6 +236,8 @@ class ICLTransformerGMM(PolicyAlgo):
             dists, aux = self.nets.forward_train(
                 qry_obs, ctx_obs, ctx_act, goal=goal, train=train, low_noise_eval=False,
                 generator=self._dropout_generator if train else None)
+            if not self.supervise_all_steps:
+                dists, qry_act = self._slice_last_step(dists), qry_act[:, -1]
             action_loss = self._policy_loss(dists, qry_act)
         if validate:
             grad_norm = torch.zeros((), device=self.device)
@@ -228,7 +269,7 @@ class ICLTransformerGMM(PolicyAlgo):
     def _get_action_impl(self, obs, ctx_obs, ctx_act, goal):
         dists, _ = self.nets.forward_train(obs, ctx_obs, ctx_act, goal=goal,
                                            low_noise_eval=True)
-        out = gmm_sample(dists, self._generator)
+        out = self._action_from_head(dists)
         if self.supervise_all_steps and self.pred_future_acs:
             return out[:, 0]
         return out[:, -1]
@@ -244,3 +285,41 @@ class ICLTransformerGMM(PolicyAlgo):
                 self._put_infer(goal_dict) if goal_dict else None,
             )
             return act.cpu().numpy()
+
+
+class ICLMambaGMM(ICLTransformerGMM):
+    """ICLTransformerGMM on the Mamba backbone (the ``icl_mamba`` algo)."""
+
+    backbone = "mamba"
+
+
+class ICLTransformer(ICLTransformerGMM):
+    """Non-GMM ICL: a deterministic tanh actor trained with the weighted L2 +
+    SmoothL1 + cosine loss (reference icl.py:187-201, weights
+    ``algo.loss.*``), on either backbone."""
+
+    net_cls = ICLActorNetwork
+
+    def _head_kwargs(self) -> dict:
+        return {}
+
+    def _slice_last_step(self, preds):
+        return preds[:, -1]
+
+    def _policy_loss(self, preds, target_act) -> torch.Tensor:
+        """l2_weight * MSE + l1_weight * SmoothL1 (beta 1) + cos_weight *
+        (1 - cosine similarity of the first 3 dims) (loss_utils.py:11-23)."""
+        lw = self.algo_config.loss
+        diff = preds - target_act
+        l2 = torch.mean(diff ** 2)
+        ad = diff.abs()
+        l1 = torch.mean(torch.where(ad < 1.0, 0.5 * diff ** 2, ad - 0.5))
+        p3, t3 = preds[..., :3], target_act[..., :3]
+        sim = (p3 * t3).sum(-1) / (torch.linalg.vector_norm(p3, dim=-1)
+                                   * torch.linalg.vector_norm(t3, dim=-1) + 1e-8)
+        cos = -torch.mean(sim - 1.0)
+        return (float(lw.l2_weight) * l2 + float(lw.l1_weight) * l1
+                + float(lw.cos_weight) * cos)
+
+    def _action_from_head(self, preds) -> torch.Tensor:
+        return preds

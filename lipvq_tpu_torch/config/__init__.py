@@ -5,7 +5,7 @@ from lipvq_tpu_torch.config.base import (
     config_factory,
     config_from_json,
 )
-from lipvq_tpu_torch.config.algo_configs import ICLConfig
+from lipvq_tpu_torch.config.algo_configs import ICLConfig, ICLMambaConfig
 
 __all__ = [
     "Config",
@@ -15,4 +15,5 @@ __all__ = [
     "config_factory",
     "config_from_json",
     "ICLConfig",
+    "ICLMambaConfig",
 ]

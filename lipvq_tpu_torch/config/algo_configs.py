@@ -1,13 +1,15 @@
 """Per-algorithm config classes (copy of ``lipvq_tpu/config/algo_configs.py``).
 
-Only ``ICLConfig`` and the helpers it calls are ported so far. Defaults
+``ICLConfig`` and ``ICLMambaConfig`` and the helpers they call are ported so
+far. Defaults
 mirror the reference per-algo configs so the reference's JSON templates
 apply unchanged (reference: robomimic/config/icl_config.py).
 
 The four mutually-exclusive action-tokenizer switches live under
 ``algo.transformer.{vq_vae_enabled,bin_enabled,fast_enabled,ln_act_enabled}``
-(reference icl_config.py:154-157); all-false selects the spectral-norm
-MLP + TransformerEncoder raw-action tokenizer.
+(``algo.mamba.*`` for ``icl_mamba``; reference icl_config.py:154-157);
+all-false selects the spectral-norm MLP + TransformerEncoder raw-action
+tokenizer.
 """
 
 from __future__ import annotations
@@ -139,4 +141,34 @@ class ICLConfig(BaseConfig):
         algo.vq.num_codes = 1024          # reference backbone_lfqvae_v5.py:52
         algo.vq.hidden_dim = 128
         algo.vq.ema_codebook = False      # EMA codebook update (extension)
+        algo.vq.ema_decay = 0.99
+
+
+class ICLMambaConfig(BaseConfig):
+    ALGO_NAME = "icl_mamba"
+
+    def train_config(self):
+        super().train_config()
+        self.train.hdf5_load_next_obs = False
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        _loss_defaults(algo)
+        algo.actor_layer_dims = [1024, 1024]
+        _gaussian_defaults(algo)
+        _gmm_defaults(algo)
+        _vae_defaults(algo)
+        _rnn_defaults(algo)
+        _seq_backbone_defaults(algo.mamba)
+        # mamba SSM block dims (reference obs_nets.py:2748-2753)
+        algo.mamba.d_state = 8
+        algo.mamba.d_conv = 4
+        algo.mamba.expand = 2
+        algo.language_conditioned = False
+        algo.vq.optimizer_lr = 1e-3
+        algo.vq.optimizer_wd = 1e-4
+        algo.vq.num_codes = 1024
+        algo.vq.hidden_dim = 128
+        algo.vq.ema_codebook = False
         algo.vq.ema_decay = 0.99

@@ -22,7 +22,9 @@ demo list as strings). Arrays keep their HDF5 shape and dtype: 1-D
 
 ``Export`` reads one. ``load`` copies a whole array into memory; ``read``
 copies a row range and keeps no file open, so a reader over thousands of
-demos holds no handle between reads.
+demos holds no handle between reads. ``add_arrays`` adds arrays to the demos
+of an existing export (corpus tokens, ``tokens/<key>``) and rewrites
+``meta.json`` atomically.
 """
 
 from __future__ import annotations
@@ -76,15 +78,42 @@ class ExportWriter:
                              "arrays": shapes}
 
     def finish(self, data_attrs: dict, masks: dict[str, list[str]]) -> str:
-        meta = {"format": FORMAT, "version": VERSION,
-                "data_attrs": {k: _jsonable(v) for k, v in data_attrs.items()},
-                "demos": self._demos,
-                "mask": {k: [_jsonable(d) for d in v] for k, v in masks.items()}}
-        tmp = os.path.join(self.root, META + ".tmp")
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-        os.replace(tmp, os.path.join(self.root, META))
+        _write_meta(self.root, {
+            "format": FORMAT, "version": VERSION,
+            "data_attrs": {k: _jsonable(v) for k, v in data_attrs.items()},
+            "demos": self._demos,
+            "mask": {k: [_jsonable(d) for d in v] for k, v in masks.items()}})
         return self.root
+
+
+def _write_meta(root: str, meta: dict) -> None:
+    """``meta.json`` through a temporary file and an atomic rename."""
+    tmp = os.path.join(root, META + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp, os.path.join(root, META))
+
+
+def add_arrays(root: str, arrays: dict[str, dict[str, np.ndarray]]) -> None:
+    """Add arrays to demos of the export at ``root``, or replace them:
+    ``arrays`` maps a demo to {path inside the demo group: array}. Each
+    ``.npy`` goes through a temporary file and a rename, then ``meta.json``
+    is rewritten once, atomically, as ``ExportWriter.finish`` writes it: a
+    reader opened afterwards sees every new array."""
+    with open(os.path.join(root, META)) as f:
+        meta = json.load(f)
+    for demo, items in arrays.items():
+        if demo not in meta["demos"]:
+            raise KeyError(f"{root}: no demo {demo!r}")
+        for key, arr in items.items():
+            arr = np.ascontiguousarray(arr)
+            path = os.path.join(root, "data", demo, key + ".npy")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path + ".tmp", "wb") as f:
+                np.save(f, arr, allow_pickle=False)
+            os.replace(path + ".tmp", path)
+            meta["demos"][demo]["arrays"][key] = list(arr.shape)
+    _write_meta(root, meta)
 
 
 class Export:

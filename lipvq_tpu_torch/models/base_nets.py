@@ -47,6 +47,50 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+class SpectralNormLinear(nn.Module):
+    """Linear layer divided by its largest singular value, estimated by power
+    iteration (``SpectralNormLinear`` of the JAX package, i.e.
+    ``torch.nn.utils.spectral_norm`` on a Linear). ``weight`` is [out, in]
+    and ``u`` [out] is the iteration's vector, a buffer (the flax
+    ``spectral_stats`` collection). Every forward runs
+    ``n_power_iterations`` steps from ``u`` and divides the weight by
+    ``sigma = u . (W v)``, differentiable in W only; ``u`` is written back
+    only with ``update_stats`` (training steps, never eval or validation)."""
+
+    def __init__(self, in_features: int, features: int, n_power_iterations: int = 1,
+                 eps: float = 1e-12):
+        super().__init__()
+        self.n_power_iterations = n_power_iterations
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.empty(features))
+        self.register_buffer("u", torch.empty(features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            self.bias.uniform_(-bound, bound, generator=generator)
+            self.u.normal_(generator=generator)
+
+    def forward(self, x, update_stats: bool = True):
+        w = self.weight
+        with torch.no_grad():
+            u = self.u.clone()
+            for _ in range(self.n_power_iterations):
+                v = w.T @ u
+                v = v / (torch.linalg.vector_norm(v) + self.eps)
+                u = w @ v
+                u = u / (torch.linalg.vector_norm(u) + self.eps)
+            v = w.T @ u
+            v = v / (torch.linalg.vector_norm(v) + self.eps)
+        sigma = u @ (w @ v)
+        if update_stats:
+            with torch.no_grad():
+                self.u.copy_(u)
+        return F.linear(x, w / sigma, self.bias)
+
+
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(u < 1 - p, x / (1 - p), 0)`` with u drawn

@@ -4,28 +4,46 @@
 - ``ObservationEncoder``         — low-dim keys flattened in spec order
 - ``ObservationGroupEncoder``    — one encoder per obs group, concat
 - ``ObservationDecoder``         — one linear head per output key
+- ``RawActionTokenizer``         — the all-switches-false arm: spectral-norm
+  MLP + 4 post-LN encoder layers over B*T as one sequence
+- ``LnActTokenizer``             — the ln_act arm: a Mamba block over the
+  [B, T, A] actions + MLP
 - ``ICLObservationGroupEncoder`` — group encoder + the selected action
   tokenizer on the context action stream
 - ``ICLMIMOTransformer``         — 3-stream embed, [ctx_obs, ctx_act]
-  interleave + query obs -> GPT over 3T tokens -> decode the last T
+  interleave + query obs -> GPT or Mamba over 3T tokens -> decode the last T
 
-Only the LipVQ-VAE tokenizer and low-dim observations are ported so far; the
-other tokenizers and the visual cores raise ``NotImplementedError`` naming
-their ROADMAP item. ``train=True`` turns on the embedding and backbone
-dropout (masks from the ``generator`` passed with it) and the tokenizer's
-EMA codebook statistics.
+Low-dim observations and the LipVQ, bin, ln_act and raw tokenizers are
+ported; the FAST tokenizer and the visual cores raise
+``NotImplementedError`` naming their ROADMAP item. ``train=True`` turns on
+the embedding and backbone dropout (masks from the ``generator`` passed
+with it) and the tokenizers' running statistics: the EMA codebook, the bin
+bounds and the spectral-norm vectors.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Sequence
 
 import torch
 from torch import nn
 
-from lipvq_tpu_torch.models.base_nets import TorchLinear, dropout, get_activation
+from lipvq_tpu_torch.models.base_nets import (
+    SpectralNormLinear,
+    TorchLinear,
+    dropout,
+    gelu_exact,
+    get_activation,
+)
+from lipvq_tpu_torch.models.mamba import MambaBackbone, MambaBlock
+from lipvq_tpu_torch.models.tokenizers.bin_action import AdaptiveBinActionEmbedding
 from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
-from lipvq_tpu_torch.models.transformer import LN_EPS, GPTBackbone
+from lipvq_tpu_torch.models.transformer import (
+    LN_EPS,
+    GPTBackbone,
+    sinusoidal_position_encoding,
+)
 
 # (key, shape) static spec type used across modules
 ObsSpec = tuple  # tuple[tuple[str, tuple[int, ...]], ...]
@@ -126,6 +144,105 @@ class ObservationDecoder(nn.Module):
         return out
 
 
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` as self-attention without a
+    mask or dropout, in flax's parameter layout: ``query``/``key``/``value``
+    weight [D, H, Dh] and bias [H, Dh], ``out`` weight [H, Dh, D] and bias
+    [D] (lecun-normal weights, zero biases). The query is scaled by
+    1/sqrt(Dh) before the product, the softmax is over the keys."""
+
+    def __init__(self, dim: int, num_heads: int):
+        super().__init__()
+        head_dim = dim // num_heads
+        for name in ("query", "key", "value"):
+            proj = nn.Module()
+            proj.weight = nn.Parameter(torch.empty(dim, num_heads, head_dim))
+            proj.bias = nn.Parameter(torch.empty(num_heads, head_dim))
+            self.add_module(name, proj)
+        self.out = nn.Module()
+        self.out.weight = nn.Parameter(torch.empty(num_heads, head_dim, dim))
+        self.out.bias = nn.Parameter(torch.empty(dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        fan_in = self.out.bias.shape[0]  # D for query/key/value, H * Dh = D for out
+        with torch.no_grad():
+            for proj in (self.query, self.key, self.value, self.out):
+                proj.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                proj.bias.zero_()
+
+    def forward(self, x):
+        """x [..., L, D] -> [..., L, D]."""
+        q, k, v = (torch.einsum("...ld,dhk->...lhk", x, p.weight) + p.bias
+                   for p in (self.query, self.key, self.value))
+        q = q / math.sqrt(q.shape[-1])
+        att = torch.softmax(torch.einsum("...qhd,...khd->...hqk", q, k), dim=-1)
+        y = torch.einsum("...hqk,...khd->...qhd", att, v)
+        return torch.einsum("...qhd,hdo->...qo", y, self.out.weight) + self.out.bias
+
+
+class RawActionTokenizer(nn.Module):
+    """The default arm (every tokenizer switch false): a spectral-norm MLP
+    ``action_dim -> 64 -> 128 -> output_dim`` (``sn1``..``sn3``), then
+    ``num_layers`` post-LN encoder layers (torch ``TransformerEncoderLayer``
+    defaults: MHA with bias, a GELU feed-forward of 256) and a linear
+    ``out``. As in the reference and the JAX package, the [B*T, D] input is
+    ONE sequence of length B*T: attention mixes every timestep of every
+    batch element, so one element's result depends on the whole batch. The
+    head count falls back to 1 where 8 does not divide ``output_dim`` (1 head
+    of 791 at the flagship's width)."""
+
+    def __init__(self, action_dim: int, output_dim: int, num_layers: int = 4,
+                 num_heads: int = 8, dim_feedforward: int = 256):
+        super().__init__()
+        self.num_layers = num_layers
+        self.sn1 = SpectralNormLinear(action_dim, 64)
+        self.sn2 = SpectralNormLinear(64, 128)
+        self.sn3 = SpectralNormLinear(128, output_dim)
+        heads = num_heads if output_dim % num_heads == 0 else 1
+        for i in range(num_layers):
+            self.add_module(f"attn_{i}", MultiHeadDotProductAttention(output_dim, heads))
+            self.add_module(f"ln1_{i}", nn.LayerNorm(output_dim, eps=LN_EPS))
+            self.add_module(f"ff1_{i}", TorchLinear(output_dim, dim_feedforward))
+            self.add_module(f"ff2_{i}", TorchLinear(dim_feedforward, output_dim))
+            self.add_module(f"ln2_{i}", nn.LayerNorm(output_dim, eps=LN_EPS))
+        self.out = TorchLinear(output_dim, output_dim)
+
+    def forward(self, actions, train: bool = False):
+        """actions [B*T, A] -> [B*T, output_dim]; ``train`` advances the
+        spectral-norm vectors."""
+        h = gelu_exact(self.sn1(actions, update_stats=train))
+        h = gelu_exact(self.sn2(h, update_stats=train))
+        x = self.sn3(h, update_stats=train)
+        for i in range(self.num_layers):
+            x = getattr(self, f"ln1_{i}")(x + getattr(self, f"attn_{i}")(x))
+            ff = getattr(self, f"ff2_{i}")(gelu_exact(getattr(self, f"ff1_{i}")(x)))
+            x = getattr(self, f"ln2_{i}")(x + ff)
+        return self.out(x)
+
+
+class LnActTokenizer(nn.Module):
+    """The ln_act arm: a Mamba block (``mamba``) over the [B, T, A] action
+    windows, then ``p1``..``p3``: ``A -> 64 -> 128 -> output_dim`` with
+    GELU."""
+
+    def __init__(self, action_dim: int, output_dim: int, seq_len: int = 10,
+                 d_state: int = 8, d_conv: int = 4, expand: int = 2):
+        super().__init__()
+        self.action_dim, self.seq_len = action_dim, seq_len
+        self.mamba = MambaBlock(action_dim, d_state=d_state, d_conv=d_conv, expand=expand)
+        self.p1 = TorchLinear(action_dim, 64)
+        self.p2 = TorchLinear(64, 128)
+        self.p3 = TorchLinear(128, output_dim)
+
+    def forward(self, actions):
+        """actions [B*T, A] -> [B*T, output_dim]."""
+        bt = actions.shape[0]
+        xs = self.mamba(actions.reshape(bt // self.seq_len, self.seq_len, self.action_dim))
+        h = gelu_exact(self.p1(xs.reshape(bt, self.action_dim)))
+        h = gelu_exact(self.p2(h))
+        return self.p3(h)
+
+
 class ICLObservationGroupEncoder(nn.Module):
     """Group encoder + context-action tokenizer. The tokenizer switches take
     precedence in the order fast -> bin -> vq -> ln_act, as in the JAX
@@ -134,7 +251,7 @@ class ICLObservationGroupEncoder(nn.Module):
     def __init__(self, group_specs: ObsSpec, action_input_shape: int,
                  vq_vae_enabled: bool = False, bin_enabled: bool = False,
                  fast_enabled: bool = False, ln_act_enabled: bool = False,
-                 vq_num_codes: int = 1024, vq_hidden_dim: int = 128,
+                 seq_len: int = 10, vq_num_codes: int = 1024, vq_hidden_dim: int = 128,
                  vq_ema_codebook: bool = False, vq_ema_decay: float = 0.99,
                  encoder_cores: ObsSpec = ()):
         super().__init__()
@@ -146,36 +263,55 @@ class ICLObservationGroupEncoder(nn.Module):
             raise NotImplementedError("the FAST tokenizer is ROADMAP queue 1, "
                                       "item 10; not ported yet")
         if bin_enabled:
-            raise NotImplementedError("the bin tokenizer is ROADMAP queue 1, "
-                                      "item 10; not ported yet")
-        if not vq_vae_enabled:
-            arm = "ln_act" if ln_act_enabled else "raw"
-            raise NotImplementedError(f"the {arm} tokenizer is ROADMAP queue 1, "
-                                      f"item 10; not ported yet")
-        self.action_network = LipVQVAE(
-            feature_dim=action_input_shape, latent_dim=self.output_dim,
-            num_codes=vq_num_codes, hidden_dim=vq_hidden_dim,
-            ema_codebook=vq_ema_codebook, ema_decay=vq_ema_decay)
+            self.arm = "bin"
+            self.action_network = AdaptiveBinActionEmbedding(action_input_shape,
+                                                             self.output_dim)
+        elif vq_vae_enabled:
+            self.arm = "vq"
+            self.action_network = LipVQVAE(
+                feature_dim=action_input_shape, latent_dim=self.output_dim,
+                num_codes=vq_num_codes, hidden_dim=vq_hidden_dim,
+                ema_codebook=vq_ema_codebook, ema_decay=vq_ema_decay)
+        elif ln_act_enabled:
+            self.arm = "ln_act"
+            self.action_network = LnActTokenizer(action_input_shape, self.output_dim,
+                                                 seq_len=seq_len)
+        else:
+            self.arm = "raw"
+            self.action_network = RawActionTokenizer(action_input_shape, self.output_dim)
 
     def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False):
         """Flattened [B*T, ...] inputs -> (obs_feat, ctx_obs_feat,
-        ctx_act_feat, vq_aux_loss). ``train`` reaches the tokenizer (EMA
-        codebook statistics)."""
+        ctx_act_feat, vq_aux_loss). ``train`` reaches the tokenizer's running
+        statistics (EMA codebook, bin bounds, spectral-norm vectors)."""
         groups = {"obs": obs}
         ctx_groups = {"obs": prompt_obs}
         if goal is not None:
             groups["goal"] = ctx_groups["goal"] = goal
         obs_feat = self.group_encoder(**groups)
         ctx_obs_feat = self.group_encoder(**ctx_groups)
-        ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
+        aux_loss = torch.zeros((), device=prompt_actions.device)
+        if self.arm == "vq":
+            ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
+        elif self.arm == "bin":
+            ctx_act_feat = self.action_network(prompt_actions, update_stats=train)
+        elif self.arm == "ln_act":
+            ctx_act_feat = self.action_network(prompt_actions)
+        else:
+            ctx_act_feat = self.action_network(prompt_actions, train=train)
         return obs_feat, ctx_obs_feat, ctx_act_feat, aux_loss
 
 
 class ICLMIMOTransformer(nn.Module):
-    """ICL composite: 3-stream embedding -> interleave -> GPT -> decode."""
+    """ICL composite: 3-stream embedding -> interleave -> backbone (GPT, or
+    Mamba with ``backbone="mamba"``) -> decode. The timestep embedding is
+    the learned offset ``embed_timestep`` (zeros) by default, the sinusoidal
+    encoding with ``sinusoidal_embedding``, else the learned table
+    ``embed_timestep_table`` (N(0, 1))."""
 
     def __init__(self, group_specs: ObsSpec, output_spec: ObsSpec,
-                 backbone: str = "transformer", embed_dim: int = 512,
+                 backbone: str = "transformer", mamba_d_state: int = 8,
+                 mamba_d_conv: int = 4, mamba_expand: int = 2, embed_dim: int = 512,
                  num_layers: int = 6, num_heads: int = 8, context_length: int = 10,
                  causal: bool = False, emb_dropout: float = 0.1,
                  attn_dropout: float = 0.1, block_output_dropout: float = 0.1,
@@ -189,41 +325,61 @@ class ICLMIMOTransformer(nn.Module):
                  vq_hidden_dim: int = 128, vq_ema_codebook: bool = False,
                  vq_ema_decay: float = 0.99, encoder_cores: ObsSpec = ()):
         super().__init__()
-        if backbone != "transformer":
-            raise NotImplementedError("the Mamba backbone is ROADMAP queue 1, "
-                                      "item 10; not ported yet")
-        if sinusoidal_embedding or not nn_parameter_for_timesteps:
-            raise NotImplementedError("sinusoidal and table timestep embeddings are "
-                                      "ROADMAP queue 1, item 5; not ported yet")
+        if backbone not in ("transformer", "mamba"):
+            raise ValueError(f"backbone is 'transformer' or 'mamba', got {backbone!r}")
+        if nn_parameter_for_timesteps and sinusoidal_embedding:
+            raise ValueError("sinusoidal_embedding needs nn_parameter_for_timesteps off")
         self.embed_dim = embed_dim
         self.context_length = context_length
         self.emb_dropout = emb_dropout
+        self.sinusoidal_embedding = sinusoidal_embedding
         self.encoder = ICLObservationGroupEncoder(
             group_specs, action_input_shape, vq_vae_enabled=vq_vae_enabled,
             bin_enabled=bin_enabled, fast_enabled=fast_enabled,
-            ln_act_enabled=ln_act_enabled, vq_num_codes=vq_num_codes,
-            vq_hidden_dim=vq_hidden_dim, vq_ema_codebook=vq_ema_codebook,
-            vq_ema_decay=vq_ema_decay, encoder_cores=encoder_cores)
+            ln_act_enabled=ln_act_enabled, seq_len=context_length,
+            vq_num_codes=vq_num_codes, vq_hidden_dim=vq_hidden_dim,
+            vq_ema_codebook=vq_ema_codebook, vq_ema_decay=vq_ema_decay,
+            encoder_cores=encoder_cores)
         self.embed_encoder = TorchLinear(self.encoder.output_dim, embed_dim)
         self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.embed_timestep = nn.Parameter(torch.empty(1, context_length, embed_dim))
-        self.transformer = GPTBackbone(
-            embed_dim=embed_dim, context_length=3 * context_length, causal=causal,
-            attn_dropout=attn_dropout, block_output_dropout=block_output_dropout,
-            num_layers=num_layers, num_heads=num_heads, activation=activation,
-            remat=remat, compute_dtype=compute_dtype, activation_dtype=activation_dtype)
+        self.embed_timestep = self.embed_timestep_table = None
+        if nn_parameter_for_timesteps:
+            self.embed_timestep = nn.Parameter(torch.empty(1, context_length, embed_dim))
+        elif not sinusoidal_embedding:
+            self.embed_timestep_table = nn.Parameter(torch.empty(context_length, embed_dim))
+        if backbone == "mamba":
+            self.transformer = MambaBackbone(
+                embed_dim, num_layers=num_layers, d_state=mamba_d_state,
+                d_conv=mamba_d_conv, expand=mamba_expand)
+        else:
+            self.transformer = GPTBackbone(
+                embed_dim=embed_dim, context_length=3 * context_length, causal=causal,
+                attn_dropout=attn_dropout, block_output_dropout=block_output_dropout,
+                num_layers=num_layers, num_heads=num_heads, activation=activation,
+                remat=remat, compute_dtype=compute_dtype, activation_dtype=activation_dtype)
         self.decoder = ObservationDecoder(embed_dim, output_spec)
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            self.embed_timestep.zero_()
+            if self.embed_timestep is not None:
+                self.embed_timestep.zero_()
+            if self.embed_timestep_table is not None:
+                self.embed_timestep_table.normal_(0.0, 1.0, generator=generator)
 
     def input_embedding(self, feats, train: bool = False,
                         generator: torch.Generator | None = None):
-        """Linear embed + learned per-timestep offset + LN + dropout.
-        feats [B, T, D_in]."""
-        emb = self.embed_ln(self.embed_encoder(feats) + self.embed_timestep)
-        return dropout(emb, self.emb_dropout, generator, train)
+        """Linear embed + timestep embedding + LN + dropout. feats
+        [B, T, D_in]."""
+        emb = self.embed_encoder(feats)
+        b, t = emb.shape[:2]
+        if self.sinusoidal_embedding:
+            ts = torch.arange(t, dtype=torch.float32, device=emb.device).expand(b, t)
+            emb = emb + sinusoidal_position_encoding(ts, self.embed_dim)
+        elif self.embed_timestep is not None:
+            emb = emb + self.embed_timestep
+        else:
+            emb = emb + self.embed_timestep_table[None, :t]
+        return dropout(self.embed_ln(emb), self.emb_dropout, generator, train)
 
     def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False,
                 generator: torch.Generator | None = None):

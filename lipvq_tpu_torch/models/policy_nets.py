@@ -1,7 +1,8 @@
-"""ICL GMM actor (counterpart of ``ICLGMMActorNetwork`` in
-``lipvq_tpu/models/policy_nets.py``): the ICL MIMO composite with GMM output
-heads mean/scale [num_modes, ac_dim] and logits [num_modes], tanh-squashed
-means and low-noise eval."""
+"""ICL actors (counterparts of ``ICLGMMActorNetwork`` and
+``ICLActorNetwork`` in ``lipvq_tpu/models/policy_nets.py``): the ICL MIMO
+composite (GPT or Mamba backbone) with GMM output heads mean/scale
+[num_modes, ac_dim] and logits [num_modes], tanh-squashed means and
+low-noise eval; or with one tanh-squashed ``action`` head."""
 
 from __future__ import annotations
 
@@ -49,3 +50,25 @@ class ICLGMMActorNetwork(nn.Module):
                          min_std=self.min_std, std_activation=self.std_activation,
                          use_tanh_mean=not self.use_tanh, low_noise=bool(low_noise_eval))
         return dists, aux
+
+
+class ICLActorNetwork(nn.Module):
+    """Deterministic ICL policy: the same composite with one ``action``
+    head [ac_dim], tanh-squashed (the JAX package's intended semantics of
+    the reference's ``ICLTransformerActorNetwork``). Keyword arguments go to
+    ``ICLMIMOTransformer``."""
+
+    def __init__(self, group_specs: ObsSpec, ac_dim: int, **net_kwargs):
+        super().__init__()
+        self.net = ICLMIMOTransformer(group_specs=group_specs,
+                                      output_spec=obs_spec({"action": (ac_dim,)}),
+                                      **net_kwargs)
+
+    def forward_train(self, obs, context_obs, actions, goal=None, train: bool = False,
+                      low_noise_eval: bool | None = None,
+                      generator: torch.Generator | None = None):
+        """(tanh-squashed actions [B, T, ac_dim], vq_aux_loss);
+        ``low_noise_eval`` has no effect on a deterministic head."""
+        outputs, aux = self.net(obs, context_obs, actions, goal=goal, train=train,
+                                generator=generator)
+        return torch.tanh(outputs["action"]), aux

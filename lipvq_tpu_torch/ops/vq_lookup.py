@@ -1,5 +1,5 @@
 """Nearest-code lookup of the LipVQ-VAE quantizer and its cluster statistics:
-plain PyTorch + kernels K1 and K2.
+plain PyTorch + kernels K1, K1f and K2.
 
 Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
 [N, D] every lookup here returns int32 ids [B] with
@@ -12,12 +12,23 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
 - ``vq_distances_reference``: the full [B, N] expand-form distance matrix.
 - ``vq_nearest_expand``: ``||c||^2 - 2 z.c`` with ``||z||^2`` dropped, in
   fp32 (TF32 must stay off for exact ids).
-- ``vq_nearest_cuda``: kernel K1 (``csrc/vq_nearest.cu``); it launches on
-  CUDA tensors and raises on anything else. ``plan_lookup`` picks its tile
-  configuration and code splits; the plan and the scratch size are cached
-  per device and shape, and all scratch is one ``torch.empty``.
+- ``vq_nearest_cuda``: kernel K1 (``csrc/vq_nearest.cu``), or with
+  ``precision="fast"`` kernel K1f (``csrc/vq_nearest_fast.cu``: one bf16
+  pass on the tensor cores, fp32 accumulation); it launches on CUDA tensors
+  and raises on anything else. ``plan_lookup`` (K1) and ``plan_fast`` (K1f)
+  pick the tile configuration and code splits; the plan and the scratch size
+  are cached per device and shape, and all scratch is one ``torch.empty``.
 - ``vq_nearest``: the dispatcher the quantizer calls: K1 on a CUDA tensor,
-  the plain reference on a CPU tensor.
+  the plain reference on a CPU tensor. It has no precision argument, as in
+  the JAX package: the fast lookup is never chosen silently.
+- ``vq_nearest_fast_reference``: the plain version of K1f,
+  ``argmin(cn - 2 bf16(z) . bf16(c))`` in fp32 with ``cn`` from the fp32
+  codebook (the Pallas wrapper's ``cn``); TF32 must stay off.
+- ``vq_nearest_fast``: the opt-in fast lookup: K1f on a CUDA tensor, its
+  plain version on a CPU tensor.
+- ``tie_gap``: the near-tie rule by which K1f is held against its plain
+  version (their ids cannot be bit-equal), and K1 against the exact
+  difference form where the expand form's cancellation decides.
 - ``vq_cluster_stats``: the one-hot counts [N] and sums [N, D] of given ids.
 - ``vq_nearest_with_stats_reference``: the plain version of K2, the
   reference ids plus their cluster stats.
@@ -61,6 +72,45 @@ def vq_distances_reference(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.T
     return zn + cn - 2.0 * (z @ c.T)
 
 
+def vq_nearest_fast_reference(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1f: ``argmin_n(cn[n] - 2 bf16(z) . bf16(c[n]))`` in
+    fp32, ``cn`` from the fp32 codebook, the operands rounded to bf16 (to
+    nearest even) and their products summed in fp32; first minimum wins.
+    Chunked over rows so the [rows, N] scores stay bounded."""
+    z = z_e.float()
+    c = codebook.float()
+    cn = (c * c).sum(-1)
+    cb = c.bfloat16().float()
+    rows = max(1, _REFERENCE_CHUNK_ELEMS // max(1, c.shape[0]))
+    ids = [torch.argmin(cn[None, :] - 2.0 * (zc.bfloat16().float() @ cb.T), dim=-1)
+           for zc in z.split(rows)]
+    return torch.cat(ids).to(torch.int32)
+
+
+def tie_gap(z_e: torch.Tensor, codebook: torch.Tensor, ids_a: torch.Tensor,
+            ids_b: torch.Tensor, bf16: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """How far apart two fp32 evaluations of the expand form ``cn - 2 z . c``
+    (operands rounded to bf16 first with ``bf16``: K1f and its plain
+    version) may pick codes: for each row where ``ids_a`` and ``ids_b``
+    differ, (the fp64 distance gap of the two picks over the operands, its
+    allowance); a gap within its allowance is a near-tie either evaluation
+    may resolve either way. Each evaluation's error on code n is at most
+    (D + 1) 2^-23 (2 S[n] + cn[n]), S[n] = sum_k |z_k c_nk| (D products
+    summed with a per-add error of 2^-23, which covers truncating tensor-core
+    adds, and the same for cn), so the allowance is that bound summed over
+    the two picks. Both are empty where the ids agree."""
+    bad = (ids_a != ids_b).nonzero().flatten()
+    z = z_e[bad].bfloat16().double() if bf16 else z_e[bad].double()
+    dists, allowed = [], 0.0
+    for ids in (ids_a[bad].long(), ids_b[bad].long()):
+        c = codebook[ids]
+        prod = z * (c.bfloat16().double() if bf16 else c.double())
+        cn = (c.double() ** 2).sum(1)
+        dists.append(cn - 2.0 * prod.sum(1))
+        allowed = allowed + (z_e.shape[1] + 1) * 2.0 ** -23 * (2.0 * prod.abs().sum(1) + cn)
+    return (dists[0] - dists[1]).abs(), allowed + torch.zeros_like(dists[0])
+
+
 def vq_nearest_expand(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Expand-form lookup in plain fp32 PyTorch; ``||z||^2`` dropped, first
     minimum wins (counterpart of ``vq_nearest_xla_expand``)."""
@@ -90,12 +140,23 @@ class LookupPlan(NamedTuple):
         return self.row_tiles * self.splits
 
 
+def _split_codes(config: int, shape: tuple[int, int], b: int, n: int, sms: int) -> LookupPlan:
+    """The plan of a (rows, codes) tile shape: the codes are split into
+    contiguous ranges, each a whole number of tiles, until the grid has
+    about two CTAs per SM."""
+    rows, codes = shape
+    row_tiles, code_tiles = -(-b // rows), -(-n // codes)
+    splits = min(code_tiles, max(1, -(-2 * sms // row_tiles)))
+    tiles_per_split = -(-code_tiles // splits)
+    splits = -(-code_tiles // tiles_per_split)
+    return LookupPlan(config, row_tiles, splits, tiles_per_split * codes)
+
+
 def plan_lookup(b: int, n: int, sms: int) -> LookupPlan:
-    """The lookup's launch plan for B rows, N codes on a card with ``sms``
-    SMs: LARGE when its row tiles alone give every SM two CTAs (the corpus);
-    else MEDIUM when its row and code tiles give every SM a CTA (train
-    batches), else SMALL (served requests). The codes are split into
-    contiguous ranges until the grid has about two CTAs per SM."""
+    """K1's launch plan for B rows, N codes on a card with ``sms`` SMs:
+    LARGE when its row tiles alone give every SM two CTAs (the corpus); else
+    MEDIUM when its row and code tiles give every SM a CTA (train batches),
+    else SMALL (served requests)."""
     def tiles(config):
         rows, codes = TILE_SHAPES[config]
         return -(-b // rows), -(-n // codes)
@@ -106,14 +167,21 @@ def plan_lookup(b: int, n: int, sms: int) -> LookupPlan:
         config = MEDIUM
     else:
         config = SMALL
-    row_tiles, code_tiles = tiles(config)
-    splits = min(code_tiles, max(1, -(-2 * sms // row_tiles)))
-    tiles_per_split = -(-code_tiles // splits)
-    splits = -(-code_tiles // tiles_per_split)
-    return LookupPlan(config, row_tiles, splits, tiles_per_split * TILE_SHAPES[config][1])
+    return _split_codes(config, TILE_SHAPES[config], b, n, sms)
 
 
-_POINTERS = {"vq_nearest": 4, "vq_stats": 6}  # pointer args of each entry point
+# K1f's one tile shape (rows, codes) and largest D, as in
+# csrc/vq_nearest_fast.cu; _bind checks them against the library
+FAST_TILE = (64, 128)
+FAST_MAX_D = 1632
+
+
+def plan_fast(b: int, n: int, sms: int) -> LookupPlan:
+    """K1f's launch plan: its one configuration (0), codes split as K1's."""
+    return _split_codes(0, FAST_TILE, b, n, sms)
+
+
+_POINTERS = {"vq_nearest": 4, "vq_nearest_fast": 4, "vq_stats": 6}  # pointer args
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SMS: dict[int, int] = {}
 _PLANS: dict[tuple, tuple[LookupPlan, int, int]] = {}
@@ -140,6 +208,11 @@ def _bind(name: str) -> ctypes.CDLL:
             if got != shape:
                 raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
                                    f"library, {shape} in vq_lookup.py")
+        if name == "vq_nearest_fast":
+            got = (lib.vq_fast_tile_rows(), lib.vq_fast_tile_codes(), lib.vq_fast_max_d())
+            if got != (*FAST_TILE, FAST_MAX_D):
+                raise RuntimeError(f"{name}: tile shape and largest D are {got} in the "
+                                   f"library, {(*FAST_TILE, FAST_MAX_D)} in vq_lookup.py")
         _LIBS[name] = lib
     return lib
 
@@ -154,7 +227,7 @@ def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int):
         sms = _SMS.get(dev.index)
         if sms is None:
             sms = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = plan_lookup(b, n, sms)
+        plan = (plan_fast if name == "vq_nearest_fast" else plan_lookup)(b, n, sms)
         hit = _PLANS[key] = (plan, getattr(lib, f"{name}_scratch_elems")(b, n, plan.splits),
                              lib.vq_lookup_scratch_elems(b, n, plan.splits))
     return hit
@@ -202,25 +275,40 @@ def _launch(kernel: str, lib: ctypes.CDLL, name: str, dev: torch.device, ptrs, i
                            f"{lib.vq_error_string(err).decode()} ({err})")
 
 
-def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Kernel K1 on the card. z_e [B, D], codebook [N, D]: fp32, contiguous,
-    on one CUDA device -> ids [B] int32. Raises on anything else.
+def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
+                    precision: str = "highest") -> torch.Tensor:
+    """Kernel K1 on the card, or with ``precision="fast"`` kernel K1f (the
+    counterpart of ``vq_nearest_pallas(precision=...)``). z_e [B, D],
+    codebook [N, D]: fp32, contiguous, on one CUDA device -> ids [B] int32.
+    Raises on anything else, and for K1f on D > ``FAST_MAX_D``.
 
-    ``vq_nearest_cuda.launches`` counts the calls that launched the kernel.
+    ``vq_nearest_cuda.launches`` counts the calls that launched K1,
+    ``vq_nearest_cuda.fast_launches`` those that launched K1f.
     """
-    _check_inputs("K1", z_e, codebook)
-    lib = _bind("vq_nearest")
+    if precision not in ("highest", "fast"):
+        raise ValueError(f"precision is 'highest' or 'fast', got {precision!r}")
+    fast = precision == "fast"
+    kernel, name = ("K1f", "vq_nearest_fast") if fast else ("K1", "vq_nearest")
+    _check_inputs(kernel, z_e, codebook)
     (b, d), n, dev = z_e.shape, codebook.shape[0], z_e.device
-    plan, scratch_elems, _ = _plan(lib, "vq_nearest", dev, b, n)
+    if fast and d > FAST_MAX_D:
+        raise ValueError(f"K1f takes D <= {FAST_MAX_D} (its z tile lives in shared "
+                         f"memory), got D={d}")
+    lib = _bind(name)
+    plan, scratch_elems, _ = _plan(lib, name, dev, b, n)
     _, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
-    _launch("K1", lib, "vq_nearest", dev,
+    _launch(kernel, lib, name, dev,
             [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch],
             [b, n, d, plan.config, plan.codes_per_split, plan.splits])
-    vq_nearest_cuda.launches += 1
+    if fast:
+        vq_nearest_cuda.fast_launches += 1
+    else:
+        vq_nearest_cuda.launches += 1
     return ids
 
 
 vq_nearest_cuda.launches = 0
+vq_nearest_cuda.fast_launches = 0
 
 
 def vq_nearest(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -232,6 +320,17 @@ def vq_nearest(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if z_e.is_cuda:
         return vq_nearest_cuda(z_e.float().contiguous(), codebook.float().contiguous())
     return vq_nearest_reference(z_e, codebook)
+
+
+def vq_nearest_fast(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """The opt-in fast lookup: K1f on a CUDA tensor, its plain version on a
+    CPU tensor. Inputs are detached, as in ``vq_nearest``."""
+    z_e = z_e.detach()
+    codebook = codebook.detach()
+    if z_e.is_cuda:
+        return vq_nearest_cuda(z_e.float().contiguous(), codebook.float().contiguous(),
+                               precision="fast")
+    return vq_nearest_fast_reference(z_e, codebook)
 
 
 def vq_cluster_stats(z_e: torch.Tensor, ids: torch.Tensor, num_codes: int):

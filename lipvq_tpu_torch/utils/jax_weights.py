@@ -3,15 +3,22 @@
 The port mirrors the flax module tree, so a flax path maps to a state_dict
 key by joining with dots, with two renames:
 
-- a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (transposed);
+- a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (transposed); a
+  ``DenseGeneral`` kernel of more than two axes (the raw tokenizer's
+  attention: query/key/value [D, H, Dh], out [H, Dh, D]) becomes ``weight``
+  in its flax layout;
 - a LayerNorm ``scale`` becomes ``weight``.
 
 Every other leaf (``bias``, LipschitzDense ``W``/``b``/``ci``, the
-quantizer ``codebook``, ``embed_timestep``) keeps its name and layout. The
-EMA codebook's ``vq_stats`` collection (``ema_cluster_size``,
-``ema_embed_sum``) maps onto the tokenizer's buffers of the same names. The
-bridge takes the trees as numpy arrays (``jax.tree.map(np.asarray, params)``
-on the JAX side), so this module imports no JAX.
+quantizer ``codebook``, ``embed_timestep``, ``embed_timestep_table``, the
+bin tokenizer's ``embedding_tables``, Mamba's ``conv_kernel``/``conv_bias``/
+``A_log``/``D``) keeps its name and layout. The mutable collections map onto
+buffers of the same names: ``vq_stats`` (``ema_cluster_size``,
+``ema_embed_sum``), ``bin_stats`` (``running_min``, ``running_max``, the
+int32 ``num_step``) and ``spectral_stats`` (each spectral-norm layer's
+``u``). Integer leaves keep their integer type. The bridge takes the trees
+as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), so
+this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+COLLECTIONS = ("vq_stats", "bin_stats", "spectral_stats")  # the mutable ones
 
 
 def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
@@ -31,9 +40,10 @@ def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, prefix + (key,))
                 continue
-            arr = np.asarray(value, dtype=np.float32)
+            arr = np.asarray(value)
+            arr = arr.astype(np.int32 if arr.dtype.kind in "iu" else np.float32)
             if key == "kernel":
-                key, arr = "weight", arr.T
+                key, arr = "weight", arr.T if arr.ndim == 2 else arr
             elif key == "scale":
                 key = "weight"
             out[".".join(prefix + (key,))] = torch.tensor(arr)
@@ -43,16 +53,15 @@ def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
 
 
 def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = None) -> None:
-    """Load the JAX algo's ``state.params`` and, with the EMA codebook, its
-    ``state.extra_vars`` (``{"vq_stats": ...}``), as numpy, into
-    ``algo.nets``. Every key must match: a missing or extra parameter or
-    buffer raises."""
+    """Load the JAX algo's ``state.params`` and its ``state.extra_vars``
+    (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``.
+    Every key must match: a missing or extra parameter or buffer raises."""
     state = state_dict_from_jax_params(params_np)
     for collection, tree in (extra_vars_np or {}).items():
-        if collection != "vq_stats":
+        if collection not in COLLECTIONS:
             raise KeyError(f"the port has no counterpart of the {collection!r} collection")
         stats = state_dict_from_jax_params(tree)
         if stats.keys() & state.keys():
-            raise KeyError(f"vq_stats repeats parameter keys {sorted(stats.keys() & state.keys())}")
+            raise KeyError(f"{collection} repeats keys {sorted(stats.keys() & state.keys())}")
         state.update(stats)
     algo.nets.load_state_dict(state, strict=True)

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1, K1f and K2 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and nvcc and skip without them. The machine
 with the card has no JAX, so this file imports none and runs without the
@@ -12,9 +12,13 @@ import pytest
 import torch
 
 from lipvq_tpu_torch.ops.vq_lookup import (
+    FAST_MAX_D,
+    tie_gap,
     vq_cluster_stats,
     vq_nearest,
     vq_nearest_cuda,
+    vq_nearest_fast,
+    vq_nearest_fast_reference,
     vq_nearest_reference,
     vq_nearest_with_stats,
     vq_nearest_with_stats_cuda,
@@ -245,3 +249,57 @@ def test_k2_all_rows_on_one_code(cuda, b, d):
     _check_k2(z, c, got, order)
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+# -- K1f: one bf16 pass on the tensor cores ----------------------------------
+
+def _dyadic(rng, shape):
+    """k/8 with |k| < 256: exact in bf16, every sum exact in fp32."""
+    return (np.round(np.clip(rng.standard_normal(shape) * 8, -255, 255)) / 8).astype(np.float32)
+
+
+@pytest.mark.parametrize("b,n,d", [(80, 128, 12), (300, 1024, 208), (70, 65, 791), (1, 1, 1),
+                                   (129, 257, 33)])
+def test_k1f_equals_reference_on_bf16_exact_inputs(cuda, b, n, d):
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy(_dyadic(rng, (b, d))).to(cuda)
+    c = torch.from_numpy(_dyadic(rng, (n, d))).to(cuda)
+    got = vq_nearest_cuda(z, c, precision="fast")
+    torch.cuda.synchronize()
+    assert torch.equal(got, vq_nearest_fast_reference(z, c))
+
+
+def test_k1f_ties_take_lowest_index(cuda):
+    z = torch.tensor([[1.0, 0.0], [0.0, 1.0]], device=cuda)
+    c = torch.tensor([[5.0, 5.0], [1.0, 0.0], [1.0, 0.0], [0.0, 1.0], [0.0, 1.0]], device=cuda)
+    assert vq_nearest_cuda(z, c, precision="fast").tolist() == [1, 3]
+
+
+@pytest.mark.parametrize("d", SHAPES_D)
+@pytest.mark.parametrize("n", SHAPES_N)
+@pytest.mark.parametrize("b", SHAPES_B)
+def test_k1f_shapes_and_splits(cuda, plan_sms, b, n, d):
+    """Ids within the near-tie rule of ``tie_gap`` of the plain version,
+    with the card's SM count (code splits) and with one SM."""
+    z, c = _gauss(b, n, d, cuda)
+    got = vq_nearest_cuda(z, c, precision="fast")
+    torch.cuda.synchronize()
+    assert got.shape == (b,) and got.dtype == torch.int32
+    assert int(got.min()) >= 0 and int(got.max()) < n
+    gap, allowed = tie_gap(z, c, got, vq_nearest_fast_reference(z, c), bf16=True)
+    assert bool((gap <= allowed).all())
+
+
+def test_k1f_wrapper_checks_and_counts(cuda):
+    z = torch.zeros(4, 3, device=cuda)
+    c = torch.zeros(8, 3, device=cuda)
+    k1, k1f = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
+    with pytest.raises(ValueError, match="D <="):
+        vq_nearest_cuda(torch.zeros(4, FAST_MAX_D + 1, device=cuda),
+                        torch.zeros(8, FAST_MAX_D + 1, device=cuda), precision="fast")
+    with pytest.raises(ValueError):
+        vq_nearest_cuda(z.double(), c.double(), precision="fast")
+    assert (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches) == (k1, k1f)
+    vq_nearest_fast(z, c)
+    vq_nearest(z, c)  # the quantizer's dispatcher: K1, never K1f
+    assert (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches) == (k1 + 1, k1f + 1)

@@ -31,7 +31,9 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.envs.wrappers", "lipvq_tpu_torch.envs.env_synthetic",
              "lipvq_tpu_torch.envs.env_factory", "lipvq_tpu_torch.envs.vector_env",
              "lipvq_tpu_torch.envs.rollout", "lipvq_tpu_torch.scripts.train",
-             "lipvq_tpu_torch.scripts.eval_checkpoint"):
+             "lipvq_tpu_torch.scripts.eval_checkpoint", "lipvq_tpu_torch.models.mamba",
+             "lipvq_tpu_torch.models.tokenizers.bin_action",
+             "lipvq_tpu_torch.parallel.corpus", "lipvq_tpu_torch.scripts.tokenize_corpus"):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
 print(len(names), loaded)
@@ -131,3 +133,39 @@ def test_checkpoint_entry_points_without_device_raise_without_gpu(monkeypatch, t
         policy_from_checkpoint(path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         evaluate_checkpoint(path, n=1, horizon=1)
+
+
+def test_corpus_entry_points_without_device_raise_without_gpu(monkeypatch, tmp_path):
+    import numpy as np
+
+    from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+    from lipvq_tpu_torch.parallel.corpus import tokenize_array
+    from lipvq_tpu_torch.scripts import tokenize_corpus
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    export = make_synthetic_export(str(tmp_path / "export"), n_demos=2, demo_len=5)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tokenize_array(LipVQVAE(12, 8, num_codes=4), np.zeros((3, 12), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tokenize_corpus.main(["--datasets", export, "--latent_dim", "8", "--num_codes", "4"])
+
+
+@pytest.mark.parametrize("algo_name,section", [("icl", "transformer"), ("icl_mamba", "mamba")])
+@pytest.mark.parametrize("arm", ["bin", "ln_act", "raw"])
+def test_every_arm_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, algo_name, section,
+                                                            arm):
+    switches = {"bin": {"bin_enabled": True}, "ln_act": {"ln_act_enabled": True},
+                "raw": {"ln_act_enabled": False}}[arm]
+    cfg = config_factory(algo_name, {"algo": {"gmm": {"enabled": True}, section: {
+        "enabled": True, "embed_dim": 32, "num_layers": 1, "num_heads": 2, **switches}}})
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = ["robot0_eef_pos", "object"]
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    algo = algo_factory(algo_name, cfg, shapes, ac_dim=12, device="cpu")
+    assert type(algo.nets.net.encoder.action_network).__name__ == {
+        "bin": "AdaptiveBinActionEmbedding", "ln_act": "LnActTokenizer",
+        "raw": "RawActionTokenizer"}[arm]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        algo_factory(algo_name, cfg, shapes, ac_dim=12)

@@ -22,11 +22,18 @@ all started together). Phases:
    sides). A skewed K2 case at the corpus shape puts every row on one code
    (code 0 is the mean of z, the others lie far away): counts exact, the
    sums within the same bound and equal, bit for bit, to a sequential
-   ascending fp32 sum (numpy's cumsum), two calls bit-identical. K1f (one
-   bf16 pass on the tensor cores): exact ids on bf16-exact fixtures; at the
-   three shapes ids may differ from its plain version only on near-ties of
-   the fp32 expand form over bf16 operands (``tie_gap`` in ops/vq_lookup.py
-   states the bound), counted; the share of ids that differ from K1's.
+   ascending fp32 sum (numpy's cumsum), two calls bit-identical; beside its
+   bound it prints the floor of those sums, a chain of B dependent adds.
+   K2 above one shared histogram's 49152 codes (B = 8192, D = 208, N = 49153, 65536, 131075):
+   ids within K1's tie tolerance, counts exactly the plain stats of K2's own
+   ids, sums within the bound and, at N = 65536, bit-equal to a sequential
+   ascending sum. K1f (one bf16 pass on the tensor cores, wgmma fed by a TMA
+   ring): exact ids on bf16-exact fixtures (both configurations, D off the
+   64-column swizzle and the largest D); at the three shapes ids may differ
+   from its plain version only on near-ties of the fp32 expand form over
+   bf16 operands (``tie_gap`` in ops/vq_lookup.py states the bound),
+   counted; the share of ids that differ from K1's; times beside those of
+   its earlier mma.sync design and the bound's share.
    Times per call are CUDA-event medians; device times come from
    torch.profiler, per kernel and, for K2, per stage (cn, lookup, sort,
    sums); K1's wrapper host time is the median time from entry to return
@@ -44,7 +51,9 @@ all started together). Phases:
    K1). One fp32 EMA-codebook step without dropout on the card and on the
    CPU from the same weights must agree as ``hold_step`` states (losses,
    gradients, each device's AdamW step, buffers) with equal context ids and
-   the codebook rows the EMA wrote to rtol 1e-5 / atol 1e-7.
+   the codebook rows the EMA wrote to rtol 1e-5 / atol 1e-7. One EMA step of
+   ``LipVQVAE`` at 65536 codes (latent 208, 5000 rows) must launch K2 once
+   and K1 never, give finite loss and state, and counts summing to the rows.
 5. Script: the port's own entry points at full width. Two seeded synthetic
    exports (40 demos x 300 steps each, the flagship's obs keys and 12-d
    actions) go as a ``train.data`` list (a MetaDataset) to
@@ -124,6 +133,14 @@ BATCH = 100  # exps/templates/icl.json: train.batch_size
 SEQ_STEPS = 19  # frame_stack - 1 + seq_length of the template
 TRAIN_STEPS = 20
 FP32_U = 2.0 ** -24
+K2_WIDE_N = (49153, 65536, 131075)  # above the 49152 codes of one shared histogram
+K2_WIDE_SHAPE = (8192, 208)  # rows, latent
+EMA_WIDE_CODES, EMA_WIDE_ROWS = 65536, 5000  # phase 4's EMA step beyond one histogram
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock: the skewed K2 case's chain floor
+# K1f's earlier design (mma.sync m16n8k16, the codebook staged through
+# registers), as this script measured it on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: per call and device ms at the served, train and corpus shapes
+K1F_MMA_SYNC = {"slice": (0.126, 0.084), "train": (0.110, 0.082), "corpus": (5.89, 5.20)}
 
 
 def card_line() -> str:
@@ -404,6 +421,64 @@ def stats_phase(card: str) -> dict:
         del z, c, ids, counts, sums, again, want_counts, want_sums, abs_sums, err, allowed
     torch.cuda.empty_cache()
     results["skewed"] = skewed_stats(card, gen)
+    results["wide"] = wide_stats(card, gen)
+    return results
+
+
+def wide_stats(card: str, gen) -> dict:
+    """K2 above one shared histogram's 49152 codes (the row sort runs over
+    code ranges): B = 8192, D = 208, N in ``K2_WIDE_N``. Ids within K1's
+    tie tolerance of the plain version, counts exactly the plain stats of
+    K2's own ids, sums within the summation bound and, at N = 65536, bit-equal
+    to a sequential ascending fp32 sum (numpy's unbuffered add.at); device
+    times."""
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_cluster_stats,
+        vq_nearest_reference,
+        vq_nearest_with_stats_cuda,
+    )
+
+    b, d = K2_WIDE_SHAPE
+    dev = torch.device("cuda")
+    results = {}
+    for n in K2_WIDE_N:
+        z = torch.randn(b, d, generator=gen, device=dev)
+        c = torch.randn(n, d, generator=gen, device=dev)
+        ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
+        mismatches, max_gap = check_ids(z, c, ids, vq_nearest_reference(z, c))
+        want_counts, want_sums = vq_cluster_stats(z, ids, n)
+        _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
+        if not torch.equal(counts, want_counts) or float(counts.sum()) != b:
+            raise AssertionError(f"K2 counts differ from the plain stats at N = {n}")
+        err = (sums - want_sums).abs()
+        allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
+        if (err > allowed).any():
+            raise AssertionError(f"K2 sums exceed the summation bound on "
+                                 f"{int((err > allowed).sum())} entries at N = {n}")
+        bitwise = None
+        if n == 65536:
+            sequential = np.zeros((n, d), np.float32)
+            np.add.at(sequential, ids.cpu().numpy(), z.cpu().numpy())
+            bitwise = bool(np.array_equal(sums.cpu().numpy(), sequential))
+            if not bitwise:
+                raise AssertionError("K2 sums at N = 65536 are not the sequential ascending sum")
+        ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 10)
+        device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), 5)
+        bound_ms, bound_by = stats_bound(b, n, d)
+        stages = stage_ms(kernels)
+        results[n] = {"shape": [b, n, d], "mismatches": mismatches, "max_id_gap": max_gap,
+                      "max_abs_err": float(err.max()), "sums_bit_equal": bitwise, "ms": ms,
+                      "device_ms": device_ms, "stage_ms": stages, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "codes_used": int((counts > 0).sum())}
+        print(f"K2 {b}x{n}x{d} (code ranges of 49152): {mismatches} rows differ within the tie "
+              f"tolerance (max fp64 gap {max_gap:.3g}); counts equal; sums max abs err "
+              f"{float(err.max()):.3g}" + ("" if bitwise is None else
+                                           ", bit-equal to a sequential ascending fp32 sum")
+              + f"; {int((counts > 0).sum())} codes used; K2 {ms:.4f} ms per call (device "
+              f"busy {device_ms} ms, by stage {stages}), bound {bound_ms:.4f} ms ({bound_by}) "
+              f"[{card}]")
+        del z, c, ids, counts, sums, want_counts, want_sums, abs_sums, err, allowed
+        torch.cuda.empty_cache()
     return results
 
 
@@ -438,12 +513,27 @@ def skewed_stats(card: str, gen) -> dict:
     ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 5)
     device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), 5)
     stages = stage_ms(kernels)
+
+    def library():
+        lib_ids = torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1)
+        torch.bincount(lib_ids, minlength=n)
+        torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
+
+    library_ms = cuda_ms(library, 5)
+    bound_ms, bound_by = stats_bound(b, n, d)
+    # not part of the bound: the port's bit-equal sums make code 0's sum a
+    # chain of B dependent fp32 adds per column (~4 cycles each), a floor of
+    # its own design that the one-hot product of the TPU kernel does not have
+    chain_ms = 4 * b / SM_CLOCK_HZ * 1e3
     print(f"K2 skewed {b}x{n}x{d} (all rows on code 0): counts exact, sums bit-equal to a "
           f"sequential fp32 sum (plain one-hot product within {float(err.max()):.3g}), two "
           f"calls bit-identical; K2 {ms:.4f} ms per call (device busy {device_ms} ms, by "
-          f"stage {stages}: {kernels}) [{card}]")
+          f"stage {stages}: {kernels}), addmm+argmin+bincount+index_add_ {library_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); the sequential sums' floor, a chain of "
+          f"{b} dependent adds, {chain_ms:.3f} ms at {SM_CLOCK_HZ / 1e6:.0f} MHz [{card}]")
     return {"shape": [b, n, d], "max_abs_err": float(err.max()), "ms": ms,
-            "device_ms": device_ms, "stage_ms": stages, "kernel_ms": kernels}
+            "device_ms": device_ms, "stage_ms": stages, "kernel_ms": kernels,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def fast_bound(b: int, n: int, d: int) -> tuple[float, str]:
@@ -475,6 +565,8 @@ def fast_phase(card: str) -> dict:
     near-tie rule of ``check_near_ties`` at the served, train and corpus
     shapes, the share of ids that differ from K1's, times."""
     from lipvq_tpu_torch.ops.vq_lookup import (
+        FAST_MAX_D,
+        plan_fast,
         vq_nearest_cuda,
         vq_nearest_fast_reference,
     )
@@ -484,7 +576,8 @@ def fast_phase(card: str) -> dict:
     # operands k/8 with |k| < 256 are bf16-exact and every sum is exact in
     # fp32, so the ids are exactly the plain version's
     fixtures = []
-    for b, n, d in [(80, 128, 12), (300, 1024, 208), (70, 65, 791), (1, 1, 1)]:
+    for b, n, d in [(80, 128, 12), (300, 1024, 208), (70, 65, 791), (1, 1, 1),
+                    (40000, 1024, 208), (70, 65, 129), (100, 300, FAST_MAX_D)]:
         rng = np.random.default_rng(0)
         z = np.round(np.clip(rng.standard_normal((b, d)) * 8, -255, 255)) / 8
         c = np.round(np.clip(rng.standard_normal((n, d)) * 8, -255, 255)) / 8
@@ -522,19 +615,25 @@ def fast_phase(card: str) -> dict:
         device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c, precision="fast"),
                                             reps)
         bound_ms, bound_by = fast_bound(b, n, d)
+        share = None if device_ms is None else bound_ms / device_ms
+        plan = plan_fast(b, n, d, torch.cuda.get_device_properties(dev).multi_processor_count)
         results[label] = {"shape": [b, n, d], "mismatches": exceptions,
                           "max_abs_err": max_gap, "max_gap_over_allowance": worst,
                           "flip_rate_vs_k1": flips, "ms": ms,
                           "device_ms": device_ms, "kernel_ms": kernels, "plain_ms": plain_ms,
                           "library_ms": library_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by}
+                          "bound_by": bound_by, "bound_share": share,
+                          "plan": plan._asdict()}
         print(f"K1f {label} {b}x{n}x{d}: {exceptions} rows differ from the plain version, "
               f"all within the near-tie bound (largest fp64 gap {max_gap:.3g}, "
               f"{worst:.3g} of its allowance); "
               f"ids differ from K1's on {flips:.4%} of rows; K1f {ms:.4f} ms per call "
-              f"(device busy {device_ms} ms: {kernels}), plain {plain_ms:.4f} ms, bf16 "
-              f"matmul+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16) [{card}]")
+              f"(mma.sync design: {K1F_MMA_SYNC[label][0]}), device busy {device_ms} ms "
+              f"(mma.sync design: {K1F_MMA_SYNC[label][1]}; {kernels}), plan {tuple(plan)} "
+              f"({plan.ctas} CTAs), plain {plain_ms:.4f} ms, bf16 matmul+argmin "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s dense bf16), "
+              f"{share if share is None else f'{share:.1%}'} of it [{card}]")
         del z, c, got, want
     torch.cuda.empty_cache()
     return results
@@ -768,7 +867,78 @@ def train_phase(card: str) -> dict:
         del algo, tok, batch
         torch.cuda.empty_cache()
     results["parity"] = train_parity(items)
+    results["ema_wide"] = ema_wide_step(card)
     return results
+
+
+def ema_wide_step(card: str) -> dict:
+    """One EMA-codebook train step of ``LipVQVAE`` on the card at 65536
+    codes (latent 208), above one shared histogram of K2's row sort: the
+    training forward (one K2 launch, no K1), Adam on its loss, the EMA
+    codebook written back. The stats K2 returned are observed on the way:
+    their counts must sum to the rows; losses, EMA buffers and codebook
+    finite."""
+    import lipvq_tpu_torch.models.tokenizers.lipvq as lipvq
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+
+    latent, rows = CORPUS_SHAPE[2], EMA_WIDE_ROWS
+    model = lipvq.LipVQVAE(AC_DIM, latent, num_codes=EMA_WIDE_CODES, ema_codebook=True)
+    seeded_init(model, torch.Generator().manual_seed(16))
+    rng = np.random.default_rng(17)
+    with torch.no_grad():
+        # spread the latents and set the codes to latents of seeded actions
+        model.to_latent.ci.fill_(30.0)
+        model.quantizer.codebook.copy_(model.encode(torch.from_numpy(
+            rng.uniform(-1, 1, (EMA_WIDE_CODES, AC_DIM)).astype(np.float32))))
+    dev = torch.device("cuda")
+    model.to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    x = torch.from_numpy(rng.uniform(-1, 1, (rows, AC_DIM)).astype(np.float32)).to(dev)
+
+    seen = {}
+    stats = lipvq.vq_nearest_with_stats
+
+    def observed(z_e, codebook):
+        seen["stats"] = stats(z_e, codebook)
+        return seen["stats"]
+
+    lipvq.vq_nearest_with_stats = observed
+    try:
+        # the main path: one EMA train step, counted
+        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+        vq_nearest_with_stats_cuda.launches = 0
+        t0 = time.perf_counter()
+        _, loss, ids = model(x, train=True)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        model.apply_ema_codebook()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                    vq_nearest_with_stats_cuda.launches)
+    finally:
+        lipvq.vq_nearest_with_stats = stats
+    _, counts, _ = seen["stats"]
+    if launches != (0, 0, 1):
+        raise AssertionError(f"EMA step at {EMA_WIDE_CODES} codes: launches (K1, K1f, K2) "
+                             f"{launches}, want (0, 0, 1)")
+    if float(counts.sum()) != rows or not torch.equal(
+            counts, torch.bincount(ids.long(), minlength=EMA_WIDE_CODES).float()):
+        raise AssertionError(f"EMA step at {EMA_WIDE_CODES} codes: counts sum to "
+                             f"{float(counts.sum())} for {rows} rows")
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        loss, model.ema_cluster_size, model.ema_embed_sum, model.quantizer.codebook))
+    if not finite:
+        raise AssertionError(f"EMA step at {EMA_WIDE_CODES} codes: non-finite loss or state")
+    used, top, loss = int((counts > 0).sum()), int(ids.max()), loss.detach()
+    print(f"train_ema at {EMA_WIDE_CODES} codes: one LipVQVAE step of {rows} rows (latent "
+          f"{latent}), launches (K1, K1f, K2) {launches}; loss {float(loss):.5f}; counts sum "
+          f"to {int(counts.sum())} over {used} codes (highest id {top}); {step_ms:.1f} ms "
+          f"(first call) [{card}]")
+    return {"launches": launches, "loss": float(loss), "codes_used": used, "max_id": top,
+            "step_ms": step_ms}
 
 
 def hold_step(card, cpu, batch, keep=None, zero=()) -> tuple[dict, dict]:
@@ -1475,11 +1645,14 @@ def main() -> int:
                 "eval_checkpoint": scripted["k1_eval"],
                 "corpus": corpus["launches"]["dry"][0] + corpus["launches"]["write"][0],
                 "corpus_fast": corpus["launches"]["fast"][0]}
+    k1_paths["train_ema_65536"] = trained["ema_wide"]["launches"][0]
     k1f_paths = {path: 0 for path in k1_paths}
     k1f_paths["corpus"] = corpus["launches"]["dry"][1] + corpus["launches"]["write"][1]
     k1f_paths["corpus_fast"] = corpus["launches"]["fast"][1]
+    k1f_paths["train_ema_65536"] = trained["ema_wide"]["launches"][1]
     k2_paths = {"serve": served["k2_launches"], "train": trained["train"]["k2_launches"],
                 "train_ema": trained["train_ema"]["k2_launches"],
+                "train_ema_65536": trained["ema_wide"]["launches"][2],
                 "train_script": scripted["k2_script"], "rollout": 0,
                 "eval_checkpoint": scripted["k2_eval"],
                 "corpus": sum(corpus["launches"][run][2] for run in ("dry", "write", "fast"))}
@@ -1524,6 +1697,7 @@ def main() -> int:
         "stage_ms": k2["train"]["stage_ms"],
         "corpus": k2["corpus"],
         "skewed": k2["skewed"],
+        "beyond_one_histogram": k2["wide"],
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
         "arms": arms}))

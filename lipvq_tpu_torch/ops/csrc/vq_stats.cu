@@ -20,8 +20,13 @@
 // Design: a deterministic counting sort of the rows by code, then per-code
 // sums. No float atomics; integer atomics only in the histogram.
 //   1. hist: each tile of STATS_TILE_ROWS rows counts its ids in a shared
-//      histogram [N] (warp-aggregated with __match_any_sync) and writes its
-//      counts to tile_counts [N, T] (code-major, T tiles).
+//      histogram (warp-aggregated with __match_any_sync) and writes its
+//      counts to tile_counts [N, T] (code-major, T tiles). The histogram
+//      holds HIST_CODES ints, so codes go in ranges [lo, lo + HIST_CODES),
+//      one hist launch per range, each counting only the ids in its range;
+//      every launch reads the B ids again (4 MB at B = 2^20), and N is
+//      bounded only by the scratch (tile_counts is N x T ints: 134 MB at
+//      N = 65536, B = 2^20).
 //   2. colscan: one warp per code turns its row of tile_counts into
 //      exclusive offsets over tiles and writes the code's total.
 //   3. codescan: one CTA scans the totals over codes into code_start [N + 1],
@@ -31,7 +36,9 @@
 //      row's rank among the earlier rows of its code is the code's running
 //      base in shared memory plus its rank in the warp (__match_any_sync and
 //      the lane-mask prefix), so order [B] ends up equal to
-//      torch.argsort(ids, stable=True).
+//      torch.argsort(ids, stable=True). Over the same code ranges as hist:
+//      a row's slot depends only on its own code's offsets, so the ranges
+//      place disjoint rows and their order does not matter.
 //   5. sums: one warp per (code, 32 columns) walks order[code_start[n] :
 //      code_start[n + 1]] with a lane per column, 32 rows' loads issued
 //      before their adds, each column one fp32 register from 0.f: the chain
@@ -55,7 +62,7 @@ namespace {
 
 constexpr int STATS_TILE_ROWS = 2048;  // rows per histogram / scatter tile
 constexpr int LONG_BUCKET = 1024;      // longer buckets go to long_sums_kernel
-constexpr int MAX_CODES = 49152;       // the shared histogram holds N ints
+constexpr int HIST_CODES = 49152;      // codes of one shared histogram range
 constexpr int SUM_COLS = 32;           // columns per warp in the sums
 constexpr int LONG_LOADERS = 8;        // loader warps; one more warp adds
 constexpr int LONG_THREADS = 32 * (LONG_LOADERS + 1);
@@ -100,22 +107,29 @@ __device__ __forceinline__ unsigned lanemask_lt() {
   return (1u << (threadIdx.x & 31)) - 1u;
 }
 
-__global__ void hist_kernel(const int* __restrict__ ids, int B, int N, int T,
+// The id of row r relative to the code range [lo, lo + cnt), or -1 for a
+// row outside the tile or the range.
+__device__ __forceinline__ int id_in_range(const int* __restrict__ ids, int r, int r1, int lo,
+                                           int cnt) {
+  const int id = r < r1 ? ids[r] - lo : -1;
+  return static_cast<unsigned>(id) < static_cast<unsigned>(cnt) ? id : -1;
+}
+
+__global__ void hist_kernel(const int* __restrict__ ids, int B, int lo, int cnt, int T,
                             int* __restrict__ tile_counts) {
-  extern __shared__ int hist[];
+  extern __shared__ int hist[];  // [cnt]: codes lo .. lo + cnt - 1
   const int t = blockIdx.x;
   const int r0 = t * STATS_TILE_ROWS, r1 = min(B, r0 + STATS_TILE_ROWS);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) hist[n] = 0;
+  for (int n = threadIdx.x; n < cnt; n += blockDim.x) hist[n] = 0;
   __syncthreads();
   for (int base = r0; base < r1; base += blockDim.x) {
-    const int r = base + threadIdx.x;
-    const int id = r < r1 ? ids[r] : -1;
+    const int id = id_in_range(ids, base + threadIdx.x, r1, lo, cnt);
     const unsigned peers = __match_any_sync(0xffffffffu, id);
     if (id >= 0 && (peers & lanemask_lt()) == 0) atomicAdd(&hist[id], __popc(peers));
   }
   __syncthreads();
-  for (int n = threadIdx.x; n < N; n += blockDim.x)
-    tile_counts[static_cast<size_t>(n) * T + t] = hist[n];
+  for (int n = threadIdx.x; n < cnt; n += blockDim.x)
+    tile_counts[static_cast<size_t>(lo + n) * T + t] = hist[n];
 }
 
 __global__ void colscan_kernel(int* __restrict__ tile_counts, int N, int T,
@@ -196,19 +210,19 @@ codescan_kernel(const int* __restrict__ totals, int N, int* __restrict__ code_st
   }
 }
 
-__global__ void scatter_kernel(const int* __restrict__ ids, int B, int N, int T,
+__global__ void scatter_kernel(const int* __restrict__ ids, int B, int lo, int cnt, int T,
                                const int* __restrict__ tile_counts,
                                const int* __restrict__ code_start, int* __restrict__ order) {
-  extern __shared__ int next_slot[];  // per code: the next free slot of this tile
+  extern __shared__ int next_slot[];  // per code of the range: this tile's next free slot
   const int t = blockIdx.x, lane = threadIdx.x;
-  for (int n = lane; n < N; n += 32)
-    next_slot[n] = code_start[n] + tile_counts[static_cast<size_t>(n) * T + t];
+  for (int n = lane; n < cnt; n += 32)
+    next_slot[n] = code_start[lo + n] + tile_counts[static_cast<size_t>(lo + n) * T + t];
   __syncwarp();
   const int r0 = t * STATS_TILE_ROWS, r1 = min(B, r0 + STATS_TILE_ROWS);
-  int next_id = r0 + lane < r1 ? ids[r0 + lane] : -1;
+  int next_id = id_in_range(ids, r0 + lane, r1, lo, cnt);
   for (int base = r0; base < r1; base += 32) {
     const int id = next_id;
-    next_id = base + 32 + lane < r1 ? ids[base + 32 + lane] : -1;
+    next_id = id_in_range(ids, base + 32 + lane, r1, lo, cnt);
     const unsigned peers = __match_any_sync(0xffffffffu, id);
     const int slot = id >= 0 ? next_slot[id] : 0;
     __syncwarp();
@@ -346,11 +360,10 @@ size_t vq_stats_scratch_elems(int B, int N, int splits) {
 // current device. config, codes_per_split and splits are the lookup's, as in
 // vq_nearest_launch. Enqueues everything on `stream`, allocates nothing,
 // writes every element of counts and sums, and returns the first
-// cudaError_t (cudaErrorInvalidValue for N > MAX_CODES).
+// cudaError_t.
 int vq_stats_launch(const float* z, const float* c, int* ids, float* counts, float* sums,
                     void* scratch, int B, int N, int D, int config, int codes_per_split,
                     int splits, void* stream) {
-  if (N > MAX_CODES) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = vq::launch_nearest(z, c, ids, scratch, B, N, D, config, codes_per_split,
                                        splits, s);
@@ -358,16 +371,22 @@ int vq_stats_launch(const float* z, const float* c, int* ids, float* counts, flo
   StatsScratch st = stats_scratch(
       static_cast<int*>(scratch) + vq::lookup_scratch_elems(B, N, splits), B, N);
   const int T = tiles_of(B);
-  const size_t hist_smem = sizeof(int) * N;
+  const size_t hist_smem = sizeof(int) * min(N, HIST_CODES);
   if ((err = smem_attr(reinterpret_cast<const void*>(hist_kernel), hist_smem)) != cudaSuccess ||
       (err = smem_attr(reinterpret_cast<const void*>(scatter_kernel), hist_smem)) !=
           cudaSuccess)
     return static_cast<int>(err);
-  hist_kernel<<<T, 256, hist_smem, s>>>(ids, B, N, T, st.tile_counts);
+  for (int lo = 0; lo < N; lo += HIST_CODES) {
+    const int cnt = min(HIST_CODES, N - lo);
+    hist_kernel<<<T, 256, sizeof(int) * cnt, s>>>(ids, B, lo, cnt, T, st.tile_counts);
+  }
   colscan_kernel<<<(N + 7) / 8, 256, 0, s>>>(st.tile_counts, N, T, st.totals);
   codescan_kernel<<<1, 1024, 0, s>>>(st.totals, N, st.code_start, counts, st.long_list);
-  scatter_kernel<<<T, 32, hist_smem, s>>>(ids, B, N, T, st.tile_counts, st.code_start,
-                                          st.order);
+  for (int lo = 0; lo < N; lo += HIST_CODES) {
+    const int cnt = min(HIST_CODES, N - lo);
+    scatter_kernel<<<T, 32, sizeof(int) * cnt, s>>>(ids, B, lo, cnt, T, st.tile_counts,
+                                                    st.code_start, st.order);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int col_blocks = (D + SUM_COLS - 1) / SUM_COLS;
   const long long warps = static_cast<long long>(N) * col_blocks;

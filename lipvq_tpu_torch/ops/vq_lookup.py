@@ -14,10 +14,12 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
   fp32 (TF32 must stay off for exact ids).
 - ``vq_nearest_cuda``: kernel K1 (``csrc/vq_nearest.cu``), or with
   ``precision="fast"`` kernel K1f (``csrc/vq_nearest_fast.cu``: one bf16
-  pass on the tensor cores, fp32 accumulation); it launches on CUDA tensors
-  and raises on anything else. ``plan_lookup`` (K1) and ``plan_fast`` (K1f)
-  pick the tile configuration and code splits; the plan and the scratch size
-  are cached per device and shape, and all scratch is one ``torch.empty``.
+  pass on the tensor cores, wgmma fed by a TMA ring, fp32 accumulation); it
+  launches on CUDA tensors and raises on anything else. ``plan_lookup`` (K1)
+  and ``plan_fast`` (K1f) pick the tile configuration and code splits; the
+  plan and the scratch size are cached per device and shape, and all
+  scratch is one ``torch.empty`` of the size the library states (K1f's
+  holds the bf16 copy of the codebook).
 - ``vq_nearest``: the dispatcher the quantizer calls: K1 on a CUDA tensor,
   the plain reference on a CPU tensor. It has no precision argument, as in
   the JAX package: the fast lookup is never chosen silently.
@@ -170,15 +172,24 @@ def plan_lookup(b: int, n: int, sms: int) -> LookupPlan:
     return _split_codes(config, TILE_SHAPES[config], b, n, sms)
 
 
-# K1f's one tile shape (rows, codes) and largest D, as in
-# csrc/vq_nearest_fast.cu; _bind checks them against the library
-FAST_TILE = (64, 128)
-FAST_MAX_D = 1632
+# K1f's configurations: tile shapes (rows, codes) and the largest D of each,
+# as in csrc/vq_nearest_fast.cu; _bind checks them against the library
+FAST_WIDE, FAST_NARROW = 0, 1
+FAST_TILES = {FAST_WIDE: (256, 128), FAST_NARROW: (64, 16)}
+FAST_WIDE_MAX_D = 320
+FAST_MAX_D = 1728
 
 
-def plan_fast(b: int, n: int, sms: int) -> LookupPlan:
-    """K1f's launch plan: its one configuration (0), codes split as K1's."""
-    return _split_codes(0, FAST_TILE, b, n, sms)
+def plan_fast(b: int, n: int, d: int, sms: int) -> LookupPlan:
+    """K1f's launch plan for B rows, N codes of width D: WIDE (256 rows x
+    128 codes, D <= ``FAST_WIDE_MAX_D``) where its tiles alone give every SM
+    a CTA (the corpus), else NARROW (64 x 16, any D up to ``FAST_MAX_D``),
+    whose fine code splits give small batches a CTA per SM; codes split as
+    K1's, to about two CTAs per SM."""
+    rows, codes = FAST_TILES[FAST_WIDE]
+    wide = d <= FAST_WIDE_MAX_D and -(-b // rows) * -(-n // codes) >= sms
+    config = FAST_WIDE if wide else FAST_NARROW
+    return _split_codes(config, FAST_TILES[config], b, n, sms)
 
 
 _POINTERS = {"vq_nearest": 4, "vq_nearest_fast": 4, "vq_stats": 6}  # pointer args
@@ -198,8 +209,10 @@ def _bind(name: str) -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        for scratch in (getattr(lib, f"{name}_scratch_elems"), lib.vq_lookup_scratch_elems):
-            scratch.argtypes = [ctypes.c_int] * 3
+        fast = name == "vq_nearest_fast"
+        for scratch, ints in ((getattr(lib, f"{name}_scratch_elems"), 4 if fast else 3),
+                              (lib.vq_lookup_scratch_elems, 3)):
+            scratch.argtypes = [ctypes.c_int] * ints
             scratch.restype = ctypes.c_size_t
         lib.vq_error_string.argtypes = [ctypes.c_int]
         lib.vq_error_string.restype = ctypes.c_char_p
@@ -208,28 +221,36 @@ def _bind(name: str) -> ctypes.CDLL:
             if got != shape:
                 raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
                                    f"library, {shape} in vq_lookup.py")
-        if name == "vq_nearest_fast":
-            got = (lib.vq_fast_tile_rows(), lib.vq_fast_tile_codes(), lib.vq_fast_max_d())
-            if got != (*FAST_TILE, FAST_MAX_D):
-                raise RuntimeError(f"{name}: tile shape and largest D are {got} in the "
-                                   f"library, {(*FAST_TILE, FAST_MAX_D)} in vq_lookup.py")
+        if fast:
+            for config, shape in FAST_TILES.items():
+                got = (lib.vq_fast_tile_rows(config), lib.vq_fast_tile_codes(config),
+                       lib.vq_fast_max_d(config))
+                want = (*shape, FAST_WIDE_MAX_D if config == FAST_WIDE else FAST_MAX_D)
+                if got != want:
+                    raise RuntimeError(f"{name}: tile shape and largest D of config {config} "
+                                       f"are {got} in the library, {want} in vq_lookup.py")
         _LIBS[name] = lib
     return lib
 
 
-def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int):
+def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int, d: int):
     """(plan, scratch elements of ``name``, of which the lookup's come
     first) at this shape, cached per device and shape, with the device's SM
     count cached once."""
-    key = (name, dev.index, b, n)
+    fast = name == "vq_nearest_fast"
+    key = (name, dev.index, b, n, d if fast else None)
     hit = _PLANS.get(key)
     if hit is None:
         sms = _SMS.get(dev.index)
         if sms is None:
             sms = _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = (plan_fast if name == "vq_nearest_fast" else plan_lookup)(b, n, sms)
-        hit = _PLANS[key] = (plan, getattr(lib, f"{name}_scratch_elems")(b, n, plan.splits),
-                             lib.vq_lookup_scratch_elems(b, n, plan.splits))
+        if fast:
+            plan = plan_fast(b, n, d, sms)
+            scratch = lib.vq_nearest_fast_scratch_elems(b, n, d, plan.splits)
+        else:
+            plan = plan_lookup(b, n, sms)
+            scratch = getattr(lib, f"{name}_scratch_elems")(b, n, plan.splits)
+        hit = _PLANS[key] = (plan, scratch, lib.vq_lookup_scratch_elems(b, n, plan.splits))
     return hit
 
 
@@ -295,7 +316,7 @@ def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
         raise ValueError(f"K1f takes D <= {FAST_MAX_D} (its z tile lives in shared "
                          f"memory), got D={d}")
     lib = _bind(name)
-    plan, scratch_elems, _ = _plan(lib, name, dev, b, n)
+    plan, scratch_elems, _ = _plan(lib, name, dev, b, n, d)
     _, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
     _launch(kernel, lib, name, dev,
             [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch],
@@ -361,7 +382,7 @@ def _vq_stats_launch(z_e: torch.Tensor, codebook: torch.Tensor):
     _check_inputs("K2", z_e, codebook)
     lib = _bind("vq_stats")
     (b, d), n, dev = z_e.shape, codebook.shape[0], z_e.device
-    plan, scratch_elems, lookup_elems = _plan(lib, "vq_stats", dev, b, n)
+    plan, scratch_elems, lookup_elems = _plan(lib, "vq_stats", dev, b, n, d)
     buf, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
     counts = torch.empty(n, dtype=torch.float32, device=dev)
     sums = torch.empty((n, d), dtype=torch.float32, device=dev)
@@ -378,9 +399,8 @@ def _vq_stats_launch(z_e: torch.Tensor, codebook: torch.Tensor):
 def vq_nearest_with_stats_cuda(z_e: torch.Tensor, codebook: torch.Tensor):
     """Kernel K2 on the card. z_e [B, D], codebook [N, D]: fp32, contiguous,
     on one CUDA device -> (ids [B] int32, counts [N] fp32, sums [N, D] fp32).
-    Raises on anything else, and from the launch for N > 49152 (the
-    histograms of the row sort live in shared memory). The stats are
-    deterministic: each sum adds its rows in ascending order.
+    Raises on anything else. The stats are deterministic: each sum adds its
+    rows in ascending order.
 
     ``vq_nearest_with_stats_cuda.launches`` counts the calls that launched
     the kernel.

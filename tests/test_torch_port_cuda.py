@@ -13,6 +13,7 @@ import torch
 
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
+    plan_fast,
     tie_gap,
     vq_cluster_stats,
     vq_nearest,
@@ -152,6 +153,11 @@ def test_k2_wrapper_checks_and_counts(cuda):
     assert ids.is_cuda and counts.shape == (8,) and sums.shape == (8, 3)
 
 
+def _dyadic(rng, shape):
+    """k/8 with |k| < 256: exact in bf16, every sum exact in fp32."""
+    return (np.round(np.clip(rng.standard_normal(shape) * 8, -255, 255)) / 8).astype(np.float32)
+
+
 # All three lookup configurations and their ragged edges. With the SM count
 # taken as 1 the plan picks MEDIUM up to 128 rows and LARGE from 129 on, with
 # one code split; with the card's own count, SMALL (up to 256 rows at
@@ -251,12 +257,79 @@ def test_k2_all_rows_on_one_code(cuda, b, d):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("n", [49153, 65536, 131075])
+def test_k2_beyond_one_histogram_range(cuda, n):
+    """N above the 49152 codes one shared histogram holds: the sort runs
+    over code ranges. Ids (bf16-exact operands, so both forms are exact and
+    ties go to the lowest index) and counts equal the plain version's, the
+    sums a sequential ascending fp32 sum, ``order`` a stable argsort."""
+    from lipvq_tpu_torch.ops.vq_lookup import _vq_stats_launch
+
+    rng = np.random.default_rng(4)
+    b, d = 3000, 8
+    z = torch.from_numpy(_dyadic(rng, (b, d))).to(cuda)
+    c = torch.from_numpy(_dyadic(rng, (n, d))).to(cuda)
+    # the last code of the last range is some row's nearest
+    c[n - 1] = z[7]
+    ids, counts, sums, order = _vq_stats_launch(z, c)
+    torch.cuda.synchronize()
+    want_ids, want_counts, _ = vq_nearest_with_stats_reference(z, c)
+    assert torch.equal(ids, want_ids) and torch.equal(counts, want_counts)
+    assert int(counts.sum()) == b and int(ids[7]) == n - 1  # beyond the first range
+    assert torch.equal(order.long(), torch.argsort(ids.long(), stable=True))
+    np.testing.assert_array_equal(sums.cpu().numpy(), _sequential_sums(z, ids, n))
+
+
+def test_ema_step_beyond_one_histogram_range_matches_the_cpu(cuda):
+    """One EMA-codebook train step of ``LipVQVAE`` at 65536 codes (two code
+    ranges of K2's sort): the training forward launches K2 once on the card,
+    and the step (forward, SGD on its loss, the EMA codebook written back)
+    agrees with the same step on the CPU, whose path is K2's plain version.
+    Each batch row's latent sits 1e-3 from its own code, so the ids are exact
+    on both devices and spread over both ranges."""
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+
+    codes, b, lr = 65536, 64, 0.5
+    rng = np.random.default_rng(7)
+    cpu = LipVQVAE(12, 8, num_codes=codes, ema_codebook=True)
+    seeded_init(cpu, torch.Generator().manual_seed(3))
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, 12)).astype(np.float32))
+    slots = torch.from_numpy(rng.permutation(codes)[:b])
+    with torch.no_grad():
+        cpu.to_latent.ci.fill_(30.0)
+        codebook = cpu.encode(torch.from_numpy(rng.uniform(-1, 1, (codes, 12)).astype(np.float32)))
+        codebook[slots] = cpu.encode(x) + torch.from_numpy(
+            rng.normal(0.0, 1e-3, (b, 8)).astype(np.float32))
+        cpu.quantizer.codebook.copy_(codebook)
+    card = LipVQVAE(12, 8, num_codes=codes, ema_codebook=True).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+
+    def step(model, xs):
+        _, loss, ids = model(xs, train=True)
+        model.zero_grad()
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p -= lr * p.grad
+        model.apply_ema_codebook()
+        return float(loss.detach()), ids.cpu()
+
+    before = vq_nearest_with_stats_cuda.launches
+    got_loss, got_ids = step(card, x.to(cuda))
+    assert vq_nearest_with_stats_cuda.launches == before + 1
+    want_loss, want_ids = step(cpu, x)
+    assert torch.equal(got_ids, want_ids)
+    assert torch.equal(got_ids.sort().values.long(), slots.sort().values)
+    assert int((got_ids >= 49152).sum()) > 0 and int((got_ids < 49152).sum()) > 0
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    want = cpu.state_dict()
+    for k, v in card.state_dict().items():
+        np.testing.assert_allclose(v.cpu().numpy(), want[k].numpy(), atol=2e-5, rtol=1e-5,
+                                   err_msg=k)
+
+
 # -- K1f: one bf16 pass on the tensor cores ----------------------------------
-
-def _dyadic(rng, shape):
-    """k/8 with |k| < 256: exact in bf16, every sum exact in fp32."""
-    return (np.round(np.clip(rng.standard_normal(shape) * 8, -255, 255)) / 8).astype(np.float32)
-
 
 @pytest.mark.parametrize("b,n,d", [(80, 128, 12), (300, 1024, 208), (70, 65, 791), (1, 1, 1),
                                    (129, 257, 33)])
@@ -288,6 +361,44 @@ def test_k1f_shapes_and_splits(cuda, plan_sms, b, n, d):
     assert int(got.min()) >= 0 and int(got.max()) < n
     gap, allowed = tie_gap(z, c, got, vq_nearest_fast_reference(z, c), bf16=True)
     assert bool((gap <= allowed).all())
+
+
+@pytest.mark.parametrize("d", [63, 65, 129, FAST_MAX_D])
+def test_k1f_widths_around_the_swizzle(cuda, plan_sms, d):
+    """D off a multiple of the 64-column swizzle width, and the largest D:
+    ids equal the plain version's on bf16-exact inputs and hold the
+    near-tie rule on Gaussian ones, in both configurations."""
+    rng = np.random.default_rng(5)
+    z = torch.from_numpy(_dyadic(rng, (300, d))).to(cuda)
+    c = torch.from_numpy(_dyadic(rng, (257, d))).to(cuda)
+    got = vq_nearest_cuda(z, c, precision="fast")
+    torch.cuda.synchronize()
+    assert torch.equal(got, vq_nearest_fast_reference(z, c))
+    z, c = _gauss(300, 257, d, cuda, seed=6)
+    got = vq_nearest_cuda(z, c, precision="fast")
+    gap, allowed = tie_gap(z, c, got, vq_nearest_fast_reference(z, c), bf16=True)
+    assert bool((gap <= allowed).all())
+
+
+@pytest.mark.parametrize("b,n,d,splits,lookup,copy", [
+    (1 << 20, 1024, 208, 1, 1024, 1024 * 256 // 2),  # corpus: Dp = 256, 0.52 MB
+    (160, 1024, 791, 64, 1024 + 2 * 10240, 1024 * 832 // 2),  # served: Dp = 832, 1.7 MB
+    (500, 1024, 791, 32, 1024 + 2 * 16000, 1024 * 832 // 2),  # train
+    (1, 1, 1, 1, 4, 64 // 2),
+    (70, 65, 64, 5, 68 + 2 * 352, 65 * 64 // 2),
+    (70, 65, 65, 5, 68 + 2 * 352, 65 * 128 // 2),
+])
+def test_k1f_scratch_holds_the_bf16_codebook_copy(cuda, b, n, d, splits, lookup, copy):
+    """K1f's scratch, in 4-byte elements, as the library states it: the
+    lookup's (cn [N] and, with splits, the partial distances and ids
+    [splits, B], each rounded up to 4), 32 to align the copy to 128 bytes,
+    then the bf16 copy [N, Dp] (2 to an element), Dp = D rounded up to 64."""
+    import lipvq_tpu_torch.ops.vq_lookup as vq_lookup
+
+    lib = vq_lookup._bind("vq_nearest_fast")
+    assert plan_fast(b, n, d, 132).splits == splits
+    assert lib.vq_lookup_scratch_elems(b, n, splits) == lookup
+    assert lib.vq_nearest_fast_scratch_elems(b, n, d, splits) == lookup + 32 + copy
 
 
 def test_k1f_wrapper_checks_and_counts(cuda):

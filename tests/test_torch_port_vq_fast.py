@@ -24,7 +24,10 @@ from lipvq_tpu.ops.vq_lookup import vq_nearest_pallas
 from lipvq_tpu_torch.ops import _build
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
-    FAST_TILE,
+    FAST_NARROW,
+    FAST_TILES,
+    FAST_WIDE,
+    FAST_WIDE_MAX_D,
     tie_gap,
     plan_fast,
     vq_nearest,
@@ -113,13 +116,29 @@ def test_fast_dispatch_on_cpu_and_wrapper_raises():
 @pytest.mark.parametrize("n", [1, 65, 128, 1024])
 @pytest.mark.parametrize("sms", [1, 132])
 def test_plan_fast_covers_every_code(b, n, sms):
-    plan = plan_fast(b, n, sms)
-    rows, codes = FAST_TILE
-    assert plan.config == 0 and plan.row_tiles == -(-b // rows)
-    assert plan.codes_per_split % codes == 0
-    assert plan.splits * plan.codes_per_split >= n > (plan.splits - 1) * plan.codes_per_split
-    if b <= 500 and n == 1024 and sms == 132:
-        assert plan.splits == 8  # small batches split the codes over the grid
+    for d in (1, 208, FAST_WIDE_MAX_D, FAST_WIDE_MAX_D + 1, 791, FAST_MAX_D):
+        plan = plan_fast(b, n, d, sms)
+        rows, codes = FAST_TILES[plan.config]
+        assert plan.row_tiles == -(-b // rows)
+        assert plan.codes_per_split % codes == 0
+        assert plan.splits * plan.codes_per_split >= n > (plan.splits - 1) * plan.codes_per_split
+        # WIDE only where its z tile fits and its tiles alone give every SM a CTA
+        wide_tiles = -(-b // FAST_TILES[FAST_WIDE][0]) * -(-n // FAST_TILES[FAST_WIDE][1])
+        assert (plan.config == FAST_WIDE) == (d <= FAST_WIDE_MAX_D and wide_tiles >= sms)
+        if b <= 500 and n == 1024 and sms == 132:
+            # small batches: NARROW's 16-code tiles split the codes finely
+            assert plan.config == FAST_NARROW and plan.splits >= 32
+
+
+@pytest.mark.parametrize("b", [160, 500])
+def test_plan_fast_fills_the_card_at_small_batches(b):
+    """The served (160) and train (500) batches give every one of 132 SMs a
+    CTA: 3 x 64 and 8 x 32 CTAs."""
+    plan = plan_fast(b, 1024, 791, 132)
+    assert plan.config == FAST_NARROW and plan.ctas >= 132
+    assert plan.ctas == {160: 192, 500: 256}[b]
+    # the corpus shape runs WIDE in one split of 4096 row tiles
+    assert plan_fast(1 << 20, 1024, 208, 132) == (FAST_WIDE, 4096, 1, 1024)
 
 
 def test_fast_source_builds_into_its_own_library():
@@ -127,4 +146,4 @@ def test_fast_source_builds_into_its_own_library():
     path = _build.library_path("vq_nearest_fast")
     assert path.name.startswith("libvq_nearest_fast-") and path != _build.library_path(
         "vq_nearest")
-    assert FAST_MAX_D >= 791
+    assert FAST_MAX_D >= 1632 and FAST_WIDE_MAX_D >= 208

@@ -27,8 +27,10 @@ all started together). Phases:
    K2 above one shared histogram's 49152 codes (B = 8192, D = 208, N = 49153, 65536, 131075):
    ids within K1's tie tolerance, counts exactly the plain stats of K2's own
    ids, sums within the bound and, at N = 65536, bit-equal to a sequential
-   ascending sum. K1f (one bf16 pass on the tensor cores, wgmma fed by a TMA
-   ring): exact ids on bf16-exact fixtures (both configurations, D off the
+   ascending sum. The skewed and the wide K2 cases are timed beside their
+   plain versions and addmm + argmin + bincount + index_add_. K1f (one bf16
+   pass on the tensor cores, wgmma fed by a TMA ring): exact ids on
+   bf16-exact fixtures (both configurations, D off the
    64-column swizzle and the largest D); at the three shapes ids may differ
    from its plain version only on near-ties of the fp32 expand form over
    bf16 operands (``tie_gap`` in ops/vq_lookup.py states the bound),
@@ -83,13 +85,28 @@ all started together). Phases:
    from the export must equal the ids, and K1f's ids must hold against its
    plain version; printed: rows per second of each run, the share of ids
    K1f changes, the device busy time and idle share of one tokenization.
-7. Arms: the other arms of the paper's tokenizer ablation at full width
+7. Tokenizers (``tokenizers_phase``), on phase 6's export:
+   ``scripts/tokenizer_sweep.main`` at its defaults (256, 1024 and 4096
+   codes, latent 64, batch 512, 300 steps, the loss and then the EMA
+   codebook), each setting's launches asserted ((302, 0, 0) with the loss
+   codebook, (2, 0, 300) with the EMA one) and its four metrics printed;
+   ``VQVAE`` at B = 500, latent 791, 128 and 1024 codes (one K1 launch per
+   forward + backward, ids within phase 2's tie rule, loss the CPU's within
+   rtol 1e-5); ``LFQVAE``, ``SpectralLFQVAE`` and ``LSTMVQVAE`` at B = 500,
+   latent 791, and the CLIP text tower at ViT-L/14 text width on 64 seeded
+   id rows, each fp32 on the card held against the CPU.
+8. Arms: the other arms of the paper's tokenizer ablation at full width
    (``arms_phase``): bin, ln_act and raw on the GPT backbone, ln_act and
    LipVQ on icl_mamba, each serving 8 requests of 16 envs and taking 10
    train steps (K1 once per request and step for LipVQ only), its fp32
    forward on the card held against the CPU, and one fp32 step of the bin
-   and the raw arm held against the CPU step by ``hold_step``.
-8. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+   and the raw arm held against the CPU step by ``hold_step``. Then FAST
+   (``fast_arm``): 10 train steps (the BPE refits on the first 8), 8
+   requests with a processed context, no launches, the host time of the
+   feature pipeline per step, refitting and frozen steps apart, and the
+   request time with a processed and with a raw context; its fp32 forward
+   and one fp32 step held against the CPU.
+9. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -277,6 +294,25 @@ def check_ids(z, c, got, want) -> tuple[int, float]:
     return bad.numel(), float(gap.max())
 
 
+def hold_stats(z, ids, counts, sums, where: str) -> float:
+    """K2's counts exactly the plain stats of its own ids (summing to the
+    rows), its sums within the summation bound of ``where``'s plain stats:
+    1e-5 + 1e-5 |sum| + 4 u count sum|z|. Returns the sums' largest error."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_cluster_stats
+
+    n = counts.shape[0]
+    want_counts, want_sums = vq_cluster_stats(z, ids, n)
+    _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
+    if not torch.equal(counts, want_counts) or float(counts.sum()) != z.shape[0]:
+        raise AssertionError(f"K2 counts differ from the plain stats {where}")
+    err = (sums - want_sums).abs()
+    allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
+    if (err > allowed).any():
+        raise AssertionError(f"K2 sums exceed the summation bound on "
+                             f"{int((err > allowed).sum())} entries {where}")
+    return float(err.max())
+
+
 def kernel_phase(card: str) -> dict:
     from lipvq_tpu_torch.ops.vq_lookup import (
         vq_nearest_cuda,
@@ -346,7 +382,6 @@ def stats_phase(card: str) -> dict:
     """K2 against its plain version on the fixtures, then at the train
     step's and the corpus shape with times."""
     from lipvq_tpu_torch.ops.vq_lookup import (
-        vq_cluster_stats,
         vq_nearest_with_stats_cuda,
         vq_nearest_with_stats_reference,
     )
@@ -385,16 +420,7 @@ def stats_phase(card: str) -> dict:
         if not all(torch.equal(x, y) for x, y in zip((ids, counts, sums), again)):
             raise AssertionError(f"K2 is not deterministic at {label}")
         mismatches, max_gap = check_ids(z, c, ids, vq_nearest_with_stats_reference(z, c)[0])
-        want_counts, want_sums = vq_cluster_stats(z, ids, n)
-        _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
-        if not torch.equal(counts, want_counts):
-            raise AssertionError(f"K2 counts differ from the plain stats at {label}")
-        err = (sums - want_sums).abs()
-        allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
-        if (err > allowed).any():
-            raise AssertionError(f"K2 sums exceed the summation bound on "
-                                 f"{int((err > allowed).sum())} entries at {label}")
-        max_err = float(err.max())
+        max_err = hold_stats(z, ids, counts, sums, f"at {label}")
 
         def library():
             lib_ids = torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1)
@@ -418,7 +444,7 @@ def stats_phase(card: str) -> dict:
               f"call (device busy {device_ms} ms, by stage {stage_ms(kernels)}: {kernels}), "
               f"plain {plain_ms:.4f} ms, addmm+argmin+bincount+index_add_ "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
-        del z, c, ids, counts, sums, again, want_counts, want_sums, abs_sums, err, allowed
+        del z, c, ids, counts, sums, again
     torch.cuda.empty_cache()
     results["skewed"] = skewed_stats(card, gen)
     results["wide"] = wide_stats(card, gen)
@@ -433,9 +459,9 @@ def wide_stats(card: str, gen) -> dict:
     to a sequential ascending fp32 sum (numpy's unbuffered add.at); device
     times."""
     from lipvq_tpu_torch.ops.vq_lookup import (
-        vq_cluster_stats,
         vq_nearest_reference,
         vq_nearest_with_stats_cuda,
+        vq_nearest_with_stats_reference,
     )
 
     b, d = K2_WIDE_SHAPE
@@ -446,15 +472,7 @@ def wide_stats(card: str, gen) -> dict:
         c = torch.randn(n, d, generator=gen, device=dev)
         ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
         mismatches, max_gap = check_ids(z, c, ids, vq_nearest_reference(z, c))
-        want_counts, want_sums = vq_cluster_stats(z, ids, n)
-        _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
-        if not torch.equal(counts, want_counts) or float(counts.sum()) != b:
-            raise AssertionError(f"K2 counts differ from the plain stats at N = {n}")
-        err = (sums - want_sums).abs()
-        allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
-        if (err > allowed).any():
-            raise AssertionError(f"K2 sums exceed the summation bound on "
-                                 f"{int((err > allowed).sum())} entries at N = {n}")
+        max_err = hold_stats(z, ids, counts, sums, f"at N = {n}")
         bitwise = None
         if n == 65536:
             sequential = np.zeros((n, d), np.float32)
@@ -462,29 +480,41 @@ def wide_stats(card: str, gen) -> dict:
             bitwise = bool(np.array_equal(sums.cpu().numpy(), sequential))
             if not bitwise:
                 raise AssertionError("K2 sums at N = 65536 are not the sequential ascending sum")
+        def library():
+            lib_ids = torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1)
+            torch.bincount(lib_ids, minlength=n)
+            torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
+
         ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 10)
+        plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 2)
+        library_ms = cuda_ms(library, 5)
         device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), 5)
         bound_ms, bound_by = stats_bound(b, n, d)
         stages = stage_ms(kernels)
         results[n] = {"shape": [b, n, d], "mismatches": mismatches, "max_id_gap": max_gap,
-                      "max_abs_err": float(err.max()), "sums_bit_equal": bitwise, "ms": ms,
+                      "max_abs_err": max_err, "sums_bit_equal": bitwise, "ms": ms,
                       "device_ms": device_ms, "stage_ms": stages, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "codes_used": int((counts > 0).sum())}
+                      "bound_by": bound_by, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "codes_used": int((counts > 0).sum())}
         print(f"K2 {b}x{n}x{d} (code ranges of 49152): {mismatches} rows differ within the tie "
               f"tolerance (max fp64 gap {max_gap:.3g}); counts equal; sums max abs err "
-              f"{float(err.max()):.3g}" + ("" if bitwise is None else
+              f"{max_err:.3g}" + ("" if bitwise is None else
                                            ", bit-equal to a sequential ascending fp32 sum")
               + f"; {int((counts > 0).sum())} codes used; K2 {ms:.4f} ms per call (device "
-              f"busy {device_ms} ms, by stage {stages}), bound {bound_ms:.4f} ms ({bound_by}) "
-              f"[{card}]")
-        del z, c, ids, counts, sums, want_counts, want_sums, abs_sums, err, allowed
+              f"busy {device_ms} ms, by stage {stages}), plain {plain_ms:.3f} ms, "
+              f"addmm+argmin+bincount+index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}) [{card}]")
+        del z, c, ids, counts, sums
         torch.cuda.empty_cache()
     return results
 
 
 def skewed_stats(card: str, gen) -> dict:
     """K2 at the corpus shape with every row on code 0, as at random init."""
-    from lipvq_tpu_torch.ops.vq_lookup import vq_cluster_stats, vq_nearest_with_stats_cuda
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest_with_stats_cuda,
+        vq_nearest_with_stats_reference,
+    )
 
     b, n, d = CORPUS_SHAPE
     dev = torch.device("cuda")
@@ -498,15 +528,7 @@ def skewed_stats(card: str, gen) -> dict:
     if int(ids.abs().sum()) != 0 or float(counts[0]) != b or float(counts.sum()) != b:
         raise AssertionError(f"skewed K2: {int((ids != 0).sum())} rows off code 0, "
                              f"counts[0] = {float(counts[0])}")
-    want_counts, want_sums = vq_cluster_stats(z, ids, n)
-    _, abs_sums = vq_cluster_stats(z.abs(), ids, n)
-    if not torch.equal(counts, want_counts):
-        raise AssertionError("skewed K2 counts differ from the plain stats")
-    err = (sums - want_sums).abs()
-    allowed = 1e-5 + 1e-5 * want_sums.abs() + 4 * FP32_U * counts[:, None] * abs_sums
-    if (err > allowed).any():
-        raise AssertionError(f"skewed K2 sums exceed the summation bound on "
-                             f"{int((err > allowed).sum())} entries")
+    max_err = hold_stats(z, ids, counts, sums, "in the skewed case")
     sequential = torch.from_numpy(np.cumsum(z.cpu().numpy(), axis=0, dtype=np.float32)[-1])
     if not (torch.equal(sums[0].cpu(), sequential) and int(sums[1:].abs().sum()) == 0):
         raise AssertionError("skewed K2 sums are not the sequential ascending fp32 sum")
@@ -520,20 +542,23 @@ def skewed_stats(card: str, gen) -> dict:
         torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
 
     library_ms = cuda_ms(library, 5)
+    plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 2)
     bound_ms, bound_by = stats_bound(b, n, d)
     # not part of the bound: the port's bit-equal sums make code 0's sum a
     # chain of B dependent fp32 adds per column (~4 cycles each), a floor of
     # its own design that the one-hot product of the TPU kernel does not have
     chain_ms = 4 * b / SM_CLOCK_HZ * 1e3
     print(f"K2 skewed {b}x{n}x{d} (all rows on code 0): counts exact, sums bit-equal to a "
-          f"sequential fp32 sum (plain one-hot product within {float(err.max()):.3g}), two "
+          f"sequential fp32 sum (plain one-hot product within {max_err:.3g}), two "
           f"calls bit-identical; K2 {ms:.4f} ms per call (device busy {device_ms} ms, by "
-          f"stage {stages}: {kernels}), addmm+argmin+bincount+index_add_ {library_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms ({bound_by}); the sequential sums' floor, a chain of "
+          f"stage {stages}: {kernels}), plain {plain_ms:.3f} ms, addmm+argmin+bincount+"
+          f"index_add_ {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
+          f"sequential sums' floor, a chain of "
           f"{b} dependent adds, {chain_ms:.3f} ms at {SM_CLOCK_HZ / 1e6:.0f} MHz [{card}]")
-    return {"shape": [b, n, d], "max_abs_err": float(err.max()), "ms": ms,
+    return {"shape": [b, n, d], "max_abs_err": max_err, "ms": ms,
             "device_ms": device_ms, "stage_ms": stages, "kernel_ms": kernels,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def fast_bound(b: int, n: int, d: int) -> tuple[float, str]:
@@ -643,7 +668,8 @@ def fast_phase(card: str) -> dict:
 ARM_SWITCHES = {"vq": {"vq_vae_enabled": True, "ln_act_enabled": False},
                 "bin": {"bin_enabled": True, "ln_act_enabled": False},
                 "ln_act": {"ln_act_enabled": True},
-                "raw": {"ln_act_enabled": False}}
+                "raw": {"ln_act_enabled": False},
+                "fast": {"fast_enabled": True, "ln_act_enabled": False}}
 
 
 def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None,
@@ -1214,22 +1240,204 @@ def arms_phase(card: str) -> dict:
             del card_algo, cpu_algo
         del algo, algo32, algo_cpu, policy, net, tok, batch
         torch.cuda.empty_cache()
+    results["icl/fast"] = fast_arm(card, items)
     return results
+
+
+def fast_arm(card: str, items) -> dict:
+    """The FAST arm at full width: the context actions' DCT + BPE token
+    strings, embedded by the hash LangEncoder, reach the GPT as 512-wide
+    host features. A user trains before serving (the fit refits on each of
+    the first 8 batches and then freezes), so the arm takes its 10 train
+    steps first, then serves 8 requests of 16 envs with a context processed
+    by ``process_batch_for_training`` (its ``ctx_act_feat`` kept on the
+    card); no kernel launches. Printed: the host time of the feature
+    pipeline per step, the refitting and the frozen steps apart; the step
+    time; the request time with the processed context and with a raw one,
+    whose features ``get_action`` recomputes on every request. The fp32
+    forward on the card is held against the CPU on the same features, and
+    one fp32 step by ``hold_step`` on a batch the trained (frozen)
+    tokenizer processed."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.models.obs_nets import FAST_FEAT_DIM
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+    from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+    from lipvq_tpu_torch.utils.train_utils import run_epoch
+
+    label = "icl/fast"
+    algo = algo_factory("icl", icl_config(train={"ema": False, "dropout": 0.1, "warmup": 10},
+                                          arm="fast"), OBS_SHAPES, ac_dim=AC_DIM)
+    net = algo.nets.net
+    assert algo.device.type == "cuda" and algo.fast_enabled and net.encoder.arm == "fast"
+    assert net.embed_dim == 512 and net.transformer.num_layers == 6
+    assert net.encoder.fast_proj_0.weight.shape == (64, FAST_FEAT_DIM)
+    assert net.encoder.output_dim == sum(s[0] for s in OBS_SHAPES.values()) == 791
+
+    # the host feature pipeline, timed per call: (ms, refit in that call)
+    pipeline = []
+    features = algo._fast_features
+
+    def timed(actions):
+        refit = not algo._fast_frozen
+        t0 = time.perf_counter()
+        out = features(actions)
+        pipeline.append(((time.perf_counter() - t0) * 1e3, refit))
+        return out
+
+    algo._fast_features = timed
+    loader = DataLoader(items, BATCH, seed=5)
+    rng = np.random.default_rng(15)
+    t = algo.context_length
+    context_item = SequenceItems(1, seed=18).items[0]
+    requests = [random_obs(rng, (N_ENVS, t)) for _ in range(ARM_REQUESTS)]
+    policy = ICLRolloutPolicy(algo)
+
+    # the main path: 10 train steps, then 8 served requests, each counted
+    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+    vq_nearest_with_stats_cuda.launches = 0
+    t0 = time.perf_counter()
+    log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    train_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                    vq_nearest_with_stats_cuda.launches)
+    steps_pipeline = list(pipeline)
+    context = algo.process_batch_for_training(stack_collate([context_item]))
+    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+    vq_nearest_with_stats_cuda.launches = 0
+    served = [policy.batched(o, context) for o in requests]
+    serve_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                    vq_nearest_with_stats_cuda.launches)
+    if serve_counts != (0, 0, 0) or train_counts != (0, 0, 0):
+        raise AssertionError(f"{label}: launches (K1, K1f, K2) {serve_counts} serving "
+                             f"{ARM_REQUESTS} requests, {train_counts} in {ARM_STEPS} steps")
+    refits = [ms for ms, refit in steps_pipeline if refit]
+    frozen = [ms for ms, refit in steps_pipeline if not refit]
+    if len(steps_pipeline) != ARM_STEPS or len(refits) != 8 or not algo._fast_frozen:
+        raise AssertionError(f"{label}: {len(steps_pipeline)} feature computations in "
+                             f"{ARM_STEPS} steps, {len(refits)} refits, frozen "
+                             f"{algo._fast_frozen}; want 10, 8, True")
+    if len(pipeline) != ARM_STEPS + 1:  # + the context: requests reuse its features
+        raise AssertionError(f"{label}: the served requests recomputed the features")
+    if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
+        raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
+    if not all(np.isfinite(v) for v in log.values()):
+        raise AssertionError(f"{label}: non-finite step log {log}")
+    feat = context["ctx_act_feat"]
+    if feat.shape != (1, t, FAST_FEAT_DIM) or feat.dtype != np.float32:
+        raise AssertionError(f"{label}: context features {feat.shape} {feat.dtype}")
+
+    # fp32 on the card against the CPU, the same weights and features
+    algo32 = algo_factory("icl", icl_config("float32", arm="fast"), OBS_SHAPES, ac_dim=AC_DIM)
+    algo_cpu = algo_factory("icl", icl_config("float32", arm="fast"), OBS_SHAPES,
+                            ac_dim=AC_DIM, device="cpu")
+    inputs = (requests[-1], {k: np.repeat(v, N_ENVS, 0) for k, v in context["obs"].items()},
+              np.repeat(feat, N_ENVS, 0))
+    outs = []
+    with torch.inference_mode():
+        for a in (algo32, algo_cpu):
+            outs.append([x.float().cpu().numpy() for x in a.nets.forward_train(
+                *(a._put_infer(x) for x in inputs), low_noise_eval=False)[0]])
+    for field, got, want in zip(("means", "scales", "logits"), *outs):
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4,
+                                   err_msg=f"{label} fp32 {field}")
+    fwd_err = max(float(np.abs(g - w).max()) for g, w in zip(*outs))
+    del algo32, algo_cpu
+
+    raw_context = {"obs": context["obs"], "actions": context["actions"]}
+    request_ms = host_ms(lambda: policy.batched(requests[0], context), reps=10)
+    raw_request_ms = host_ms(lambda: policy.batched(requests[0], raw_context), reps=10)
+    raw_pipeline = [ms for ms, _ in pipeline[ARM_STEPS + 1:]]
+    request_busy, _ = profile_device(lambda: policy.batched(requests[0], context), 5)
+    batch = algo.process_batch_for_training(next(iter(loader)))
+
+    def step():
+        algo.train_on_batch(batch, 1)
+        torch.cuda.synchronize()
+
+    step_ms = host_ms(step, reps=5)
+    step_busy, kernels = profile_device(lambda: algo.train_on_batch(batch, 1), 3)
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+    per_step = {k: v * 60e3 / ARM_STEPS for k, v in log.items() if k.startswith("Time_")}
+
+    def make(device=None):
+        return algo_factory("icl", icl_config("float32", {"ema": False, "dropout": 0.0,
+                                                          "warmup": 0}, arm="fast"),
+                            OBS_SHAPES, ac_dim=AC_DIM, device=device)
+
+    card_algo, cpu_algo = make(), make("cpu")
+    pbatch = algo.process_batch_for_training(next(iter(DataLoader(items, BATCH, seed=7))))
+    losses, worst = hold_step(card_algo, cpu_algo, pbatch)
+    del card_algo, cpu_algo
+    r = {"serve_launches": serve_counts, "train_launches": train_counts, "log": log,
+         "fp32_forward_max_abs_err": fwd_err, "request_ms": request_ms,
+         "raw_context_request_ms": raw_request_ms,
+         "raw_context_pipeline_ms": statistics.median(raw_pipeline),
+         "request_busy_ms": request_busy,
+         "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
+         "step_ms": step_ms, "step_busy_ms": step_busy,
+         "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+         "step_top_ops_ms": top, "pipeline_refit_ms": refits, "pipeline_frozen_ms": frozen,
+         "epoch_s": epoch_s, "time_ms_per_step": per_step,
+         "vocab_size": int(algo._fast_tok.bpe.vocab_size),
+         "train_parity": {"losses": losses, "worst": worst}}
+    print(f"arm {label}: {ARM_STEPS} steps of batch {BATCH}, then {ARM_REQUESTS} requests of "
+          f"{N_ENVS} envs, launches (K1, K1f, K2) {train_counts} / {serve_counts}; Loss "
+          f"{log['Loss']:.4f}; BPE vocabulary {r['vocab_size']}; fp32 card == CPU within rtol "
+          f"1e-3 / atol 1e-4 (max abs {fwd_err:.3g}); step {step_ms:.3f} ms (device busy "
+          f"{step_busy} ms, idle share {r['step_idle_share']}), top {top} [{card}]")
+    print(f"arm {label} host feature pipeline per step (ms): refitting steps "
+          f"{[round(x, 1) for x in refits]}, frozen steps {[round(x, 2) for x in frozen]}; "
+          f"the epoch of {ARM_STEPS} steps {epoch_s:.1f} s, Time_* per step "
+          f"{ {k: round(v, 2) for k, v in per_step.items()} } ms; request {request_ms:.3f} ms "
+          f"with the processed context (device busy {request_busy} ms, idle share "
+          f"{r['request_idle_share']}), {raw_request_ms:.3f} ms with a raw context (its "
+          f"pipeline {r['raw_context_pipeline_ms']:.3f} ms per request) [{card}]")
+    print(f"arm {label} train parity: one fp32 step on the card == the CPU step (hold_step); "
+          f"losses {losses}; worst {worst}")
+    del algo, policy, net, batch, pbatch
+    torch.cuda.empty_cache()
+    return r
 
 
 CORPUS_DEMOS, CORPUS_DEMO_LEN = 1024, 1024  # 2^20 action rows of 12
 CORPUS_CHUNK = 1 << 16  # tokenize_array's default chunk: one lookup per chunk
 
 
-def corpus_phase(card: str) -> dict:
-    """scripts/tokenize_corpus on a seeded export of 2^20 action rows at
-    full width (latent 208, 1024 codes), the tokenizer from a state_dict
-    file: a dry run and a writing run with K1, a dry run with K1f; launches
-    counted, the ids held against the plain tokenize on the card, the
-    written tokens read back, and K1f's ids against K1's."""
+def write_corpus_export(tmp: str) -> tuple[str, np.ndarray, float]:
+    """A seeded export of 2^20 action rows (1024 demos x 1024 steps of
+    smooth trajectories) under ``tmp``: (its root, the actions [demos,
+    steps, 12], seconds to write)."""
+    from lipvq_tpu_torch.data.export import ExportWriter
+
+    rows = CORPUS_DEMOS * CORPUS_DEMO_LEN
+    assert rows == CORPUS_SHAPE[0]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    t = np.arange(CORPUS_DEMO_LEN, dtype=np.float32)[None, :, None]
+    phase = rng.uniform(0, 2 * np.pi, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
+    freq = rng.uniform(0.05, 0.2, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
+    actions = (0.8 * np.sin(freq * t + phase)).astype(np.float32)  # smooth trajectories
+    writer = ExportWriter(os.path.join(tmp, "corpus"))
+    for i in range(CORPUS_DEMOS):
+        writer.add_demo(f"demo_{i}", {"num_samples": CORPUS_DEMO_LEN}, {"actions": actions[i]})
+    root = writer.finish({"total": rows, "env_args": json.dumps(
+        {"env_name": "SyntheticKitchen", "type": 1, "env_kwargs": {}})}, {})
+    return root, actions, time.perf_counter() - t0
+
+
+def corpus_phase(card: str, root: str, actions: np.ndarray, export_s: float) -> dict:
+    """scripts/tokenize_corpus on the seeded export of 2^20 action rows at
+    ``root`` (``actions``) at full width (latent 208, 1024 codes), the
+    tokenizer from a state_dict file: a dry run and a writing run with K1, a
+    dry run with K1f; launches counted, the ids held against the plain
+    tokenize on the card, the written tokens read back, and K1f's ids
+    against K1's."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lipvq_tpu_torch.data.export import Export, ExportWriter
+    from lipvq_tpu_torch.data.export import Export
     from lipvq_tpu_torch.models.base_nets import seeded_init
     from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
     from lipvq_tpu_torch.ops.vq_lookup import (
@@ -1242,23 +1450,9 @@ def corpus_phase(card: str) -> dict:
     from lipvq_tpu_torch.scripts import tokenize_corpus
 
     latent, codes = CORPUS_SHAPE[2], CORPUS_SHAPE[1]
-    rows = CORPUS_DEMOS * CORPUS_DEMO_LEN
-    assert rows == CORPUS_SHAPE[0]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
-        t0 = time.perf_counter()
-        rng = np.random.default_rng(12)
-        t = np.arange(CORPUS_DEMO_LEN, dtype=np.float32)[None, :, None]
-        phase = rng.uniform(0, 2 * np.pi, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
-        freq = rng.uniform(0.05, 0.2, (CORPUS_DEMOS, 1, AC_DIM)).astype(np.float32)
-        actions = (0.8 * np.sin(freq * t + phase)).astype(np.float32)  # smooth trajectories
-        writer = ExportWriter(os.path.join(tmp, "corpus"))
-        for i in range(CORPUS_DEMOS):
-            writer.add_demo(f"demo_{i}", {"num_samples": CORPUS_DEMO_LEN},
-                            {"actions": actions[i]})
-        root = writer.finish({"total": rows, "env_args": json.dumps(
-            {"env_name": "SyntheticKitchen", "type": 1, "env_kwargs": {}})}, {})
-        export_s = time.perf_counter() - t0
-
+    rows = CORPUS_SHAPE[0]
+    rng = np.random.default_rng(14)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tokenizer_") as tmp:
         # the tokenizer file: a seeded init with its Lipschitz bound raised
         # to 30 and its codebook set to the latents of seeded actions, so
         # the ids spread over the codes as a trained tokenizer's do
@@ -1363,6 +1557,266 @@ def corpus_phase(card: str) -> dict:
             "fast_exceptions": fast_exceptions, "wall_ms": wall_ms,
             "device_busy_ms": busy_ms, "idle_share": idle, "top_ops_ms": top,
             "export_s": export_s}
+
+
+# scripts/tokenizer_sweep.py's defaults: 256 / 1024 / 4096 codes, latent 64,
+# batch 512, 300 steps per setting
+SWEEP_STEPS, SWEEP_CODES, SWEEP_LATENT, SWEEP_BATCH = 300, (256, 1024, 4096), 64, 512
+VQVAE_ROWS, TOKENIZER_LATENT = 500, 791  # 50 context windows of 10, the flagship latent
+CLIP_ROWS = 64
+
+
+def sweep_kernels(card: str) -> dict:
+    """K1 and K2 at the sweep's shapes against their plain versions, on
+    seeded Gaussian latents that spread over the codes (the sweep's own
+    latents fall on one code of this corpus). For each codebook size, latent
+    64: K1 at the training batch (512 rows), the eval rows (2^15) and the
+    whole corpus (2^20 rows), its ids within the near-tie bound of the plain
+    lookup and spread over the codes; K2 at the training batch, its ids the
+    same, its counts exactly the plain stats of its ids, its sums within the
+    summation bound. These launches are checks, counted on no path."""
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest_cuda,
+        vq_nearest_reference,
+        vq_nearest_with_stats_cuda,
+    )
+    from lipvq_tpu_torch.scripts.tokenizer_sweep import EVAL_ROWS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    k1_rows = {"train": SWEEP_BATCH, "eval": EVAL_ROWS, "tokenize": CORPUS_SHAPE[0]}
+    results = {}
+    for n in SWEEP_CODES:
+        c = torch.randn(n, SWEEP_LATENT, generator=gen, device=dev)
+        z_all = torch.randn(CORPUS_SHAPE[0], SWEEP_LATENT, generator=gen, device=dev)
+        r = {}
+        for label, rows in k1_rows.items():
+            z = z_all[:rows]
+            ids = vq_nearest_cuda(z, c)
+            mismatches, max_gap, _ = check_near_ties(z, c, ids, vq_nearest_reference(z, c),
+                                                     bf16=False)
+            used = int(torch.unique(ids).numel())
+            if used < min(rows, n) // 4:
+                raise AssertionError(f"K1 at {rows}x{n}x{SWEEP_LATENT}: ids on {used} codes")
+            r[f"k1_{label}"] = {"shape": [rows, n, SWEEP_LATENT], "mismatches": mismatches,
+                                "max_id_gap": max_gap, "codes_used": used,
+                                "ms": cuda_ms(lambda: vq_nearest_cuda(z, c), 5)}
+        z = z_all[:SWEEP_BATCH]
+        ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
+        mismatches, max_gap, _ = check_near_ties(z, c, ids, vq_nearest_reference(z, c),
+                                                 bf16=False)
+        max_err = hold_stats(z, ids, counts, sums, f"at {SWEEP_BATCH}x{n}x{SWEEP_LATENT}")
+        r["k2_train"] = {"shape": [SWEEP_BATCH, n, SWEEP_LATENT], "mismatches": mismatches,
+                         "max_id_gap": max_gap, "max_abs_err": max_err,
+                         "codes_used": int((counts > 0).sum()),
+                         "ms": cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 5)}
+        results[n] = r
+        print(f"sweep shapes, {n} codes x {SWEEP_LATENT}: K1 at "
+              + ", ".join(f"{v['shape'][0]} rows {v['mismatches']} ids off the plain lookup "
+                          f"(near-ties), {v['codes_used']} codes used, {v['ms']:.4f} ms"
+                          for k, v in r.items() if k.startswith("k1"))
+              + f"; K2 at {SWEEP_BATCH} rows {r['k2_train']['mismatches']} ids off (near-ties), "
+              f"counts exact, sums max abs err {max_err:.3g}, "
+              f"{r['k2_train']['codes_used']} codes used, {r['k2_train']['ms']:.4f} ms [{card}]")
+        del c, z_all, z, ids, counts, sums
+    torch.cuda.empty_cache()
+    return results
+
+
+def tokenizers_phase(card: str, root: str) -> dict:
+    """The rest of the tokenizer ablation at full size. (a) The sweep,
+    ``scripts/tokenizer_sweep.main`` at its defaults on the corpus phase's
+    export of 2^20 rows, each setting counted: a loss-codebook step launches
+    K1 once and an EMA-codebook step K2 once, and the eval forward and the
+    tokenization of the whole corpus K1 once each, so a setting launches
+    (300 + 2, 0, 0) with the loss codebook and (2, 0, 300) with the EMA one;
+    then K1 and K2 held against their plain versions at those shapes
+    (``sweep_kernels``). (b) ``VQVAE`` at B = 500, latent 791, 128 and 1024 codes: a forward and
+    a backward launch K1 once; the ids equal the plain lookup's but for
+    near-ties (phase 2's rule) and the fp32 loss is the CPU's within rtol
+    1e-5. (c) ``LFQVAE``, ``SpectralLFQVAE`` and ``LSTMVQVAE`` at B = 500
+    (50 windows of 10), latent 791: the fp32 latents and loss on the card
+    within rtol 1e-4 / atol 1e-5 of the CPU's, no launches. (d) The CLIP text
+    tower at ViT-L/14 text width (12 layers x 768, 77 positions, vocab
+    49408) from a seeded init, put on the card by a ``LangEncoder`` given no
+    device, which embeds 64 strings tokenized to seeded id rows ending in
+    EOS: within rtol 1e-4 / atol 1e-5 of the tower on the CPU in fp32."""
+    from lipvq_tpu_torch.models import clip_text
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.tokenizers import vqvae
+    from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest_cuda,
+        vq_nearest_reference,
+        vq_nearest_with_stats_cuda,
+    )
+    from lipvq_tpu_torch.scripts import tokenizer_sweep
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+
+    dev = torch.device("cuda")
+
+    def reset():
+        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+        vq_nearest_with_stats_cuda.launches = 0
+
+    def counts():
+        return (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+                vq_nearest_with_stats_cuda.launches)
+
+    # (a) the sweep, each setting counted
+    sweep, launches = [], []
+    setting = tokenizer_sweep.train_tokenizer
+
+    def counted(*args, **kwargs):
+        reset()
+        t0 = time.perf_counter()
+        r = setting(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches.append(counts())
+        sweep.append({**r, "launches": counts(), "seconds": time.perf_counter() - t0})
+        return r
+
+    out = io.StringIO()
+    tokenizer_sweep.train_tokenizer = counted
+    try:
+        with contextlib.redirect_stdout(out):
+            results = tokenizer_sweep.main(["--dataset", root])
+    finally:
+        tokenizer_sweep.train_tokenizer = setting
+    printed = out.getvalue().splitlines()
+    if printed[0] != f"corpus: {CORPUS_SHAPE[0]} chunks x {AC_DIM} dims" or [
+            json.loads(line) for line in printed[1:]] != results:
+        raise AssertionError(f"tokenizer_sweep printed {printed[:3]}")
+    ran = [(r["num_codes"], r["codebook_update"]) for r in results]
+    if ran != [(n, ema) for n in SWEEP_CODES for ema in ("loss", "ema")]:
+        raise AssertionError(f"tokenizer_sweep ran {ran}")
+    for r in sweep:
+        expect = (SWEEP_STEPS + 2, 0, 0) if r["codebook_update"] == "loss" else (
+            2, 0, SWEEP_STEPS)
+        if r["launches"] != expect:
+            raise AssertionError(f"sweep {r['num_codes']} {r['codebook_update']}: launches "
+                                 f"(K1, K1f, K2) {r['launches']}, want {expect}")
+        metrics = [r[k] for k in ("final_train_loss", "recon_mse", "codebook_utilization",
+                                  "tokenize_chunks_per_sec")]
+        if not all(np.isfinite(metrics)) or not 0 < r["codebook_utilization"] <= 1:
+            raise AssertionError(f"sweep: metrics {r}")
+        print(f"sweep {r['num_codes']} codes, {r['codebook_update']} codebook: launches (K1, "
+              f"K1f, K2) {r['launches']}; final_train_loss {r['final_train_loss']:.5f}, "
+              f"recon_mse {r['recon_mse']:.5f}, codebook_utilization "
+              f"{r['codebook_utilization']:.4f}, tokenize {r['tokenize_chunks_per_sec']:.4g} "
+              f"rows/s; {r['seconds']:.1f} s for the setting [{card}]")
+    shapes = sweep_kernels(card)
+
+    # (b) VQVAE: one K1 launch per forward + backward
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal((VQVAE_ROWS, AC_DIM), dtype=np.float32))
+    vq = {}
+    for codes in (128, 1024):
+        cpu = seeded_init(vqvae.VQVAE(AC_DIM, TOKENIZER_LATENT, num_embeddings=codes),
+                          torch.Generator().manual_seed(21))
+        with torch.no_grad():  # codes at latents of other inputs, so the ids spread
+            cpu.embedding.copy_(cpu.encode(torch.from_numpy(
+                rng.standard_normal((codes, AC_DIM), dtype=np.float32))))
+        card_model = vqvae.VQVAE(AC_DIM, TOKENIZER_LATENT, num_embeddings=codes).to(dev)
+        card_model.load_state_dict(cpu.state_dict())
+        xc = x.to(dev)
+        reset()
+        _, loss, ids = card_model(xc)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = counts()
+        if got != (1, 0, 0):
+            raise AssertionError(f"VQVAE {codes} codes: launches (K1, K1f, K2) {got}")
+        with torch.no_grad():
+            z_e = card_model.encode(xc)
+            mismatches, max_gap = check_ids(z_e, card_model.embedding, ids,
+                                            vq_nearest_reference(z_e, card_model.embedding))
+        _, want_loss, want_ids = cpu(x)
+        loss, want_loss = loss.detach(), want_loss.detach()
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5,
+                                   err_msg=f"VQVAE {codes} codes: fp32 loss, card vs CPU")
+        ms = cuda_ms(lambda: card_model(xc)[1].backward(), 10)
+        vq[codes] = {"launches": got, "mismatches": mismatches, "max_id_gap": max_gap,
+                     "distinct_ids": int(torch.unique(ids).numel()),
+                     "ids_equal_cpu": int((ids.cpu() == want_ids).sum()),
+                     "loss": float(loss), "cpu_loss": float(want_loss), "ms": ms}
+        print(f"VQVAE {VQVAE_ROWS}x{codes}x{TOKENIZER_LATENT}: forward + backward launched "
+              f"(K1, K1f, K2) {got}; {mismatches} ids differ from the plain lookup within the "
+              f"tie tolerance (max fp64 gap {max_gap:.3g}), "
+              f"{vq[codes]['distinct_ids']} distinct; {vq[codes]['ids_equal_cpu']} of "
+              f"{VQVAE_ROWS} ids equal the CPU's; loss {float(loss):.6f} == CPU "
+              f"{float(want_loss):.6f} within rtol 1e-5; {ms:.3f} ms per forward + backward "
+              f"[{card}]")
+        del cpu, card_model
+
+    # (c) the other tokenizers of the family: card against CPU, no launches
+    x = torch.from_numpy(rng.uniform(-1, 1, (VQVAE_ROWS, AC_DIM)).astype(np.float32))
+    family = {}
+    for name, make in (("LFQVAE", lambda: vqvae.LFQVAE(AC_DIM, TOKENIZER_LATENT)),
+                       ("SpectralLFQVAE", lambda: vqvae.SpectralLFQVAE(AC_DIM, TOKENIZER_LATENT)),
+                       ("LSTMVQVAE", lambda: vqvae.LSTMVQVAE(AC_DIM, TOKENIZER_LATENT))):
+        cpu = seeded_init(make(), torch.Generator().manual_seed(22))
+        card_model = make().to(dev)
+        card_model.load_state_dict(cpu.state_dict())
+        reset()
+        with torch.no_grad():
+            z, loss = card_model(x.to(dev))[:2]
+            torch.cuda.synchronize()
+            got = counts()
+            want_z, want_loss = cpu(x)[:2]
+        if got != (0, 0, 0):
+            raise AssertionError(f"{name}: launches (K1, K1f, K2) {got}")
+        np.testing.assert_allclose(z.cpu().numpy(), want_z.numpy(), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{name} latents, card vs CPU")
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"{name} loss, card vs CPU")
+        if name == "SpectralLFQVAE":  # both advanced u once, from the same start
+            np.testing.assert_allclose(card_model.enc_0.u.cpu().numpy(), cpu.enc_0.u.numpy(),
+                                       rtol=1e-4, atol=1e-5)
+        xc = x.to(dev)
+        ms = cuda_ms(lambda: card_model(xc), 10)
+        family[name] = {"launches": got, "max_abs_err": float((z.cpu() - want_z).abs().max()),
+                        "loss": float(loss), "cpu_loss": float(want_loss), "ms": ms}
+        print(f"{name} {VQVAE_ROWS}x{TOKENIZER_LATENT}: fp32 card == CPU within rtol 1e-4 / "
+              f"atol 1e-5 (latents max abs {family[name]['max_abs_err']:.3g}, loss "
+              f"{float(loss):.6f}), launches (K1, K1f, K2) {got}; {ms:.3f} ms per forward "
+              f"[{card}]")
+        del cpu, card_model
+
+    # (d) the CLIP text tower at ViT-L/14 text width, through a LangEncoder
+    cfg = clip_text.CLIPTextConfig()
+    cpu = seeded_init(clip_text.CLIPTextTower(cfg), torch.Generator().manual_seed(23))
+    tower = clip_text.CLIPTextTower(cfg)
+    tower.load_state_dict(cpu.state_dict())
+    ids = rng.integers(0, cfg.eos_token_id, (CLIP_ROWS, cfg.max_positions))
+    ends = rng.integers(2, cfg.max_positions + 1, CLIP_ROWS)
+    for r, end in enumerate(ends):
+        ids[r, end - 1:] = cfg.eos_token_id  # the EOS, then EOS padding
+    ids = torch.from_numpy(ids)
+    strings = [f"instruction {r}" for r in range(CLIP_ROWS)]
+    row = {s: r for r, s in enumerate(strings)}
+    encoder = LangEncoder()  # no device given: the tower goes to the card
+    encoder.use_tower(tower, lambda texts, padding, return_tensors: {
+        "input_ids": ids[[row[t] for t in texts]]})
+    reset()
+    got = torch.from_numpy(encoder.get_lang_emb(strings))
+    with torch.no_grad():
+        want = cpu(ids)
+        clip_ms = cuda_ms(lambda: tower(ids.to(dev)), 10)
+    on_card = next(tower.parameters()).device.type == "cuda"
+    if counts() != (0, 0, 0) or got.shape != (CLIP_ROWS, cfg.projection_dim) or not on_card:
+        raise AssertionError(f"CLIP tower: launches {counts()}, shape {tuple(got.shape)}, "
+                             f"on the card: {on_card}")
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5,
+                               err_msg="CLIP tower, card vs CPU")
+    clip_err = float((got - want).abs().max())
+    print(f"CLIP text tower {cfg.num_layers} x {cfg.hidden_size}, {cfg.max_positions} "
+          f"positions, vocab {cfg.vocab_size}, on the card through LangEncoder: {CLIP_ROWS} "
+          f"strings, fp32 card == CPU within rtol 1e-4 / atol 1e-5 (max abs {clip_err:.3g}); "
+          f"{clip_ms:.3f} ms per call of the tower [{card}]")
+    del cpu, tower, encoder
+    torch.cuda.empty_cache()
+    return {"sweep": sweep, "sweep_kernels": shapes, "vqvae": vq, "family": family,
+            "clip": {"max_abs_err": clip_err, "ms": clip_ms}}
 
 
 SCRIPT_EXPORTS, SCRIPT_DEMOS, SCRIPT_DEMO_LEN = 2, 40, 300
@@ -1614,12 +2068,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from lipvq_tpu_torch import native
     from lipvq_tpu_torch.ops import _build
 
     card = card_line()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     print(f"card: {card}")
+    for tool in (_build._nvcc(), "g++"):
+        out = subprocess.run([tool, "--version"], capture_output=True, text=True, check=True,
+                             timeout=60).stdout.strip().splitlines()
+        print(f"{tool}: {out[-1] if 'nvcc' in tool else out[0]}")
     t0 = time.perf_counter()
     logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
@@ -1627,6 +2086,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    print(f"BPE library build (g++): {native.build().name} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     k1 = kernel_phase(card)
     k2 = stats_phase(card)
@@ -1634,7 +2096,11 @@ def main() -> int:
     served = slice_phase(card)
     trained = train_phase(card)
     scripted = script_phase(card, served)
-    corpus = corpus_phase(card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        root, actions, export_s = write_corpus_export(tmp)
+        corpus = corpus_phase(card, root, actions, export_s)
+        del actions
+        tokenizers = tokenizers_phase(card, root)
     arms = arms_phase(card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
@@ -1659,6 +2125,12 @@ def main() -> int:
     for label, r in arms.items():
         for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
             paths[f"arm {label}"] = r["serve_launches"][i] + r["train_launches"][i]
+    for r in tokenizers["sweep"]:
+        for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+            paths[f"sweep {r['num_codes']} {r['codebook_update']}"] = r["launches"][i]
+    for codes, r in tokenizers["vqvae"].items():
+        for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+            paths[f"vqvae {codes}"] = r["launches"][i]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -1700,7 +2172,7 @@ def main() -> int:
         "beyond_one_histogram": k2["wide"],
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
-        "arms": arms}))
+        "arms": arms, "tokenizers": tokenizers}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,15 @@ with the Mamba backbone, the ``icl_mamba`` algo) and the non-GMM
 - ``get_action`` runs the eval forward under ``torch.inference_mode()`` with
   low-noise GMM sampling (the non-GMM head's actions as they are) and takes
   ``[:, 0]`` when ``pred_future_acs`` else ``[:, -1]`` (reference
-  icl.py:845-852).
+  icl.py:845-852);
+- the FAST arm (``fast_enabled``): the context stream takes host-computed
+  text features of the context actions' DCT + BPE tokens
+  (``ctx_act_feat``, [B, T, 512]) while the targets stay raw actions. The
+  FAST tokenizer refits over the accumulated early batches, every
+  ``process_batch_for_training`` call counting, and freezes at 2048
+  windows or 8 batches; the fitted tokenizer (bounds and BPE bytes) rides
+  in ``serialize`` as tensors, and a FAST algo loaded without it raises
+  rather than fit an unrelated vocabulary.
 """
 
 from __future__ import annotations
@@ -42,8 +50,10 @@ from lipvq_tpu_torch.algo.base import (
 )
 from lipvq_tpu_torch.models.base_nets import seeded_init
 from lipvq_tpu_torch.models.distributions import GMMParams, gmm_log_prob, gmm_sample
-from lipvq_tpu_torch.models.obs_nets import obs_spec
+from lipvq_tpu_torch.models.obs_nets import FAST_FEAT_DIM, obs_spec
 from lipvq_tpu_torch.models.policy_nets import ICLActorNetwork, ICLGMMActorNetwork
+from lipvq_tpu_torch.models.tokenizers.fast import FastActionTokenizer
+from lipvq_tpu_torch.utils.lang_utils import LangEncoder
 from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs
 
 
@@ -67,6 +77,15 @@ def mamba_algo_config_to_class(algo_config):
 
 def _seq_section(algo_config, backbone: str):
     return algo_config.mamba if backbone == "mamba" else algo_config.transformer
+
+
+# the FAST tokenizer's fit: refit on every early batch, frozen from this many
+# accumulated windows or batches on (reference algo/icl.py:282-306)
+FAST_FREEZE_WINDOWS, FAST_FREEZE_BATCHES = 2048, 8
+FAST_VOCAB_SIZE = 1024
+# the FAST tokenizer's fields in a ``serialize`` payload
+_FAST_KEYS = ("fast_tokenizer.lo", "fast_tokenizer.hi", "fast_tokenizer.vocab_size",
+              "fast_tokenizer.bpe")
 
 
 def _torch_dtype(name: str) -> torch.dtype | None:
@@ -106,6 +125,12 @@ class ICLTransformerGMM(PolicyAlgo):
         if self.pred_future_acs and not self.supervise_all_steps:
             raise ValueError("pred_future_acs needs supervise_all_steps")
         self.vq_vae_enabled = bool(tc.vq_vae_enabled)
+        self.fast_enabled = bool(tc.fast_enabled)
+        self._fast_tok = None
+        self._fast_lang = None
+        self._fast_frozen = False
+        self._fast_fit_buf: list = []
+        self._fast_missing_from_ckpt = False
 
         group_specs = [("obs", obs_spec(self.obs_shapes))]
         if self.goal_shapes:
@@ -134,7 +159,7 @@ class ICLTransformerGMM(PolicyAlgo):
             action_input_shape=self.ac_dim,
             vq_vae_enabled=self.vq_vae_enabled,
             bin_enabled=bool(tc.bin_enabled),
-            fast_enabled=bool(tc.fast_enabled),
+            fast_enabled=self.fast_enabled,
             ln_act_enabled=bool(tc.ln_act_enabled),
             vq_num_codes=int(vq_cfg.get("num_codes", 1024)),
             vq_hidden_dim=int(vq_cfg.get("hidden_dim", 128)),
@@ -200,7 +225,36 @@ class ICLTransformerGMM(PolicyAlgo):
             # the context stream needs the [B, T, A] window; training
             # supervises only the final timestep
             out["actions"] = actions[:, :h]
+        if self.fast_enabled:
+            out["ctx_act_feat"] = self._fast_features(out["actions"])
         return out
+
+    def _fast_features(self, actions) -> np.ndarray:
+        """[B, T, A] action windows -> [B, T, FAST_FEAT_DIM] text features of
+        their FAST token strings (reference obs_nets.py:1306-1334, batched).
+        Until the fit freezes, each call first refits the tokenizer over every
+        window seen so far. A string's embedding does not depend on the
+        vocabulary, so the LangEncoder's per-string cache outlives the refits."""
+        chunks = np.asarray(actions, np.float32)
+        if self._fast_tok is None and self._fast_missing_from_ckpt:
+            # fitting here would serve a vocabulary unrelated to training
+            raise RuntimeError("this fast_enabled checkpoint carries no FAST tokenizer; "
+                               "re-save it from a FAST training run")
+        if self._fast_tok is None or not self._fast_frozen:
+            self._fast_fit_buf.append(chunks)
+            corpus = np.concatenate(self._fast_fit_buf, axis=0)
+            tok = FastActionTokenizer(vocab_size=FAST_VOCAB_SIZE)
+            tok.fit(corpus)
+            self._fast_tok = tok
+            self._fast_frozen = (corpus.shape[0] >= FAST_FREEZE_WINDOWS
+                                 or len(self._fast_fit_buf) >= FAST_FREEZE_BATCHES)
+            if self._fast_frozen:
+                self._fast_fit_buf = []
+        if self._fast_lang is None:
+            self._fast_lang = LangEncoder(device=self.device)
+        return self._fast_tok.features_for_policy(
+            chunks, self._fast_lang,
+            seq_len=chunks.shape[1], feat_dim=FAST_FEAT_DIM)
 
     def _put_batch(self, batch):
         """Host batch -> float32 tensors on ``self.device`` (None stays)."""
@@ -230,7 +284,10 @@ class ICLTransformerGMM(PolicyAlgo):
         mid = next(iter(obs.values())).shape[0] // 2
         ctx_obs = {k: v[:mid] for k, v in obs.items()}
         qry_obs = {k: v[mid:] for k, v in obs.items()}
-        ctx_act, qry_act = actions[:mid], actions[mid:]
+        # FAST: the context stream takes the token features, the targets stay
+        # the raw actions
+        ctx_src = batch["ctx_act_feat"] if self.fast_enabled else actions
+        ctx_act, qry_act = ctx_src[:mid], actions[mid:]
         train = not validate
         with torch.set_grad_enabled(train):
             dists, aux = self.nets.forward_train(
@@ -277,14 +334,60 @@ class ICLTransformerGMM(PolicyAlgo):
     def get_action(self, obs_dict, context_batch, goal_dict=None):
         """obs_dict leaves [B, T, ...]; context_batch holds obs/actions
         leaves [B, T, ...] (reference icl.py:827-853) -> actions [B, A]."""
+        ctx_act = context_batch["actions"]
+        if self.fast_enabled:
+            # contexts from process_batch_for_training carry the features;
+            # raw contexts are converted here
+            ctx_act = context_batch.get("ctx_act_feat")
+            if ctx_act is None:
+                actions = context_batch["actions"]
+                if isinstance(actions, torch.Tensor):
+                    actions = actions.cpu().numpy()
+                ctx_act = self._fast_features(actions)
         with torch.inference_mode():
             act = self._get_action_impl(
                 self._put_infer(obs_dict),
                 self._put_infer(context_batch["obs"]),
-                self._put_infer(context_batch["actions"]),
+                self._put_infer(ctx_act),
                 self._put_infer(goal_dict) if goal_dict else None,
             )
             return act.cpu().numpy()
+
+    # -- checkpointing: the fitted FAST tokenizer rides along ----------------
+    def serialize(self) -> dict[str, torch.Tensor]:
+        """The nets' state_dict and, once a FAST tokenizer is fitted, its
+        quantile bounds, vocabulary size and BPE bytes (as a uint8 tensor: a
+        checkpoint holds tensors only, so ``weights_only=True`` reads it)."""
+        payload = super().serialize()
+        if self.fast_enabled and self._fast_tok is not None:
+            tok = self._fast_tok
+            bpe = torch.frombuffer(bytearray(tok.bpe.to_bytes()), dtype=torch.uint8)
+            payload.update(zip(_FAST_KEYS, (
+                torch.from_numpy(np.asarray(tok.lo, np.float32).copy()),
+                torch.from_numpy(np.asarray(tok.hi, np.float32).copy()),
+                torch.tensor(int(tok.vocab_size), dtype=torch.int64), bpe)))
+        return payload
+
+    def deserialize(self, payload) -> None:
+        """Load a ``serialize`` payload; a FAST tokenizer in it is restored,
+        frozen. A FAST algo given a payload without one raises at its next
+        feature computation unless it has fitted its own."""
+        payload = dict(payload)
+        fields = [payload.pop(k, None) for k in _FAST_KEYS]
+        super().deserialize(payload)
+        if any(f is None for f in fields):
+            if any(f is not None for f in fields):
+                raise KeyError(f"the FAST tokenizer's payload is incomplete: "
+                               f"{[k for k, f in zip(_FAST_KEYS, fields) if f is None]} "
+                               f"missing")
+            self._fast_missing_from_ckpt = self.fast_enabled
+            return
+        lo, hi, vocab_size, bpe = fields
+        tok = FastActionTokenizer(vocab_size=int(vocab_size))
+        tok.lo, tok.hi = lo.numpy().copy(), hi.numpy().copy()
+        tok.bpe.from_bytes(bpe.numpy().tobytes())
+        self._fast_tok = tok
+        self._fast_frozen = True
 
 
 class ICLMambaGMM(ICLTransformerGMM):

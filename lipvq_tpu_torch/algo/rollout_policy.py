@@ -78,9 +78,10 @@ class RolloutPolicy:
 class ICLRolloutPolicy(RolloutPolicy):
     """ICL variant: threads the context batch through ``get_action``.
 
-    The context batch is kept on the policy's device per (context, env
-    count), so the env loop does not copy the same context to the card on
-    every step."""
+    The context batch (with a FAST context's ``ctx_act_feat``) is kept on
+    the policy's device per (context, env count), so the env loop does not
+    copy the same context to the card, or recompute its features, on every
+    step."""
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -100,6 +101,10 @@ class ICLRolloutPolicy(RolloutPolicy):
             "obs": {k: tile(v) for k, v in context_batch["obs"].items()},
             "actions": tile(context_batch["actions"]),
         }
+        # FAST contexts carry their token features: keep them, or get_action
+        # would rerun the host BPE pipeline on every env step
+        if context_batch.get("ctx_act_feat") is not None:
+            ctx["ctx_act_feat"] = tile(context_batch["ctx_act_feat"])
         dev = self.policy._put_infer(ctx)
         self._ctx_cache = (key, n, dev)
         return dev

@@ -13,9 +13,9 @@
 - ``ICLMIMOTransformer``         — 3-stream embed, [ctx_obs, ctx_act]
   interleave + query obs -> GPT or Mamba over 3T tokens -> decode the last T
 
-Low-dim observations and the LipVQ, bin, ln_act and raw tokenizers are
-ported; the FAST tokenizer and the visual cores raise
-``NotImplementedError`` naming their ROADMAP item. ``train=True`` turns on
+Low-dim observations and every tokenizer arm (LipVQ, bin, ln_act, raw and
+FAST, whose token features the algo computes on the host) are ported; the
+visual cores raise ``NotImplementedError`` naming their ROADMAP item. ``train=True`` turns on
 the embedding and backbone dropout (masks from the ``generator`` passed
 with it) and the tokenizers' running statistics: the EMA codebook, the bin
 bounds and the spectral-norm vectors.
@@ -47,6 +47,10 @@ from lipvq_tpu_torch.models.transformer import (
 
 # (key, shape) static spec type used across modules
 ObsSpec = tuple  # tuple[tuple[str, tuple[int, ...]], ...]
+
+# width of the FAST arm's context features: text embeddings of the context
+# actions' FAST token strings, cut to 512 (the JAX algo's _FAST_FEAT_DIM)
+FAST_FEAT_DIM = 512
 
 
 def obs_spec(shapes: dict | Sequence) -> ObsSpec:
@@ -246,7 +250,9 @@ class LnActTokenizer(nn.Module):
 class ICLObservationGroupEncoder(nn.Module):
     """Group encoder + context-action tokenizer. The tokenizer switches take
     precedence in the order fast -> bin -> vq -> ln_act, as in the JAX
-    package; all false selects the raw-action tokenizer."""
+    package; all false selects the raw-action tokenizer. The FAST arm takes
+    [B*T, FAST_FEAT_DIM] text features in place of actions and projects them
+    by ``fast_proj_0..2`` (512 -> 64 -> 128 -> output_dim, GELU between)."""
 
     def __init__(self, group_specs: ObsSpec, action_input_shape: int,
                  vq_vae_enabled: bool = False, bin_enabled: bool = False,
@@ -260,9 +266,13 @@ class ICLObservationGroupEncoder(nn.Module):
         self.output_dim = sum(spec_encoded_dim(spec, encoder_cores)
                               for _, spec in group_specs)
         if fast_enabled:
-            raise NotImplementedError("the FAST tokenizer is ROADMAP queue 1, "
-                                      "item 10; not ported yet")
-        if bin_enabled:
+            # the context actions arrive as FAST_FEAT_DIM-wide text features
+            # of their DCT + BPE tokens, computed on the host by the algo
+            self.arm = "fast"
+            widths = (FAST_FEAT_DIM, 64, 128, self.output_dim)
+            for i in range(3):
+                self.add_module(f"fast_proj_{i}", TorchLinear(widths[i], widths[i + 1]))
+        elif bin_enabled:
             self.arm = "bin"
             self.action_network = AdaptiveBinActionEmbedding(action_input_shape,
                                                              self.output_dim)
@@ -291,7 +301,10 @@ class ICLObservationGroupEncoder(nn.Module):
         obs_feat = self.group_encoder(**groups)
         ctx_obs_feat = self.group_encoder(**ctx_groups)
         aux_loss = torch.zeros((), device=prompt_actions.device)
-        if self.arm == "vq":
+        if self.arm == "fast":
+            h = gelu_exact(self.fast_proj_0(prompt_actions))
+            ctx_act_feat = self.fast_proj_2(gelu_exact(self.fast_proj_1(h)))
+        elif self.arm == "vq":
             ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
         elif self.arm == "bin":
             ctx_act_feat = self.action_network(prompt_actions, update_stats=train)

@@ -49,7 +49,7 @@ def evaluate_checkpoint(ckpt_path: str, n: int = 10, horizon: int = 300,
     if env_name is not None:
         env_meta["env_name"] = env_name
 
-    lang_encoder = LangEncoder()
+    lang_encoder = LangEncoder(device=model.device)
     train_ds, valid_ds = TrainUtils.load_data_for_training(
         cfg, obs_keys=shape_meta["all_obs_keys"], lang_encoder=lang_encoder
     )

@@ -186,7 +186,7 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir):
             print(f"Loading model weights from {ckpt_path}")
             model.deserialize(FileUtils.load_checkpoint_dict(ckpt_path)["model"])
 
-    lang_encoder = LangEncoder()
+    lang_encoder = LangEncoder(device=device)
     train_ds, valid_ds = TrainUtils.load_data_for_training(
         config, obs_keys=shape_meta["all_obs_keys"], lang_encoder=lang_encoder
     )

@@ -1,18 +1,25 @@
 """Weight bridge from the JAX package's flax params to the port's modules.
 
-The port mirrors the flax module tree, so a flax path maps to a state_dict
-key by joining with dots, with two renames:
+The port mirrors the flax module tree (layer lists such as the FAST arm's
+``fast_proj_0..2`` or the VQ-VAEs' ``enc_0..2`` keep flax's names), so a
+flax path maps to a state_dict key by joining with dots, with three renames:
 
 - a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (transposed); a
   ``DenseGeneral`` kernel of more than two axes (the raw tokenizer's
   attention: query/key/value [D, H, Dh], out [H, Dh, D]) becomes ``weight``
   in its flax layout;
-- a LayerNorm ``scale`` becomes ``weight``.
+- a LayerNorm ``scale`` becomes ``weight``;
+- a flax ``OptimizedLSTMCell`` (``ii``/``if``/``ig``/``io`` kernels [in, H],
+  ``hi``/``hf``/``hg``/``ho`` kernels [H, H] and biases) becomes the port's
+  packed cell: ``w_ih`` [4H, in], ``w_hh`` [4H, H] and ``b_hh`` [4H], the
+  gates in the order i, f, g, o.
 
 Every other leaf (``bias``, LipschitzDense ``W``/``b``/``ci``, the
-quantizer ``codebook``, ``embed_timestep``, ``embed_timestep_table``, the
-bin tokenizer's ``embedding_tables``, Mamba's ``conv_kernel``/``conv_bias``/
-``A_log``/``D``) keeps its name and layout. The mutable collections map onto
+quantizer ``codebook``, the VQ-VAEs' ``embedding`` table, ``embed_timestep``,
+``embed_timestep_table``, the bin tokenizer's ``embedding_tables``, Mamba's
+``conv_kernel``/``conv_bias``/``A_log``/``D``, the CLIP tower's
+``token_embedding.embedding`` [V, H], ``position_embedding`` [P, H] and
+``text_projection`` [H, proj]) keeps its name and layout. The mutable collections map onto
 buffers of the same names: ``vq_stats`` (``ema_cluster_size``,
 ``ema_embed_sum``), ``bin_stats`` (``running_min``, ``running_max``, the
 int32 ``num_step``) and ``spectral_stats`` (each spectral-norm layer's
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 COLLECTIONS = ("vq_stats", "bin_stats", "spectral_stats")  # the mutable ones
+LSTM_GATES = "ifgo"  # flax OptimizedLSTMCell's gates, in the packed order
 
 
 def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
@@ -36,6 +44,15 @@ def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
+        if set(tree) == {f"{kind}{g}" for kind in "ih" for g in LSTM_GATES}:
+            def packed(kind, leaf):
+                return np.concatenate([np.asarray(tree[f"{kind}{g}"][leaf], np.float32)
+                                       for g in LSTM_GATES], -1)
+
+            out[".".join(prefix + ("w_ih",))] = torch.tensor(packed("i", "kernel").T)
+            out[".".join(prefix + ("w_hh",))] = torch.tensor(packed("h", "kernel").T)
+            out[".".join(prefix + ("b_hh",))] = torch.tensor(packed("h", "bias"))
+            return
         for key, value in tree.items():
             if isinstance(value, Mapping):
                 walk(value, prefix + (key,))

@@ -414,3 +414,56 @@ def test_k1f_wrapper_checks_and_counts(cuda):
     vq_nearest_fast(z, c)
     vq_nearest(z, c)  # the quantizer's dispatcher: K1, never K1f
     assert (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches) == (k1 + 1, k1f + 1)
+
+
+# -- the VQ-VAE family and the tokenizer sweep -------------------------------
+
+@pytest.mark.parametrize("codes", [128, 1024])
+def test_vqvae_launches_k1_once_and_matches_the_cpu(cuda, codes):
+    """``VQVAE`` at B = 500, latent 791: a forward and a backward on the
+    card launch K1 once; the ids equal the CPU model's (near-ties of the
+    expand form excepted, as ``tie_gap`` states) and the loss is the CPU's
+    within rtol 1e-5."""
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.tokenizers.vqvae import VQVAE
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((500, 12), dtype=np.float32))
+    cpu = seeded_init(VQVAE(12, 791, num_embeddings=codes), torch.Generator().manual_seed(4))
+    with torch.no_grad():  # codes near latents of other inputs, so the ids spread
+        cpu.embedding.copy_(cpu.encode(torch.from_numpy(
+            rng.standard_normal((codes, 12), dtype=np.float32))))
+    card = VQVAE(12, 791, num_embeddings=codes).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    k1, k2 = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+    z, loss, ids = card(x.to(cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (vq_nearest_cuda.launches - k1, vq_nearest_with_stats_cuda.launches - k2) == (1, 0)
+    _, want_loss, want_ids = cpu(x)
+    z_e = cpu.encode(x).detach()
+    gap, allowed = tie_gap(z_e, cpu.embedding.detach(), ids.cpu(), want_ids, bf16=False)
+    assert bool((gap <= allowed).all())
+    assert int((ids.cpu() == want_ids).sum()) >= 490
+    np.testing.assert_allclose(float(loss.detach()), float(want_loss.detach()), rtol=1e-5)
+    assert card.embedding.grad is not None and torch.isfinite(card.embedding.grad).all()
+
+
+def test_sweep_ema_step_launches_k2_once(cuda):
+    """One EMA-codebook step of the tokenizer sweep on the card: one K2
+    launch, no K1; counts summing to the batch."""
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+    from lipvq_tpu_torch.scripts.tokenizer_sweep import train_step
+
+    model = seeded_init(LipVQVAE(12, 64, num_codes=256, ema_codebook=True),
+                        torch.Generator().manual_seed(5)).to(cuda)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    x = torch.from_numpy(np.random.default_rng(6).uniform(-1, 1, (512, 12))
+                         .astype(np.float32)).to(cuda)
+    k1, k2 = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+    loss = train_step(model, opt, x)
+    torch.cuda.synchronize()
+    assert (vq_nearest_cuda.launches - k1, vq_nearest_with_stats_cuda.launches - k2) == (0, 1)
+    assert torch.isfinite(loss)
+    np.testing.assert_allclose(float(model.ema_cluster_size.sum()), 0.01 * 512, rtol=1e-5)

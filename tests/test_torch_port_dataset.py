@@ -246,16 +246,61 @@ def test_hash_lang_embedding_equals_jax():
 
 
 def test_lang_encoder_raises_where_jax_would_use_clip(tmp_path, monkeypatch):
+    """Where the JAX package would embed with CLIP (weights cached, or a
+    download allowed), the port loads its own CLIP text tower, recorded as
+    "clip_flax" (JAX's name for the same function of the same weights). The
+    tower runs on CUDA unless the encoder is given a device, so without a
+    GPU an encoder given none raises; with ``device="cpu"`` it embeds. Where
+    the weights do not load, both fall back to the hash embedding. No
+    download is attempted: the loader is faked."""
+    import torch
+
+    from lipvq_tpu_torch.models import clip_text
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+
     snap = tmp_path / "models--openai--clip-vit-large-patch14" / "snapshots" / "abc"
     snap.mkdir(parents=True)
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LangEncoder().get_lang_emb("open the drawer")
+    # an empty snapshot: neither package loads weights from it
+    texts = ["open the drawer", "close it"]
+    got, want = LangEncoder(), JaxLangEncoder()
+    np.testing.assert_array_equal(got.get_lang_emb(texts), want.get_lang_emb(texts))
+    assert got.backend == want.backend == "hash"
+
+    cfg = clip_text.CLIPTextConfig(vocab_size=50, hidden_size=16, num_layers=1, num_heads=2,
+                                   intermediate_size=32, max_positions=8, projection_dim=768,
+                                   eos_token_id=49)
+    tower = seeded_init(clip_text.CLIPTextTower(cfg), torch.Generator().manual_seed(0))
+    ids = torch.tensor([[3, 4, 49, 49], [5, 49, 49, 49]])
+    calls = []
+
+    def loader(name, local_files_only=True):
+        calls.append(local_files_only)
+        return tower, lambda strings, padding, return_tensors: {"input_ids": ids}
+
+    monkeypatch.setattr(clip_text, "load_pretrained_clip", loader)
+    if not torch.cuda.is_available():
+        # the tower runs on CUDA unless the encoder is given a device
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LangEncoder().get_lang_emb(texts)
+        calls.clear()
+    enc = LangEncoder(device="cpu")
+    emb = enc.get_lang_emb(texts)
+    assert enc.backend == "clip_flax" and calls == [True]
+    with torch.no_grad():
+        np.testing.assert_array_equal(emb, tower(ids).numpy())
+
+    def offline(name, local_files_only=True):
+        calls.append(local_files_only)
+        raise OSError("no weights")
+
+    monkeypatch.setattr(clip_text, "load_pretrained_clip", offline)
     monkeypatch.delenv("HF_HUB_CACHE")
     monkeypatch.setenv("HF_HOME", str(tmp_path / "empty"))
     monkeypatch.setenv("LIPVQ_ALLOW_DOWNLOAD", "1")
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        assert LangEncoder().backend
+    calls.clear()
+    assert LangEncoder().backend == "hash"
+    assert calls == [True, False]  # the local cache first, then the allowed download
 
 
 @pytest.mark.parametrize("padding,pad_same", [((0, 0), True), ((3, 0), True), ((0, 2), True),

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +16,9 @@ from lipvq_tpu_torch.config import config_factory
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "lipvq_tpu")
+# optional packages that modules import only inside the functions that need
+# them (the HF-backed PRISE algorithms, the pretrained CLIP loader)
+LAZY = ("tokenizers", "transformers")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -33,11 +37,20 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.envs.rollout", "lipvq_tpu_torch.scripts.train",
              "lipvq_tpu_torch.scripts.eval_checkpoint", "lipvq_tpu_torch.models.mamba",
              "lipvq_tpu_torch.models.tokenizers.bin_action",
-             "lipvq_tpu_torch.parallel.corpus", "lipvq_tpu_torch.scripts.tokenize_corpus"):
+             "lipvq_tpu_torch.parallel.corpus", "lipvq_tpu_torch.scripts.tokenize_corpus",
+             "lipvq_tpu_torch.native", "lipvq_tpu_torch.models.tokenizers.prise",
+             "lipvq_tpu_torch.models.tokenizers.fast", "lipvq_tpu_torch.models.clip_text",
+             "lipvq_tpu_torch.models.tokenizers.vqvae",
+             "lipvq_tpu_torch.scripts.tokenizer_sweep"):
     assert name in names, (name, names)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
 assert not loaded, loaded
+# nothing was built or loaded: a kernel or the BPE library loads only after
+# its build, at first use
+from lipvq_tpu_torch import native
+from lipvq_tpu_torch.ops import _build
+assert not native._LOADED and not _build._LOADED
 """
 
 
@@ -169,3 +182,24 @@ def test_every_arm_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, algo_na
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         algo_factory(algo_name, cfg, shapes, ac_dim=12)
+
+
+def test_fast_and_sweep_entry_points_without_device_raise_without_gpu(monkeypatch, tmp_path):
+    from lipvq_tpu_torch.scripts import tokenizer_sweep
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    export = make_synthetic_export(str(tmp_path / "export"), n_demos=2, demo_len=5)
+    cfg = config_factory("icl", {"algo": {"gmm": {"enabled": True}, "transformer": {
+        "enabled": True, "embed_dim": 32, "num_layers": 1, "num_heads": 2,
+        "fast_enabled": True}}})
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = ["robot0_eef_pos", "object"]
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    assert algo_factory("icl", cfg, shapes, ac_dim=12, device="cpu").fast_enabled
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        algo_factory("icl", cfg, shapes, ac_dim=12)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tokenizer_sweep.main(["--dataset", export, "--codebook_sizes", "4", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tokenizer_sweep.train_tokenizer(np.zeros((8, 12), np.float32), 4, False, 8, 1, 4)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 from collections.abc import Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 
 ALGO_REGISTRY: dict[str, Callable] = {}
@@ -43,6 +44,15 @@ def resolve_device(device=None) -> torch.device:
                                "to run lipvq_tpu_torch on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def frames_to_float(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 camera frames -> float32 in [0, 1]: x / 255, one correctly
+    rounded division on any device, bit-equal to ``process_frame`` on the
+    host. The divisor is a tensor on the frames' device: with a CPU scalar,
+    a CUDA division multiplies by the reciprocal instead."""
+    x = frames.to(torch.float32)
+    return x / torch.full((), 255.0, device=x.device)
 
 
 def algo_factory(algo_name: str, config, obs_key_shapes: dict, ac_dim: int,
@@ -222,9 +232,14 @@ class Algo:
 
     def _put_infer(self, tree):
         """Host arrays (or tensors) -> float32 tensors on ``self.device``;
-        tensors already there are not copied."""
+        tensors already there are not copied. uint8 leaves are camera frames
+        (``process_obs_for_device`` keeps them so): they are copied as uint8
+        and divided by 255 on the device (``frames_to_float``)."""
         if isinstance(tree, Mapping):
             return {k: self._put_infer(v) for k, v in tree.items()}
+        if (tree.dtype == torch.uint8 if isinstance(tree, torch.Tensor)
+                else np.asarray(tree).dtype == np.uint8):
+            return frames_to_float(torch.as_tensor(tree, device=self.device))
         return torch.as_tensor(tree, dtype=torch.float32, device=self.device)
 
     # -- to implement ------------------------------------------------------

@@ -11,10 +11,15 @@ with the Mamba backbone, the ``icl_mamba`` algo) and the non-GMM
   action tokenizer, and the tokenizer's AdamW(``vq.optimizer_lr``, wd
   ``vq.optimizer_wd``), no clip (reference icl.py:885-889); with any other
   arm the policy optimizer covers every parameter, the tokenizer's too;
-- the tokenizers' running statistics (the EMA codebook, the bin bounds, the
-  spectral-norm vectors: the JAX package's mutable collections) are
-  buffers that advance in a training step only, never in validation or
-  ``get_action``;
+- the running statistics (the visual cores' BatchNorm, the EMA codebook,
+  the bin bounds, the spectral-norm vectors: the JAX package's mutable
+  collections) are buffers that advance in a training step only, never in
+  validation or ``get_action``; the explicit ``train`` flag decides, not
+  ``nn.Module.training``. The visual cores' randomizers (crop, colour,
+  noise) draw from the dropout generator in a training step only;
+- camera frames: ``process_batch_for_training`` keeps uint8 frames uint8
+  and ``_put_batch`` divides them by 255 on the device (bit-equal to the
+  JAX package's host division, a quarter of the bytes to copy);
 - ``train_on_batch``: the first half of the batch is the context, the second
   the queries (reference icl.py:904-911); GMM NLL of the query actions (the
   non-GMM head: weighted L2 + SmoothL1 + cosine) plus the tokenizer's loss,
@@ -54,7 +59,7 @@ from lipvq_tpu_torch.models.obs_nets import FAST_FEAT_DIM, obs_spec
 from lipvq_tpu_torch.models.policy_nets import ICLActorNetwork, ICLGMMActorNetwork
 from lipvq_tpu_torch.models.tokenizers.fast import FastActionTokenizer
 from lipvq_tpu_torch.utils.lang_utils import LangEncoder
-from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs
+from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs_for_device
 
 
 @register_algo_factory_func("icl")
@@ -206,11 +211,12 @@ class ICLTransformerGMM(PolicyAlgo):
     # -- data prep (host side, numpy) --------------------------------------
     def process_batch_for_training(self, batch):
         """Slice the context window + pick action targets
-        (reference icl.py:759-794)."""
+        (reference icl.py:759-794). Camera frames stay uint8 until
+        ``_put_batch`` divides them on the device."""
         h = self.context_length
         out = {}
         out["obs"] = {
-            k: process_obs(np.asarray(v)[:, :h], obs_key=k)
+            k: process_obs_for_device(np.asarray(v)[:, :h], obs_key=k)
             for k, v in batch["obs"].items()
         }
         out["goal_obs"] = batch.get("goal_obs", None)

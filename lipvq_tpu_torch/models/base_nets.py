@@ -9,12 +9,14 @@ then move: the same seed then gives the same weights on every device.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections.abc import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 
 def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -89,6 +91,191 @@ class SpectralNormLinear(nn.Module):
             with torch.no_grad():
                 self.u.copy_(u)
         return F.linear(x, w / sigma, self.bias)
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's default kernel init (``lecun_normal``): a normal truncated at two
+    standard deviations, scaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the truncation's std
+    with torch.no_grad():
+        nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` without a mask or dropout, in
+    flax's parameter layout: ``query`` weight [D, H, Dh], ``key``/``value``
+    weight [Dkv, H, Dh] and biases [H, Dh], ``out`` weight [H, Dh, D] and
+    bias [D] (normal weights of variance 1 / fan_in, zero biases). ``Dkv``
+    defaults to D (self-attention); H * Dh = D. The query is scaled by
+    1/sqrt(Dh) before the product, the softmax is over the keys."""
+
+    def __init__(self, dim: int, num_heads: int, kv_dim: int | None = None):
+        super().__init__()
+        head_dim = dim // num_heads
+        for name, in_dim in (("query", dim), ("key", kv_dim or dim), ("value", kv_dim or dim)):
+            proj = nn.Module()
+            proj.weight = nn.Parameter(torch.empty(in_dim, num_heads, head_dim))
+            proj.bias = nn.Parameter(torch.empty(num_heads, head_dim))
+            self.add_module(name, proj)
+        self.out = nn.Module()
+        self.out.weight = nn.Parameter(torch.empty(num_heads, head_dim, dim))
+        self.out.bias = nn.Parameter(torch.empty(dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        heads, head_dim = self.query.bias.shape
+        with torch.no_grad():
+            for proj in (self.query, self.key, self.value, self.out):
+                fan_in = heads * head_dim if proj is self.out else proj.weight.shape[0]
+                proj.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                proj.bias.zero_()
+
+    def forward(self, x, kv=None):
+        """x [..., L, D], kv [..., S, Dkv] (default x) -> [..., L, D]."""
+        kv = x if kv is None else kv
+        q = torch.einsum("...ld,dhk->...lhk", x, self.query.weight) + self.query.bias
+        k, v = (torch.einsum("...ld,dhk->...lhk", kv, p.weight) + p.bias
+                for p in (self.key, self.value))
+        q = q / math.sqrt(q.shape[-1])
+        att = torch.softmax(torch.einsum("...qhd,...khd->...hqk", q, k), dim=-1)
+        y = torch.einsum("...hqk,...khd->...qhd", att, v)
+        return torch.einsum("...qhd,hdo->...qo", y, self.out.weight) + self.out.bias
+
+
+@contextlib.contextmanager
+def cudnn_fp32():
+    """cuDNN's TF32 off inside the block (it is on by default), the
+    process's setting restored after: convolutions in fp32, as the JAX
+    package's ``nn.Conv`` computes them."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _ConvFp32(torch.autograd.Function):
+    """``aten.convolution`` (no dilation, one group) whose forward and
+    backward each run under ``cudnn_fp32``: cuDNN reads the TF32 setting
+    when the backward runs, outside any scope around the forward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding):
+        dims = len(padding)
+        ctx.args = ([stride] * dims, padding, [1] * dims, False, [0] * dims, 1)
+        ctx.bias_sizes = None if bias is None else list(bias.shape)
+        ctx.save_for_backward(x, weight)
+        with cudnn_fp32():
+            return torch.ops.aten.convolution(x, weight, bias, *ctx.args)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                ctx.bias_sizes is not None and ctx.needs_input_grad[2]]
+        with cudnn_fp32():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, ctx.bias_sizes, *ctx.args, mask)
+        return gx, gw, gb, None, None
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` over channels-first tensors ([B, C, L] or [B, C, H, W]).
+    ``weight``
+    is [out, in, *kernel], the flax kernel [*kernel, in, out] with its two
+    last axes moved to the front; ``bias`` [out] where used. ``padding`` is
+    explicit ((lo, hi) per spatial dim) or flax's default "SAME": output
+    size ceil(in / stride), the padding split low = total // 2 as
+    ``lax.padtype_to_pads`` does. flax's init: lecun-normal weights, zero
+    bias. Forward and backward run in fp32 on the card (``cudnn_fp32``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple,
+                 stride: int = 1, padding="SAME", bias: bool = True):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.stride = int(stride)
+        self.padding = padding
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def _pads(self, sizes) -> list[tuple[int, int]]:
+        if self.padding != "SAME":
+            return [tuple(p) for p in self.padding]
+        pads = []
+        for size, k in zip(sizes, self.kernel_size):
+            total = max((-(-size // self.stride) - 1) * self.stride + k - size, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+
+    def forward(self, x):
+        pads = self._pads(x.shape[2:])
+        if any(lo != hi for lo, hi in pads):
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
+            pads = [(0, 0)] * len(pads)
+        return _ConvFp32.apply(x, self.weight, self.bias, self.stride, [lo for lo, _ in pads])
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9)`` (epsilon 1e-5) over dim 1 of a
+    channels-first tensor: ``weight`` (flax's ``scale``, ones) and ``bias``
+    (zeros); the buffers ``mean`` (zeros) and ``var`` (ones) are flax's
+    ``batch_stats``. With ``train`` the batch's mean and biased variance
+    normalize, and the buffers move to ``momentum * old + (1 - momentum) *
+    batch`` with the biased variance, as flax does (torch's BatchNorm would
+    store the unbiased one, n / (n - 1) larger); else the buffers
+    normalize."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0,
+                                self.eps)
+        with torch.no_grad():
+            dims = [d for d in range(x.ndim) if d != 1]
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+        if x.numel() == x.shape[1]:
+            # one value per channel: x - mean is 0 (flax's output is the bias,
+            # where torch's batch_norm would raise)
+            return self.bias.reshape((1, -1) + (1,) * (x.ndim - 2)) + 0.0 * x
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class FiLMLayer(nn.Module):
+    """Feature-wise linear modulation (``FiLMLayer`` of the JAX package):
+    ``TorchLinear_0`` maps the condition [B, Dc] to (gamma, beta) [B, C]
+    each, and ``gamma * x + beta`` is broadcast over the spatial dims of a
+    channels-first x."""
+
+    def __init__(self, feature_dim: int, cond_dim: int):
+        super().__init__()
+        self.TorchLinear_0 = TorchLinear(cond_dim, 2 * feature_dim)
+
+    def forward(self, x, cond):
+        gamma, beta = self.TorchLinear_0(cond).chunk(2, dim=-1)
+        shape = gamma.shape + (1,) * (x.ndim - 2)
+        return gamma.reshape(shape) * x + beta.reshape(shape)
 
 
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,

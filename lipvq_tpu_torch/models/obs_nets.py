@@ -1,7 +1,9 @@
 """Observation encoder/decoder stack + ICL composite (counterpart of
 ``lipvq_tpu/models/obs_nets.py``).
 
-- ``ObservationEncoder``         — low-dim keys flattened in spec order
+- ``ObservationEncoder``         — low-dim keys flattened, keys with an
+  encoder core (``obs_core.py``: the visual cores, ``ScanCore``) through it,
+  in spec order
 - ``ObservationGroupEncoder``    — one encoder per obs group, concat
 - ``ObservationDecoder``         — one linear head per output key
 - ``RawActionTokenizer``         — the all-switches-false arm: spectral-norm
@@ -13,23 +15,23 @@
 - ``ICLMIMOTransformer``         — 3-stream embed, [ctx_obs, ctx_act]
   interleave + query obs -> GPT or Mamba over 3T tokens -> decode the last T
 
-Low-dim observations and every tokenizer arm (LipVQ, bin, ln_act, raw and
-FAST, whose token features the algo computes on the host) are ported; the
-visual cores raise ``NotImplementedError`` naming their ROADMAP item. ``train=True`` turns on
-the embedding and backbone dropout (masks from the ``generator`` passed
-with it) and the tokenizers' running statistics: the EMA codebook, the bin
-bounds and the spectral-norm vectors.
+Low-dim and image observations and every tokenizer arm (LipVQ, bin,
+ln_act, raw and FAST, whose token features the algo computes on the host)
+are ported. ``train=True`` turns on the embedding and backbone dropout and
+the visual cores' randomizers (drawing from the ``generator`` passed with
+it) and the running statistics: the visual cores' BatchNorm, the EMA
+codebook, the bin bounds and the spectral-norm vectors.
 """
 
 from __future__ import annotations
 
-import math
 from collections.abc import Sequence
 
 import torch
 from torch import nn
 
 from lipvq_tpu_torch.models.base_nets import (
+    MultiHeadDotProductAttention,
     SpectralNormLinear,
     TorchLinear,
     dropout,
@@ -37,6 +39,7 @@ from lipvq_tpu_torch.models.base_nets import (
     get_activation,
 )
 from lipvq_tpu_torch.models.mamba import MambaBackbone, MambaBlock
+from lipvq_tpu_torch.models.obs_core import build_core, parse_core
 from lipvq_tpu_torch.models.tokenizers.bin_action import AdaptiveBinActionEmbedding
 from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from lipvq_tpu_torch.models.transformer import (
@@ -44,6 +47,7 @@ from lipvq_tpu_torch.models.transformer import (
     GPTBackbone,
     sinusoidal_position_encoding,
 )
+from lipvq_tpu_torch.utils.obs_utils import LANG_EMB_KEY
 
 # (key, shape) static spec type used across modules
 ObsSpec = tuple  # tuple[tuple[str, tuple[int, ...]], ...]
@@ -78,13 +82,7 @@ def spec_encoded_dim(spec: ObsSpec, encoder_cores: ObsSpec = ()) -> int:
     for key, shape in spec:
         core = core_map.get(key)
         if core:
-            feat = 64
-            if ":" in core:
-                for pair in core.split(":", 1)[1].split(","):
-                    k, v = pair.split("=")
-                    if k == "feature_dimension":
-                        feat = int(v)
-            total += feat
+            total += parse_core(core)[1].get("feature_dimension", 64)
         else:
             total += _numel(shape)
     return total
@@ -92,21 +90,40 @@ def spec_encoded_dim(spec: ObsSpec, encoder_cores: ObsSpec = ()) -> int:
 
 class ObservationEncoder(nn.Module):
     """Encode an observation dict into one flat feature vector, keys in
-    spec order. Low-dim keys pass through flattened."""
+    spec order. Low-dim keys pass through flattened; a key with an encoder
+    core (``core_{key}``, built by ``obs_core.build_core``) goes through it,
+    a language-conditioned core with the dict's ``lang_emb``."""
 
     def __init__(self, spec: ObsSpec, feature_activation: str | None = "relu",
                  encoder_cores: ObsSpec = ()):
         super().__init__()
-        if encoder_cores:
-            raise NotImplementedError(
-                "visual observation cores are ROADMAP queue 1, item 11; "
-                "not ported yet")
         self.spec = spec
         self.feature_activation = feature_activation
+        shapes = dict(spec)
+        lang_dim = _numel(shapes[LANG_EMB_KEY]) if LANG_EMB_KEY in shapes else None
+        self.conditioned = set()
+        for key, core_name in encoder_cores:
+            if key not in shapes:
+                continue
+            conditioned = "LanguageConditioned" in core_name
+            self.add_module(f"core_{key}", build_core(
+                core_name, shapes[key], lang_dim=lang_dim if conditioned else None))
+            if conditioned:
+                self.conditioned.add(key)
 
-    def forward(self, obs_dict):
-        feats = [obs_dict[key].reshape(obs_dict[key].shape[0], -1)
-                 for key, _ in self.spec]
+    def forward(self, obs_dict, train: bool = False,
+                generator: torch.Generator | None = None):
+        """``train`` advances the cores' BatchNorm statistics and turns on
+        their randomizers, which draw from ``generator``."""
+        feats = []
+        for key, _ in self.spec:
+            x = obs_dict[key]
+            core = getattr(self, f"core_{key}", None)
+            if core is None:
+                feats.append(x.reshape(x.shape[0], -1))
+            else:
+                feats.append(core(x, train, generator, lang_emb=obs_dict.get(LANG_EMB_KEY)
+                                  if key in self.conditioned else None))
         out = torch.cat(feats, dim=-1)
         if self.feature_activation:
             out = get_activation(self.feature_activation)(out)
@@ -125,9 +142,10 @@ class ObservationGroupEncoder(nn.Module):
                 spec, feature_activation=feature_activation,
                 encoder_cores=encoder_cores))
 
-    def forward(self, **inputs):
-        return torch.cat([getattr(self, f"enc_{g}")(inputs[g]) for g in self.groups],
-                         dim=-1)
+    def forward(self, train: bool = False, generator: torch.Generator | None = None,
+                **inputs):
+        return torch.cat([getattr(self, f"enc_{g}")(inputs[g], train, generator)
+                          for g in self.groups], dim=-1)
 
 
 class ObservationDecoder(nn.Module):
@@ -146,42 +164,6 @@ class ObservationDecoder(nn.Module):
             y = getattr(self, f"head_{key}")(feats)
             out[key] = y.reshape(y.shape[:-1] + tuple(shape))
         return out
-
-
-class MultiHeadDotProductAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` as self-attention without a
-    mask or dropout, in flax's parameter layout: ``query``/``key``/``value``
-    weight [D, H, Dh] and bias [H, Dh], ``out`` weight [H, Dh, D] and bias
-    [D] (lecun-normal weights, zero biases). The query is scaled by
-    1/sqrt(Dh) before the product, the softmax is over the keys."""
-
-    def __init__(self, dim: int, num_heads: int):
-        super().__init__()
-        head_dim = dim // num_heads
-        for name in ("query", "key", "value"):
-            proj = nn.Module()
-            proj.weight = nn.Parameter(torch.empty(dim, num_heads, head_dim))
-            proj.bias = nn.Parameter(torch.empty(num_heads, head_dim))
-            self.add_module(name, proj)
-        self.out = nn.Module()
-        self.out.weight = nn.Parameter(torch.empty(num_heads, head_dim, dim))
-        self.out.bias = nn.Parameter(torch.empty(dim))
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        fan_in = self.out.bias.shape[0]  # D for query/key/value, H * Dh = D for out
-        with torch.no_grad():
-            for proj in (self.query, self.key, self.value, self.out):
-                proj.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-                proj.bias.zero_()
-
-    def forward(self, x):
-        """x [..., L, D] -> [..., L, D]."""
-        q, k, v = (torch.einsum("...ld,dhk->...lhk", x, p.weight) + p.bias
-                   for p in (self.query, self.key, self.value))
-        q = q / math.sqrt(q.shape[-1])
-        att = torch.softmax(torch.einsum("...qhd,...khd->...hqk", q, k), dim=-1)
-        y = torch.einsum("...hqk,...khd->...qhd", att, v)
-        return torch.einsum("...qhd,hdo->...qo", y, self.out.weight) + self.out.bias
 
 
 class RawActionTokenizer(nn.Module):
@@ -290,16 +272,20 @@ class ICLObservationGroupEncoder(nn.Module):
             self.arm = "raw"
             self.action_network = RawActionTokenizer(action_input_shape, self.output_dim)
 
-    def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False):
+    def forward(self, obs, prompt_obs, prompt_actions, goal=None, train: bool = False,
+                generator: torch.Generator | None = None):
         """Flattened [B*T, ...] inputs -> (obs_feat, ctx_obs_feat,
         ctx_act_feat, vq_aux_loss). ``train`` reaches the tokenizer's running
-        statistics (EMA codebook, bin bounds, spectral-norm vectors)."""
+        statistics (EMA codebook, bin bounds, spectral-norm vectors) and the
+        visual cores' (BatchNorm; randomizers drawing from ``generator``)."""
         groups = {"obs": obs}
         ctx_groups = {"obs": prompt_obs}
         if goal is not None:
             groups["goal"] = ctx_groups["goal"] = goal
-        obs_feat = self.group_encoder(**groups)
-        ctx_obs_feat = self.group_encoder(**ctx_groups)
+        # query first, then context: the BatchNorm statistics advance in
+        # this order, as flax applies the two calls' updates
+        obs_feat = self.group_encoder(train, generator, **groups)
+        ctx_obs_feat = self.group_encoder(train, generator, **ctx_groups)
         aux_loss = torch.zeros((), device=prompt_actions.device)
         if self.arm == "fast":
             h = gelu_exact(self.fast_proj_0(prompt_actions))
@@ -405,7 +391,7 @@ class ICLMIMOTransformer(nn.Module):
 
         obs_f, ctx_obs_f, ctx_act_f, aux = self.encoder(
             flat(obs), flat(prompt_obs), prompt_actions.reshape(b * t, -1),
-            goal=flat(goal) if goal is not None else None, train=train)
+            goal=flat(goal) if goal is not None else None, train=train, generator=generator)
         obs_emb = self.input_embedding(obs_f.reshape(b, t, -1), train, generator)
         ctx_obs_emb = self.input_embedding(ctx_obs_f.reshape(b, t, -1), train, generator)
         ctx_act_emb = self.input_embedding(ctx_act_f.reshape(b, t, -1), train, generator)

@@ -19,6 +19,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import os
@@ -45,10 +46,6 @@ def _check_ported(config) -> None:
         raise NotImplementedError(
             "train.num_devices (data-parallel training over several devices) is not "
             "ported yet (ROADMAP §1 item 14)")
-    if config.experiment.mse.enabled:
-        raise NotImplementedError(
-            "experiment.mse.enabled (the prediction-MSE visualizer) is not ported yet "
-            "(ROADMAP §1 item 11)")
 
 
 def _load_full_state(model, ckpt_path: str) -> None:
@@ -134,13 +131,14 @@ def train(config, eval_only: bool = False, device=None):
         sys.stdout = logger
         sys.stderr = logger
     try:
-        _train(config, eval_only, device, log_dir, ckpt_dir, video_dir)
+        with contextlib.ExitStack() as on_exit:
+            _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit)
     finally:
         sys.stdout, sys.stderr = stdout, stderr
     return ckpt_dir
 
 
-def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir):
+def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
     ObsUtils.initialize_obs_utils_with_config(config)
 
     data_spec = config.train.data
@@ -204,6 +202,8 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir):
     train_loader, valid_loader, context_loader = TrainUtils.make_loaders(
         config, train_ds, valid_ds, model=model
     )
+    if hasattr(train_loader, "close"):  # its worker processes
+        on_exit.callback(train_loader.close)
 
     envs = None
     if config.experiment.rollout.enabled:
@@ -268,6 +268,24 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir):
                 if config.experiment.save.on_best_validation:
                     epoch_ckpt_name += f"_best_validation_{valid_loss}"
                     should_save_ckpt = True
+
+        # prediction-MSE observability (reference train.py:439-459)
+        mse_cfg = config.experiment.mse
+        if mse_cfg.enabled and (
+            epoch % (mse_cfg.every_n_epochs or 50) == 0
+            or (mse_cfg.on_save_ckpt and should_save_ckpt)
+        ):
+            from lipvq_tpu_torch.utils.vis_utils import compute_mse_visualize
+
+            mse_log = compute_mse_visualize(
+                model, train_ds, num_samples=mse_cfg.num_samples,
+                savedir=os.path.join(video_dir, f"mse_epoch_{epoch}")
+                if mse_cfg.visualize else None,
+                context_loader=context_loader if config.algo_name.startswith("icl") else None,
+            )
+            for k, v in mse_log.items():
+                data_logger.record(f"MSE/{k}", v, epoch)
+            print(f"MSE Epoch {epoch}: {json.dumps(mse_log)}")
 
         # rollout evaluation (reference train.py:336-400)
         rollout_check = epoch % config.experiment.rollout.rate == 0

@@ -129,11 +129,16 @@ def config_from_checkpoint(ckpt_dict: dict):
 def policy_from_checkpoint(path: str, device=None):
     """Rebuild (algo, ckpt_dict) from a checkpoint (reference
     file_utils.py:396-463), the algo on ``device`` (CUDA when None; raises
-    without a GPU)."""
+    without a GPU). The observation modalities are registered from the
+    checkpoint's config first, as the train script does, so an image
+    policy gets its visual cores in a fresh process too (the JAX package
+    skips this step)."""
     from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.utils.obs_utils import initialize_obs_utils_with_config
 
     ckpt = load_checkpoint_dict(os.path.expanduser(path))
     config = config_from_checkpoint(ckpt)
+    initialize_obs_utils_with_config(config)
     shape_meta = json.loads(ckpt["shape_metadata"])
     model = algo_factory(
         ckpt["algo_name"], config,

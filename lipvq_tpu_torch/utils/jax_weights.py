@@ -20,7 +20,8 @@ quantizer ``codebook``, the VQ-VAEs' ``embedding`` table, ``embed_timestep``,
 ``conv_kernel``/``conv_bias``/``A_log``/``D``, the CLIP tower's
 ``token_embedding.embedding`` [V, H], ``position_embedding`` [P, H] and
 ``text_projection`` [H, proj]) keeps its name and layout. The mutable collections map onto
-buffers of the same names: ``vq_stats`` (``ema_cluster_size``,
+buffers of the same names: ``batch_stats`` (each BatchNorm's ``mean`` and
+``var``), ``vq_stats`` (``ema_cluster_size``,
 ``ema_embed_sum``), ``bin_stats`` (``running_min``, ``running_max``, the
 int32 ``num_step``) and ``spectral_stats`` (each spectral-norm layer's
 ``u``). Integer leaves keep their integer type. The bridge takes the trees
@@ -34,13 +35,28 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-COLLECTIONS = ("vq_stats", "bin_stats", "spectral_stats")  # the mutable ones
+from lipvq_tpu_torch.models.base_nets import Conv
+
+COLLECTIONS = ("batch_stats", "vq_stats", "bin_stats", "spectral_stats")  # the mutable ones
 LSTM_GATES = "ifgo"  # flax OptimizedLSTMCell's gates, in the packed order
 
 
-def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
-    """flax param tree (numpy leaves) -> {state_dict key: fp32 tensor}."""
+def _is_conv(module: nn.Module | None, prefix: tuple) -> bool:
+    if module is None:
+        return False
+    try:
+        return isinstance(module.get_submodule(".".join(prefix)), Conv)
+    except AttributeError:
+        return False
+
+
+def state_dict_from_jax_params(params_np: Mapping,
+                               module: nn.Module | None = None) -> dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> {state_dict key: fp32 tensor};
+    ``module`` is the port's module at the tree's root, which decides each
+    kernel's layout (pass it where the tree holds convolutions)."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -60,7 +76,11 @@ def state_dict_from_jax_params(params_np: Mapping) -> dict[str, torch.Tensor]:
             arr = np.asarray(value)
             arr = arr.astype(np.int32 if arr.dtype.kind in "iu" else np.float32)
             if key == "kernel":
-                key, arr = "weight", arr.T if arr.ndim == 2 else arr
+                if _is_conv(module, prefix):
+                    arr = arr.transpose((arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2)))
+                elif arr.ndim == 2:
+                    arr = arr.T
+                key, arr = "weight", np.ascontiguousarray(arr)
             elif key == "scale":
                 key = "weight"
             out[".".join(prefix + (key,))] = torch.tensor(arr)
@@ -73,7 +93,7 @@ def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = No
     """Load the JAX algo's ``state.params`` and its ``state.extra_vars``
     (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``.
     Every key must match: a missing or extra parameter or buffer raises."""
-    state = state_dict_from_jax_params(params_np)
+    state = state_dict_from_jax_params(params_np, algo.nets)
     for collection, tree in (extra_vars_np or {}).items():
         if collection not in COLLECTIONS:
             raise KeyError(f"the port has no counterpart of the {collection!r} collection")

@@ -119,6 +119,18 @@ def process_obs(obs, obs_key: str | None = None, obs_modality: str | None = None
     return np.asarray(obs, dtype=np.float32)
 
 
+def process_obs_for_device(obs, obs_key: str | None = None):
+    """``process_obs`` for a batch an algo copies to its device: a uint8
+    rgb or depth frame stays uint8 (a quarter of the bytes to copy) and the
+    algo's ``_put_infer`` divides it by 255 there, bit-equal to
+    ``process_frame``."""
+    obs = np.asarray(obs)
+    modality = OBS_KEYS_TO_MODALITIES.get(obs_key, "low_dim")
+    if modality in ("rgb", "depth") and obs.dtype == np.uint8:
+        return np.ascontiguousarray(obs)
+    return process_obs(obs, obs_key=obs_key)
+
+
 def process_obs_dict(obs_dict: dict) -> dict:
     return {
         k: process_obs(v, obs_key=k) for k, v in obs_dict.items() if v is not None

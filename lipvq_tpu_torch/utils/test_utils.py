@@ -4,7 +4,9 @@
 (``make_synthetic_dataset``: smooth sinusoid trajectories, robomimic
 schema) straight into a numpy export (``data/export.py``): it makes the
 same numpy RNG calls in the same order, so its arrays equal the HDF5
-fixture's, and it needs no ``h5py``.
+fixture's, and it needs no ``h5py``. Camera keys (``image_key_shapes``)
+add seeded uint8 frames from a generator of their own, so the other arrays
+stay the fixture's.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ def make_synthetic_export(
     obs_key_shapes: dict | None = None,
     lang: str = "pick the object and place it in the sink",
     seed: int = 0,
+    image_key_shapes: dict | None = None,
 ) -> str:
-    """Write a synthetic export with smooth sinusoid trajectories."""
+    """Write a synthetic export with smooth sinusoid trajectories (and, for
+    ``image_key_shapes`` {key: (H, W, C)}, uniform uint8 frames)."""
     obs_key_shapes = obs_key_shapes or {
         "robot0_eef_pos": (3,),
         "robot0_eef_quat": (4,),
@@ -33,6 +37,7 @@ def make_synthetic_export(
         "object": (14,),
     }
     rng = np.random.default_rng(seed)
+    frames = np.random.default_rng([seed, 1])
     writer = ExportWriter(root)
     env_args = {"env_name": "SyntheticKitchen", "type": 1, "env_kwargs": {}}
     total = 0
@@ -51,6 +56,8 @@ def make_synthetic_export(
             fr = rng.uniform(0.05, 0.2, (1,) + tuple(shape)).astype(np.float32)
             tt = t.reshape((demo_len,) + (1,) * len(shape))
             arrays[f"obs/{k}"] = np.cos(fr * tt + ph).astype(np.float32)
+        for k, shape in (image_key_shapes or {}).items():
+            arrays[f"obs/{k}"] = frames.integers(0, 256, (demo_len, *shape), dtype=np.uint8)
         writer.add_demo(f"demo_{d}", {"num_samples": demo_len,
                                       "ep_meta": json.dumps({"lang": lang})}, arrays)
         total += demo_len

@@ -8,8 +8,10 @@
 - ``get_exp_dir`` and ``should_save_from_rollout_logs``, the output tree
   and the checkpoint policy (reference :32-90, :1112).
 
-Only the in-process loader is ported: ``train.num_data_workers`` 1 or more
-and ``train.hdf5_cache_mode="device"`` raise (ROADMAP §1 item 7).
+``make_loaders`` picks the train loader as the JAX package does: 0 data
+workers an in-process ``DataLoader``, 1 a ``PrefetchLoader`` thread, more a
+``MultiprocessLoader``; ``train.hdf5_cache_mode="device"`` (the
+``DeviceCachedLoader``) raises (ROADMAP §1 item 7).
 """
 
 from __future__ import annotations
@@ -23,7 +25,12 @@ import numpy as np
 import torch
 
 from lipvq_tpu_torch.data.dataset import MetaDataset, SequenceDataset
-from lipvq_tpu_torch.data.loaders import CyclingIterator, DataLoader
+from lipvq_tpu_torch.data.loaders import (
+    CyclingIterator,
+    DataLoader,
+    MultiprocessLoader,
+    PrefetchLoader,
+)
 
 
 def dataset_factory(config, obs_keys, filter_by_attribute=None,
@@ -107,14 +114,15 @@ def load_data_for_training(config, obs_keys, lang_encoder=None):
 def make_loaders(config, train_ds, valid_ds, model=None):
     """(train_loader, valid_loader, context_loader) (reference
     train_utils.py:229-294): the train loader follows the MetaDataset's
-    sampler when it has one; the rollout context loader draws one training
-    item at a time (reference train.py:217-224)."""
-    n_workers = int(config.train.num_data_workers or 0)
-    if config.train.hdf5_cache_mode == "device" or n_workers:
+    sampler when it has one, with ``train.num_data_workers`` worker
+    processes where there are more than 1 (a thread for 1); the rollout
+    context loader draws one training item at a time (reference
+    train.py:217-224). The caller closes a ``MultiprocessLoader``."""
+    if config.train.hdf5_cache_mode == "device":
         raise NotImplementedError(
-            "only train.num_data_workers=0 with a host cache is ported; the "
-            "PrefetchLoader (1 worker), MultiprocessLoader (> 1) and "
-            "DeviceCachedLoader (hdf5_cache_mode='device') are ROADMAP §1 item 7")
+            "train.hdf5_cache_mode='device' (the DeviceCachedLoader) is not ported yet "
+            "(ROADMAP §1 item 7)")
+    n_workers = int(config.train.num_data_workers or 0)
     sampler = None
     if hasattr(train_ds, "get_dataset_sampler"):
         group_bs = (
@@ -124,10 +132,18 @@ def make_loaders(config, train_ds, valid_ds, model=None):
         sampler = train_ds.get_dataset_sampler(
             seed=config.train.seed, batch_size=group_bs
         )
-    train_loader = DataLoader(
-        train_ds, batch_size=config.train.batch_size, shuffle=True,
-        seed=config.train.seed, sampler=sampler,
-    )
+    if n_workers > 1:
+        train_loader = MultiprocessLoader(
+            train_ds, batch_size=config.train.batch_size, shuffle=True,
+            seed=config.train.seed, sampler=sampler, num_workers=n_workers,
+        )
+    else:
+        train_loader = DataLoader(
+            train_ds, batch_size=config.train.batch_size, shuffle=True,
+            seed=config.train.seed, sampler=sampler,
+        )
+        if n_workers:
+            train_loader = PrefetchLoader(train_loader)
     valid_loader = None
     if valid_ds is not None:
         valid_loader = DataLoader(

@@ -41,7 +41,8 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.native", "lipvq_tpu_torch.models.tokenizers.prise",
              "lipvq_tpu_torch.models.tokenizers.fast", "lipvq_tpu_torch.models.clip_text",
              "lipvq_tpu_torch.models.tokenizers.vqvae",
-             "lipvq_tpu_torch.scripts.tokenizer_sweep"):
+             "lipvq_tpu_torch.scripts.tokenizer_sweep", "lipvq_tpu_torch.models.obs_core",
+             "lipvq_tpu_torch.utils.vis_utils"):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)

@@ -211,7 +211,7 @@ def test_rollout_disabled_for_an_unported_env(runs, tmp_path, capsys):
 
 @pytest.mark.parametrize("override,item", [
     ({"train": {"num_devices": 2}}, "item 14"),
-    ({"experiment": {"mse": {"enabled": True}}}, "item 11"),
+    ({"train": {"hdf5_cache_mode": "device"}}, "item 7"),
 ])
 def test_unported_switches_raise(runs, tmp_path, override, item):
     d = _config_dict(runs["export"], str(tmp_path))

@@ -208,8 +208,8 @@ def test_weight_bridge_is_strict_about_ema_state():
     params = jax.tree.map(np.asarray, jax_algo.state.params)
     with pytest.raises(RuntimeError, match="ema_cluster_size"):
         load_jax_params(port, params)  # the buffers are missing
-    with pytest.raises(KeyError, match="batch_stats"):
-        load_jax_params(port, params, {"batch_stats": {}})
+    with pytest.raises(KeyError, match="intermediates"):
+        load_jax_params(port, params, {"intermediates": {}})
 
 
 # -- schedules and optimizers ------------------------------------------------

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's served, training and corpus paths, the
-tokenizer-ablation arms and the image protocol on one NVIDIA GPU, and hold
-its CUDA kernels against their plain PyTorch versions.
+tokenizer-ablation arms, the image protocol and the policy baselines on one
+NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -131,7 +131,30 @@ all started together). Phases:
    against its FLOP count from the conv shapes, ``Time_*`` per step.
    K1 (160 / 10 / 80 rows) and K2 (80 rows) at latent 983 are timed in
    phase 2.
-10. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+10. Baselines (``baselines_phase``): the JAX package's templates
+   (exps/templates/{diffusion_policy,act,bc}.json) at their widths on the
+   flagship's low-dim obs (791 wide, 12-d actions, batch 100): Diffusion
+   Policy (UNet 256 / 512 / 1024, kernel 5, 89.87 M parameters, To 2, Tp
+   16, Ta 8, DDPM 100 / 100, EMA), ACT (512 wide, 4 + 7 layers, ff 3200,
+   chunk 10), BC-GMM (MLP 1024 x 1024), BC-Transformer-GMM (6 x 512, 8
+   heads, context 10) and BC-RNN-GMM (2 x 400 LSTM, horizon 10). Each serves
+   5 requests of 16 envs, rolls out one 40-step single-env episode through
+   ``RolloutPolicy`` + ``rollout_with_stats`` on the synthetic env and takes
+   10 ``run_epoch`` steps: K1 / K1f / K2 launch 0 times. Printed: the
+   parameter count, a 16-env request that samples a new chunk and a queued
+   one, the step (median of 10), device busy and idle share, the top
+   kernels; no kernel of a profiled request or step is named TF32 (DP's
+   conv kernels by the profiler's kernel-to-op link). DP also serves one
+   request by 10-step DDIM, and its 100-step DDPM chain from the same noise
+   on the card is held against the CPU (atol 1e-3). One fp32 step of DP,
+   ACT and BC-Transformer-GMM (batch 16, no warmup, no dropout, the same
+   draws) is held against the CPU by ``hold_step`` (ACT's attention key
+   biases, of exact gradient 0, as zeros; DP's EMA net on each device
+   against its own new parameters, rtol 1e-6). Then ``scripts/train.py``
+   with the DP template over a seeded export: 2 epochs x 10 steps, rollouts
+   off (a baseline's single-env rollout raises in the script, as in the JAX
+   package), the checkpoint reloaded bit-equal, the EMA net included.
+11. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -224,10 +247,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
-def host_ms(fn, reps: int = 20) -> float:
+def host_ms(fn, reps: int = 20, warmup: bool = True) -> float:
     """Median host time of one call of ``fn``, which must return only once
-    its device work is done, after one warm-up call."""
-    fn()
+    its device work is done, after one warm-up call (``warmup``)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -261,14 +285,15 @@ def stage_ms(kernels: dict) -> dict:
             for stage, keys in K2_STAGES.items()}
 
 
-def profile_device(fn, reps: int) -> tuple[float | None, dict]:
+def profile_device(fn, reps: int, warmup: bool = True) -> tuple[float | None, dict]:
     """Device time per call of ``fn`` under torch.profiler (CUDA activity
-    only): (busy ms, {kernel name: ms}), busy being the union of the
-    kernels' and copies' intervals. (None, {}) where the profiler recorded
-    no device activity."""
+    only), after one warm-up call (``warmup``): (busy ms, {kernel name:
+    ms}), busy being the union of the kernels' and copies' intervals. (None,
+    {}) where the profiler recorded no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -282,6 +307,22 @@ def kernel_name(name: str) -> str:
     and call arguments."""
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return name.split("(")[0].split("<")[0]
+
+
+def launch_counts() -> tuple[int, int, int]:
+    """The launch counts of K1, K1f and K2 since the last reset."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+
+    return (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+            vq_nearest_with_stats_cuda.launches)
+
+
+def zero_launch_counts() -> None:
+    """Set the launch counts of K1, K1f and K2 to 0, just before a main path."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
+
+    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
+    vq_nearest_with_stats_cuda.launches = 0
 
 
 def profile_convs(fn, reps: int, warmup: bool = True) -> tuple[float | None, dict, dict, list]:
@@ -424,19 +465,20 @@ def kernel_phase(card: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for label, (b, n, d), reps, plain_reps in (("slice", SLICE_SHAPE, 50, 10),
-                                               ("train", TRAIN_SHAPE, 50, 10),
-                                               ("corpus", CORPUS_SHAPE, 10, 3),
-                                               ("visual_serve", VIS_SLICE_SHAPE, 50, 10),
-                                               ("visual_single", VIS_SINGLE_SHAPE, 50, 10),
-                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 10)):
+    for label, (b, n, d), reps, plain_reps in (("slice", SLICE_SHAPE, 50, 3),
+                                               ("train", TRAIN_SHAPE, 50, 3),
+                                               ("corpus", CORPUS_SHAPE, 10, 1),
+                                               ("visual_serve", VIS_SLICE_SHAPE, 50, 3),
+                                               ("visual_single", VIS_SINGLE_SHAPE, 50, 3),
+                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3)):
         z = torch.randn(b, d, generator=gen, device=dev)
         c = torch.randn(n, d, generator=gen, device=dev)
         got = vq_nearest_cuda(z, c)
         want = vq_nearest_reference(z, c)
         mismatches, max_gap = check_ids(z, c, got, want)
         ms = cuda_ms(lambda: vq_nearest_cuda(z, c), reps)
-        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), plain_reps)
+        # the plain version just ran at this shape: no warm-up call
+        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), plain_reps, warmup=0)
         library_ms = cuda_ms(
             lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), reps)
         device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c), reps)
@@ -491,9 +533,9 @@ def stats_phase(card: str) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
-    for label, (b, n, d), reps, plain_reps in (("train", TRAIN_SHAPE, 50, 10),
-                                               ("corpus", CORPUS_SHAPE, 10, 3),
-                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 10)):
+    for label, (b, n, d), reps, plain_reps in (("train", TRAIN_SHAPE, 50, 3),
+                                               ("corpus", CORPUS_SHAPE, 10, 1),
+                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3)):
         z = torch.randn(b, d, generator=gen, device=dev)
         c = torch.randn(n, d, generator=gen, device=dev)
         ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
@@ -509,7 +551,9 @@ def stats_phase(card: str) -> dict:
             torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
 
         ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), reps)
-        plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), plain_reps)
+        # the plain version just ran at this shape: no warm-up call
+        plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), plain_reps,
+                           warmup=0)
         library_ms = cuda_ms(library, reps)
         device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), reps)
         bound_ms, bound_by = stats_bound(b, n, d)
@@ -567,7 +611,7 @@ def wide_stats(card: str, gen) -> dict:
             torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
 
         ms = cuda_ms(lambda: vq_nearest_with_stats_cuda(z, c), 10)
-        plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 2)
+        plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 1, warmup=0)
         library_ms = cuda_ms(library, 5)
         device_ms, kernels = profile_device(lambda: vq_nearest_with_stats_cuda(z, c), 5)
         bound_ms, bound_by = stats_bound(b, n, d)
@@ -623,7 +667,7 @@ def skewed_stats(card: str, gen) -> dict:
         torch.zeros(n, d, device=dev).index_add_(0, lib_ids, z)
 
     library_ms = cuda_ms(library, 5)
-    plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 2)
+    plain_ms = cuda_ms(lambda: vq_nearest_with_stats_reference(z, c), 1, warmup=0)
     bound_ms, bound_by = stats_bound(b, n, d)
     # not part of the bound: the port's bit-equal sums make code 0's sum a
     # chain of B dependent fp32 adds per column (~4 cycles each), a floor of
@@ -818,7 +862,6 @@ def random_obs(rng, lead) -> dict:
 def slice_phase(card: str) -> dict:
     from lipvq_tpu_torch.algo import algo_factory
     from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
 
     algo = algo_factory("icl", icl_config(), OBS_SHAPES, ac_dim=AC_DIM)  # CUDA by default
     algo32 = algo_factory("icl", icl_config("float32"), OBS_SHAPES, ac_dim=AC_DIM)
@@ -843,13 +886,10 @@ def slice_phase(card: str) -> dict:
     policy = ICLRolloutPolicy(algo)
 
     # the main path: 5 batched + 3 single-env requests, counted
-    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-    vq_nearest_with_stats_cuda.launches = 0
+    zero_launch_counts()
     batched = [policy.batched(o, context) for o in batched_obs]
     single = [policy(o, context) for o in single_obs]
-    launches = vq_nearest_cuda.launches
-    k1f_launches = vq_nearest_cuda.fast_launches
-    k2_launches = vq_nearest_with_stats_cuda.launches
+    launches, k1f_launches, k2_launches = launch_counts()
     requests = len(batched) + len(single)
     if launches != requests or k1f_launches != 0 or k2_launches != 0:
         raise AssertionError(f"K1 launched {launches}, K1f {k1f_launches} and K2 "
@@ -922,7 +962,6 @@ def train_phase(card: str) -> dict:
     launches counted; step time, device busy time and top device ops."""
     from lipvq_tpu_torch.algo import algo_factory
     from lipvq_tpu_torch.data.loaders import DataLoader
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.utils.train_utils import run_epoch
 
     items = SequenceItems(2 * BATCH, seed=3)
@@ -938,11 +977,9 @@ def train_phase(card: str) -> dict:
         loader = DataLoader(items, BATCH, seed=5)
 
         # the main path: 20 train steps, counted
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=TRAIN_STEPS)
-        k1, k1f = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
-        k2 = vq_nearest_with_stats_cuda.launches
+        k1, k1f, k2 = launch_counts()
         if (k1, k1f, k2) != ((0, 0, TRAIN_STEPS) if ema else (TRAIN_STEPS, 0, 0)):
             raise AssertionError(f"{label}: K1 launched {k1}, K1f {k1f} and K2 {k2} times in "
                                  f"{TRAIN_STEPS} steps")
@@ -991,7 +1028,6 @@ def ema_wide_step(card: str) -> dict:
     finite."""
     import lipvq_tpu_torch.models.tokenizers.lipvq as lipvq
     from lipvq_tpu_torch.models.base_nets import seeded_init
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
 
     latent, rows = CORPUS_SHAPE[2], EMA_WIDE_ROWS
     model = lipvq.LipVQVAE(AC_DIM, latent, num_codes=EMA_WIDE_CODES, ema_codebook=True)
@@ -1017,8 +1053,7 @@ def ema_wide_step(card: str) -> dict:
     lipvq.vq_nearest_with_stats = observed
     try:
         # the main path: one EMA train step, counted
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         _, loss, ids = model(x, train=True)
         opt.zero_grad()
@@ -1027,8 +1062,7 @@ def ema_wide_step(card: str) -> dict:
         model.apply_ema_codebook()
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
-        launches = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                    vq_nearest_with_stats_cuda.launches)
+        launches = launch_counts()
     finally:
         lipvq.vq_nearest_with_stats = stats
     _, counts, _ = seen["stats"]
@@ -1066,19 +1100,33 @@ def capture_grads(algo) -> dict:
             for p in group["params"]:
                 grads[names[id(p)]] = p.grad.detach().cpu().clone()
 
-    for o in (algo.policy_optimizer, algo.vq_optimizer):
-        if o is not None:
-            o.optimizer.register_step_pre_hook(hook)
+    for o in algo.optimizers().values():
+        o.optimizer.register_step_pre_hook(hook)
     return grads
+
+
+def assert_allclose(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
+                    err_msg: str) -> None:
+    """``np.testing.assert_allclose`` on CPU tensors: its test (|got - want| <=
+    atol + rtol |want|, NaNs equal) runs first in torch's threads, and numpy
+    checks and reports where that test fails."""
+    if got.is_floating_point() and got.dtype == want.dtype:
+        fast = bool(torch.isclose(got, want, rtol=rtol, atol=atol, equal_nan=True).all())
+    else:
+        fast = torch.equal(got, want)
+    if not fast:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol, atol=atol,
+                                   err_msg=err_msg)
 
 
 def rel_frobenius(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / max(float(want.norm()), 1e-30))
 
 
-def hold_step(card, cpu, batch, keep=None, zero=(), loose=()) -> tuple[dict, dict]:
+def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tuple[dict, dict]:
     """One fp32 train step of ``card`` and ``cpu`` (the same weights) on
-    ``batch``, held as follows.
+    ``batch`` (with the same random ``draws`` where the algo takes them),
+    held as follows.
 
     Adam's first step moves an element by lr * g / (|g| + 1e-8): where |g| is
     near that eps, the last digits of g, which differ between the two
@@ -1091,8 +1139,9 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=()) -> tuple[dict, dic
     invariant): they hold only rounding noise, which differs between the
     devices, and are held below 1e-6 of the step's largest |g| on both; (3) on
     each device, every parameter to the first AdamW step of its own gradient,
-    p0 (1 - lr wd) - lr g / (|g| + eps), to atol 1e-3 lr + rtol 1e-6, but
-    for the elements ``keep(cpu)`` ({name: mask}) excludes; (4) every
+    p0 (1 - lr wd) - lr g / (|g| + eps) (Adam's with L2: p0 - lr g' / (|g'| +
+    eps), g' = g + wd p0), at the learning rate of the step, to atol 1e-3 lr
+    + rtol 1e-6, but for the elements ``keep(cpu)`` ({name: mask}) excludes; (4) every
     buffer, card against CPU, to rtol 1e-5 / atol 1e-7. The gradients of
     parameters whose name holds one of ``loose`` (the visual cores) pass
     back through BatchNorms that renormalize by batch statistics, which
@@ -1104,19 +1153,20 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=()) -> tuple[dict, dic
     their buffers (the
     BatchNorm statistics, reductions over ~1e5 values per channel) to rtol
     1e-5 / atol 2e-6. Returns (the card's losses, the worst errors)."""
-    optimizers = [o for o in (cpu.policy_optimizer, cpu.vq_optimizer) if o is not None]
     start = {n: p.detach().cpu().clone() for n, p in cpu.nets.named_parameters()}
+    hyper = {}
+    for o in cpu.optimizers().values():
+        g = o.optimizer.param_groups[0]
+        for p in o.params:
+            hyper[id(p)] = (g["lr"], g["weight_decay"], g["eps"],
+                            isinstance(o.optimizer, torch.optim.AdamW))
     grads = {"card": capture_grads(card), "cpu": capture_grads(cpu)}
-    got = card.train_on_batch(batch, 1)["losses"]
-    want = cpu.train_on_batch(batch, 1)["losses"]
+    kwargs = {} if draws is None else {"draws": draws}
+    got = card.train_on_batch(batch, 1, **kwargs)["losses"]
+    want = cpu.train_on_batch(batch, 1, **kwargs)["losses"]
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, err_msg=k)
 
-    hyper = {}
-    for o in optimizers:
-        g = o.optimizer.param_groups[0]
-        for p in o.params:
-            hyper[id(p)] = (g["lr"], g["weight_decay"], g["eps"])
     masks = keep(cpu) if keep is not None else {}
     worst = {"grad_err_over_max": 0.0, "zero_grads_over_max": 0.0, "step_err_in_lr": 0.0,
              "card_vs_cpu_in_lr": 0.0, "buffers": 0.0}
@@ -1140,25 +1190,30 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=()) -> tuple[dict, dic
                 worst["loose_grad_err_over_max"],
                 float((g_card - g_cpu).abs().max()) / max(scale, 1e-30))
         else:
-            np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), rtol=1e-3,
-                                       atol=1e-4 * scale, err_msg=f"grad of {name}")
+            assert_allclose(g_card, g_cpu, rtol=1e-3, atol=1e-4 * scale,
+                            err_msg=f"grad of {name}")
             worst["grad_err_over_max"] = max(
                 worst["grad_err_over_max"],
                 float((g_card - g_cpu).abs().max()) / max(scale, 1e-30))
-        lr, wd, eps = hyper[id(q)]
-        mask = masks.get(name, torch.ones_like(q, dtype=torch.bool))
+        lr, wd, eps, decoupled = hyper[id(q)]
+        mask = masks.get(name)
         for after, g in ((p.detach().cpu(), g_card), (q.detach(), g_cpu)):
-            adam = start[name] * (1 - lr * wd) - lr * g / (g.abs() + eps)
-            np.testing.assert_allclose(after[mask].numpy(), adam[mask].numpy(), rtol=1e-6,
-                                       atol=1e-3 * lr, err_msg=f"AdamW step of {name}")
+            if decoupled:
+                adam = start[name] * (1 - lr * wd) - lr * g / (g.abs() + eps)
+            else:
+                g = g + wd * start[name]
+                adam = start[name] - lr * g / (g.abs() + eps)
+            if mask is not None:
+                after, adam = after[mask], adam[mask]
+            assert_allclose(after, adam, rtol=1e-6, atol=1e-3 * lr,
+                            err_msg=f"AdamW step of {name}")
             worst["step_err_in_lr"] = max(worst["step_err_in_lr"],
-                                          float((after - adam)[mask].abs().max()) / lr)
+                                          float((after - adam).abs().max()) / lr)
         worst["card_vs_cpu_in_lr"] = max(worst["card_vs_cpu_in_lr"],
                                          float((p.detach().cpu() - q.detach()).abs().max()) / lr)
     for (name, b), (_, c) in zip(card.nets.named_buffers(), cpu.nets.named_buffers()):
         is_loose = any(k in name for k in loose)
-        np.testing.assert_allclose(b.cpu().numpy(), c.numpy(), rtol=1e-5,
-                                   atol=2e-6 if is_loose else 1e-7, err_msg=name)
+        assert_allclose(b.cpu(), c, rtol=1e-5, atol=2e-6 if is_loose else 1e-7, err_msg=name)
         key = "loose_buffers" if is_loose else "buffers"
         worst[key] = max(worst[key], float((b.cpu().double() - c.double()).abs().max()))
     return {k: float(v) for k, v in got.items()}, worst
@@ -1276,7 +1331,6 @@ def arms_phase(card: str) -> dict:
     from lipvq_tpu_torch.algo import algo_factory
     from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
     from lipvq_tpu_torch.data.loaders import DataLoader
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.utils.train_utils import run_epoch
 
     items = SequenceItems(2 * BATCH, seed=14)
@@ -1305,17 +1359,13 @@ def arms_phase(card: str) -> dict:
         policy = ICLRolloutPolicy(algo)
 
         # the main path: 8 served requests, then 10 train steps, each counted
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         served = [policy.batched(o, context) for o in requests]
-        serve_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                        vq_nearest_with_stats_cuda.launches)
+        serve_counts = launch_counts()
         loader = DataLoader(items, BATCH, seed=5)
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
-        train_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                        vq_nearest_with_stats_cuda.launches)
+        train_counts = launch_counts()
         k1 = arm == "vq"
         if serve_counts != (ARM_REQUESTS * k1, 0, 0) or train_counts != (ARM_STEPS * k1, 0, 0):
             raise AssertionError(f"{label}: launches (K1, K1f, K2) {serve_counts} serving "
@@ -1411,7 +1461,6 @@ def fast_arm(card: str, items) -> dict:
     from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
     from lipvq_tpu_torch.data.loaders import DataLoader
     from lipvq_tpu_torch.models.obs_nets import FAST_FEAT_DIM
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.utils.tensor_utils import stack_collate
     from lipvq_tpu_torch.utils.train_utils import run_epoch
 
@@ -1444,21 +1493,17 @@ def fast_arm(card: str, items) -> dict:
     policy = ICLRolloutPolicy(algo)
 
     # the main path: 10 train steps, then 8 served requests, each counted
-    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-    vq_nearest_with_stats_cuda.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
-    train_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                    vq_nearest_with_stats_cuda.launches)
+    train_counts = launch_counts()
     steps_pipeline = list(pipeline)
     context = algo.process_batch_for_training(stack_collate([context_item]))
-    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-    vq_nearest_with_stats_cuda.launches = 0
+    zero_launch_counts()
     served = [policy.batched(o, context) for o in requests]
-    serve_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                    vq_nearest_with_stats_cuda.launches)
+    serve_counts = launch_counts()
     if serve_counts != (0, 0, 0) or train_counts != (0, 0, 0):
         raise AssertionError(f"{label}: launches (K1, K1f, K2) {serve_counts} serving "
                              f"{ARM_REQUESTS} requests, {train_counts} in {ARM_STEPS} steps")
@@ -1589,12 +1634,7 @@ def corpus_phase(card: str, root: str, actions: np.ndarray, export_s: float) -> 
     from lipvq_tpu_torch.data.export import Export
     from lipvq_tpu_torch.models.base_nets import seeded_init
     from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
-    from lipvq_tpu_torch.ops.vq_lookup import (
-        vq_nearest_cuda,
-        vq_nearest_fast_reference,
-        vq_nearest_reference,
-        vq_nearest_with_stats_cuda,
-    )
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_fast_reference, vq_nearest_reference
     from lipvq_tpu_torch.parallel.corpus import tokenize_array
     from lipvq_tpu_torch.scripts import tokenize_corpus
 
@@ -1619,13 +1659,11 @@ def corpus_phase(card: str, root: str, actions: np.ndarray, export_s: float) -> 
 
         def run(extra):
             """The CLI once, counted: (stats, K1, K1f, K2 launches, printed)."""
-            vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-            vq_nearest_with_stats_cuda.launches = 0
+            zero_launch_counts()
             out = io.StringIO()
             with contextlib.redirect_stdout(out):
                 stats = tokenize_corpus.main(args + extra)
-            counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                      vq_nearest_with_stats_cuda.launches)
+            counts = launch_counts()
             return stats, counts, out.getvalue()
 
         # the main path: the CLI, a dry run and a writing run with K1, then a
@@ -1793,35 +1831,23 @@ def tokenizers_phase(card: str, root: str) -> dict:
     from lipvq_tpu_torch.models import clip_text
     from lipvq_tpu_torch.models.base_nets import seeded_init
     from lipvq_tpu_torch.models.tokenizers import vqvae
-    from lipvq_tpu_torch.ops.vq_lookup import (
-        vq_nearest_cuda,
-        vq_nearest_reference,
-        vq_nearest_with_stats_cuda,
-    )
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_reference
     from lipvq_tpu_torch.scripts import tokenizer_sweep
     from lipvq_tpu_torch.utils.lang_utils import LangEncoder
 
     dev = torch.device("cuda")
-
-    def reset():
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
-
-    def counts():
-        return (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                vq_nearest_with_stats_cuda.launches)
 
     # (a) the sweep, each setting counted
     sweep, launches = [], []
     setting = tokenizer_sweep.train_tokenizer
 
     def counted(*args, **kwargs):
-        reset()
+        zero_launch_counts()
         t0 = time.perf_counter()
         r = setting(*args, **kwargs)
         torch.cuda.synchronize()
-        launches.append(counts())
-        sweep.append({**r, "launches": counts(), "seconds": time.perf_counter() - t0})
+        launches.append(launch_counts())
+        sweep.append({**r, "launches": launch_counts(), "seconds": time.perf_counter() - t0})
         return r
 
     out = io.StringIO()
@@ -1868,11 +1894,11 @@ def tokenizers_phase(card: str, root: str) -> dict:
         card_model = vqvae.VQVAE(AC_DIM, TOKENIZER_LATENT, num_embeddings=codes).to(dev)
         card_model.load_state_dict(cpu.state_dict())
         xc = x.to(dev)
-        reset()
+        zero_launch_counts()
         _, loss, ids = card_model(xc)
         loss.backward()
         torch.cuda.synchronize()
-        got = counts()
+        got = launch_counts()
         if got != (1, 0, 0):
             raise AssertionError(f"VQVAE {codes} codes: launches (K1, K1f, K2) {got}")
         with torch.no_grad():
@@ -1906,11 +1932,11 @@ def tokenizers_phase(card: str, root: str) -> dict:
         cpu = seeded_init(make(), torch.Generator().manual_seed(22))
         card_model = make().to(dev)
         card_model.load_state_dict(cpu.state_dict())
-        reset()
+        zero_launch_counts()
         with torch.no_grad():
             z, loss = card_model(x.to(dev))[:2]
             torch.cuda.synchronize()
-            got = counts()
+            got = launch_counts()
             want_z, want_loss = cpu(x)[:2]
         if got != (0, 0, 0):
             raise AssertionError(f"{name}: launches (K1, K1f, K2) {got}")
@@ -1946,14 +1972,15 @@ def tokenizers_phase(card: str, root: str) -> dict:
     encoder = LangEncoder()  # no device given: the tower goes to the card
     encoder.use_tower(tower, lambda texts, padding, return_tensors: {
         "input_ids": ids[[row[t] for t in texts]]})
-    reset()
+    zero_launch_counts()
     got = torch.from_numpy(encoder.get_lang_emb(strings))
     with torch.no_grad():
         want = cpu(ids)
         clip_ms = cuda_ms(lambda: tower(ids.to(dev)), 10)
     on_card = next(tower.parameters()).device.type == "cuda"
-    if counts() != (0, 0, 0) or got.shape != (CLIP_ROWS, cfg.projection_dim) or not on_card:
-        raise AssertionError(f"CLIP tower: launches {counts()}, shape {tuple(got.shape)}, "
+    counts = launch_counts()
+    if counts != (0, 0, 0) or got.shape != (CLIP_ROWS, cfg.projection_dim) or not on_card:
+        raise AssertionError(f"CLIP tower: launches {counts}, shape {tuple(got.shape)}, "
                              f"on the card: {on_card}")
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5,
                                err_msg="CLIP tower, card vs CPU")
@@ -2007,7 +2034,6 @@ def script_phase(card: str, served: dict) -> dict:
 
     from lipvq_tpu_torch.algo import algo_factory
     from lipvq_tpu_torch.data.loaders import DataLoader
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.scripts import train as train_script
     from lipvq_tpu_torch.scripts.eval_checkpoint import evaluate_checkpoint
     from lipvq_tpu_torch.utils import file_utils, train_utils
@@ -2033,8 +2059,7 @@ def script_phase(card: str, served: dict) -> dict:
 
         def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
             seen["algo"] = model
-            before = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                      vq_nearest_with_stats_cuda.launches)
+            before = launch_counts()
             if epoch != SCRIPT_EPOCHS or validate:
                 log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
             else:
@@ -2050,23 +2075,21 @@ def script_phase(card: str, served: dict) -> dict:
                     "wall_ms": wall_ms, "busy_ms": busy_ms,
                     "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
                     "top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
-            seen["k1_steps"] += vq_nearest_cuda.launches - before[0]
-            seen["k1f_steps"] += vq_nearest_cuda.fast_launches - before[1]
-            seen["k2_steps"] += vq_nearest_with_stats_cuda.launches - before[2]
+            for key, after, was in zip(("k1_steps", "k1f_steps", "k2_steps"),
+                                       launch_counts(), before):
+                seen[key] += after - was
             return log
 
         out = io.StringIO()
         train_utils.run_epoch = observed_run_epoch
         try:
             # the main path: the training script, counted
-            vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-            vq_nearest_with_stats_cuda.launches = 0
+            zero_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 ckpt_dir = train_script.main(["--config", cfg_path])
             script_s = time.perf_counter() - t0
-            k1, k1f = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
-            k2 = vq_nearest_with_stats_cuda.launches
+            k1, k1f, k2 = launch_counts()
         except BaseException:
             print(out.getvalue()[-8000:])
             raise
@@ -2134,11 +2157,10 @@ def script_phase(card: str, served: dict) -> dict:
         fresh.deserialize_full(torch.load(state_path, map_location="cpu", weights_only=True))
         batch = fresh.process_batch_for_training(
             next(iter(DataLoader(SequenceItems(BATCH, seed=9), BATCH, seed=10))))
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         got = fresh.train_on_batch(batch, SCRIPT_EPOCHS + 1)["losses"]
         want = algo.train_on_batch(batch, SCRIPT_EPOCHS + 1)["losses"]
-        k1_resume, k2_resume = vq_nearest_cuda.launches, vq_nearest_with_stats_cuda.launches
+        k1_resume, _, k2_resume = launch_counts()
         if (k1_resume, k2_resume) != (2, 0):
             raise AssertionError(f"resume: K1 launched {k1_resume}, K2 {k2_resume} in 2 steps")
         for k in want:
@@ -2166,14 +2188,12 @@ def script_phase(card: str, served: dict) -> dict:
         del fresh, reloaded
 
         # eval_checkpoint on one env, counted
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         stats = evaluate_checkpoint(last, n=EVAL_EPISODES, horizon=EVAL_HORIZON,
                                     terminate_on_success=False, verbose=False)
         eval_s = time.perf_counter() - t0
-        k1_eval, k1f_eval = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
-        k2_eval = vq_nearest_with_stats_cuda.launches
+        k1_eval, k1f_eval, k2_eval = launch_counts()
         want_eval = EVAL_EPISODES * EVAL_HORIZON
         if (k1_eval, k1f_eval, k2_eval) != (want_eval, 0, 0) or \
                 stats["episodes"] != EVAL_EPISODES or \
@@ -2414,7 +2434,6 @@ def visual_phase(card: str) -> dict:
     from lipvq_tpu_torch.algo.base import frames_to_float
     from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
     from lipvq_tpu_torch.data.loaders import DataLoader
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.utils import obs_utils
     from lipvq_tpu_torch.utils.train_utils import run_epoch
 
@@ -2451,12 +2470,10 @@ def visual_phase(card: str) -> dict:
     policy = ICLRolloutPolicy(algo)
 
     # the main path: 5 batched + 3 single-env requests, counted
-    vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-    vq_nearest_with_stats_cuda.launches = 0
+    zero_launch_counts()
     batched = [policy.batched(o, context) for o in batched_obs]
     single = [policy(o, context) for o in single_obs]
-    serve_counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
-                    vq_nearest_with_stats_cuda.launches)
+    serve_counts = launch_counts()
     requests = VIS_REQUESTS + VIS_SINGLE
     if serve_counts != (requests, 0, 0):
         raise AssertionError(f"visual serve: launches (K1, K1f, K2) {serve_counts} for "
@@ -2527,11 +2544,9 @@ def visual_phase(card: str) -> dict:
         set_codebook(tok_cpu, (algo,), np.random.default_rng(4))
         loader = DataLoader(items, VIS_BATCH, seed=21)
         stem = visual_cores(algo)[0].backbone.stem_bn
-        vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-        vq_nearest_with_stats_cuda.launches = 0
+        zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=TRAIN_STEPS)
-        k1, k1f = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
-        k2 = vq_nearest_with_stats_cuda.launches
+        k1, k1f, k2 = launch_counts()
         if (k1, k1f, k2) != ((0, 0, TRAIN_STEPS) if ema else (TRAIN_STEPS, 0, 0)):
             raise AssertionError(f"visual {label}: K1 launched {k1}, K1f {k1f} and K2 {k2} "
                                  f"times in {TRAIN_STEPS} steps")
@@ -2605,7 +2620,6 @@ def visual_script(card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from lipvq_tpu_torch.data.loaders import MultiprocessLoader
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
     from lipvq_tpu_torch.scripts import train as train_script
     from lipvq_tpu_torch.utils import file_utils, train_utils
     from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
@@ -2644,7 +2658,7 @@ def visual_script(card: str) -> dict:
 
         def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
             seen["algo"], seen["loader"] = model, loader
-            before = vq_nearest_cuda.launches
+            before = launch_counts()[0]
             if epoch != SCRIPT_EPOCHS:
                 log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
             else:
@@ -2660,7 +2674,7 @@ def visual_script(card: str) -> dict:
                     "wall_ms": wall_ms, "busy_ms": busy_ms,
                     "idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
                     "top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])}
-            seen["k1_steps"] += vq_nearest_cuda.launches - before
+            seen["k1_steps"] += launch_counts()[0] - before
             return log
 
         out = io.StringIO()
@@ -2668,14 +2682,12 @@ def visual_script(card: str) -> dict:
         try:
             # the main path: the training script, counted
             procs = len(multiprocessing.active_children())
-            vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
-            vq_nearest_with_stats_cuda.launches = 0
+            zero_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 ckpt_dir = train_script.main(["--config", cfg_path])
             script_s = time.perf_counter() - t0
-            k1, k1f = vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches
-            k2 = vq_nearest_with_stats_cuda.launches
+            k1, k1f, k2 = launch_counts()
         except BaseException:
             print(out.getvalue()[-8000:])
             raise
@@ -2740,6 +2752,376 @@ def visual_script(card: str) -> dict:
             "export_s": export_s, "export_bytes": export_bytes, "time_ms_per_step": timing,
             "profile": prof, "mse": logs["MSE/action_mse"]}
 
+# phase 10, the policy baselines: the JAX package's templates at their widths
+# on the flagship's low-dim obs (label, algo, overrides of the template's algo)
+BASELINES = (("diffusion_policy", "diffusion_policy", {}),
+             ("act", "act", {}),
+             ("bc_gmm", "bc", {}),
+             ("bc_transformer_gmm", "bc", {"transformer": {"enabled": True}}),
+             ("bc_rnn_gmm", "bc", {"rnn": {"enabled": True}}))
+BASELINE_STEPS, BASELINE_REQUESTS, BASELINE_HORIZON = 10, 5, 40
+BASELINE_HOLD_BATCH, BASELINE_CPU_ENVS = 16, 2
+DP_DDIM_STEPS = 10
+DP_SAMPLE_ATOL = 1e-3  # a 100-step DDPM chain from the same noise, card against CPU
+UNET_PARAMS = 89_874_188  # ConditionalUnet1D(12, 2 x 791), the template's widths
+
+
+def _deep_update(d: dict, over: dict) -> dict:
+    for k, v in over.items():
+        d[k] = _deep_update(d.get(k, {}), v) if isinstance(v, dict) else v
+    return d
+
+
+def baseline_config(algo: str, over: dict, hold: bool = False):
+    """exps/templates/{algo}.json with ``over`` on its algo section and the
+    flagship's low-dim obs. ``hold``: the card-vs-CPU step's settings, no
+    warmup (the step moves every parameter) and no dropout."""
+    from lipvq_tpu_torch.config import config_factory
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "exps", "templates",
+                           f"{algo}.json")) as f:
+        template = json.load(f)
+    _deep_update(template["algo"], over)
+    if hold and algo == "bc":
+        _deep_update(template["algo"], {"transformer": {
+            "emb_dropout": 0.0, "attn_dropout": 0.0, "block_output_dropout": 0.0}})
+    cfg = config_factory(algo, template)
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = list(OBS_SHAPES)
+        if hold:
+            cfg.algo.optim_params.policy.learning_rate.num_warmup_steps = 0
+    return cfg
+
+
+def baseline_obs(algo, rng, n: int) -> dict:
+    """Serving obs for ``n`` envs: [n, T, ...] windows of the steps the algo
+    reads (Diffusion Policy's To, the sequence BC variants' context), [n, ...]
+    for the one-step ones."""
+    steps = baseline_frame_stack(algo)
+    return random_obs(rng, (n,) if steps is None else (n, steps))
+
+
+def baseline_frame_stack(algo) -> int | None:
+    """The obs window the algo reads: Diffusion Policy's To, the sequence BC
+    variants' context; None for the one-step ones."""
+    if hasattr(algo, "To"):
+        return algo.To
+    return algo._seq_len() if getattr(algo, "sequence", False) else None
+
+
+def assert_no_tf32(names, label: str) -> None:
+    """No kernel of the run is named TF32: convolutions (cuDNN) and the GEMMs
+    of the linears and the LSTM gates (cuBLAS) run in fp32."""
+    tf32 = [n for n in names if "tf32" in n.lower()]
+    if tf32:
+        raise AssertionError(f"{label}: TF32 kernels {tf32}")
+
+
+def baselines_phase(card: str) -> dict:
+    """Phase 10: Diffusion Policy, ACT, BC-GMM, BC-Transformer-GMM and
+    BC-RNN-GMM at their templates' widths: each serves 16-env requests,
+    rolls out one single-env episode and takes 10 train steps (K1 / K1f /
+    K2 launches 0), timed and profiled; one fp32 step of DP, ACT and
+    BC-Transformer-GMM held against the CPU, a DDPM chain from the same
+    noise held against the CPU, then DP through scripts/train.py."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import RolloutPolicy
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
+    from lipvq_tpu_torch.envs.rollout import rollout_with_stats
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+    from lipvq_tpu_torch.utils.train_utils import run_epoch
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "cuBLAS TF32 must stay off"
+    items = SequenceItems(2 * BATCH, seed=25)
+    results = {}
+    for label, algo_name, over in BASELINES:
+        t_start, dp = time.perf_counter(), label == "diffusion_policy"
+        algo = algo_factory(algo_name, baseline_config(algo_name, over), OBS_SHAPES,
+                            ac_dim=AC_DIM)  # CUDA by default
+        assert algo.device.type == "cuda"
+        params = sum(p.numel() for p in algo.nets.parameters())
+        r = results[label] = {"class": type(algo).__name__, "params": params}
+        if dp:
+            unet = sum(p.numel() for p in algo.nets.unet.parameters())
+            assert unet == UNET_PARAMS and algo.num_inference_timesteps == 100, unet
+            assert (algo.To, algo.Tp, algo.Ta) == (2, 16, 8) and algo.ema_enabled
+        rng = np.random.default_rng(26)
+        requests = [baseline_obs(algo, rng, N_ENVS) for _ in range(BASELINE_REQUESTS)]
+        queue = hasattr(algo, "reset")
+        loader = DataLoader(items, BATCH, seed=5)
+
+        # the main path: requests, one episode, 10 train steps, counted
+        zero_launch_counts()
+        served = [algo.get_action(o) for o in requests]
+        env = SyntheticKitchenEnv(seed=27)
+        policy = RolloutPolicy(algo, lang_encoder=LangEncoder(device=algo.device))
+        if queue:
+            algo.reset()  # the rollout does not (reference fault (a))
+        t0 = time.perf_counter()
+        rollout, _ = rollout_with_stats(policy, {"SyntheticKitchen": env},
+                                        horizon=BASELINE_HORIZON, num_episodes=1,
+                                        frame_stack=baseline_frame_stack(algo))
+        episode_s = time.perf_counter() - t0
+        log = run_epoch(algo, loader, epoch=1, num_steps=BASELINE_STEPS)
+        counts = launch_counts()
+        if counts != (0, 0, 0):
+            raise AssertionError(f"{label}: launches (K1, K1f, K2) {counts}")
+        if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
+            raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
+        stats = rollout["SyntheticKitchen"]
+        if stats["Horizon"] != BASELINE_HORIZON or not np.isfinite(stats["Return"]):
+            raise AssertionError(f"{label}: episode {stats}")
+        if not all(np.isfinite(v) for v in log.values()):
+            raise AssertionError(f"{label}: non-finite step log {log}")
+
+        def fresh():
+            if queue:
+                algo.reset()
+            return algo.get_action(requests[0])
+
+        # Diffusion Policy's new chunks (~0.8 s each) are warm from the
+        # requests served above: no warm-up calls
+        new_ms = host_ms(fresh, reps=3 if dp else 20, warmup=not dp)
+        queued_ms = None
+        if queue:
+            fresh()
+            times = []
+            while algo._action_queue:
+                t0 = time.perf_counter()
+                algo.get_action(requests[0])
+                times.append((time.perf_counter() - t0) * 1e3)
+            queued_ms = statistics.median(times)
+        request_busy, request_kernels = profile_device(fresh, 1 if dp else 2, warmup=not dp)
+        batch = algo.process_batch_for_training(next(iter(loader)))
+
+        def step():
+            algo.train_on_batch(batch, 1)
+            torch.cuda.synchronize()
+
+        step_ms = host_ms(step, reps=BASELINE_STEPS)
+        step_busy, kernels, convs, names = profile_convs(lambda: algo.train_on_batch(batch, 1),
+                                                         3)
+        assert_no_tf32(list(kernels) + names + list(request_kernels), label)
+        if dp:
+            assert_fp32_convs(names, label)
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
+        request_top = dict(sorted(request_kernels.items(), key=lambda kv: -kv[1])[:4])
+        r.update({
+            "launches": counts, "log": log, "episode": stats, "episode_s": episode_s,
+            "new_request_ms": new_ms, "queued_request_ms": queued_ms,
+            "request_busy_ms": request_busy,
+            "request_idle_share": None if request_busy is None else 1 - request_busy / new_ms,
+            "step_ms": step_ms, "step_busy_ms": step_busy,
+            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+            "step_conv_ms": sum(convs.values()), "step_top_ops_ms": top,
+            "request_top_ops_ms": request_top})
+        print(f"baseline {label} ({r['class']}, {params / 1e6:.2f} M parameters): "
+              f"{BASELINE_REQUESTS} requests of {N_ENVS} envs, one {BASELINE_HORIZON}-step "
+              f"episode (Return {stats['Return']:.3f}, {episode_s:.2f} s) and "
+              f"{BASELINE_STEPS} steps of batch {BATCH}, launches (K1, K1f, K2) {counts}; "
+              f"Loss {log['Loss']:.4f}; {N_ENVS}-env request {new_ms:.3f} ms with a new "
+              f"sample (device busy {request_busy} ms, idle share {r['request_idle_share']}), "
+              f"{queued_ms} ms from the queue; step {step_ms:.3f} ms (device busy {step_busy} "
+              f"ms, idle share {r['step_idle_share']}, convolution kernels "
+              f"{r['step_conv_ms']:.3f} ms); top {top}; the request's top {request_top} "
+              f"[{card}]")
+        r["seconds"] = {"served_and_timed": time.perf_counter() - t_start}
+        if dp:
+            t0 = time.perf_counter()
+            r["ddim"] = dp_ddim_request(card, algo, requests[0])
+            r["seconds"]["ddim"] = time.perf_counter() - t0
+        print(f"baseline {label}: seconds {r['seconds']}")
+        del algo, policy, batch, served
+        torch.cuda.empty_cache()
+    results["hold"] = baseline_holds(items)
+    t0 = time.perf_counter()
+    results["script"] = dp_script(card)
+    results["script"]["seconds"] = time.perf_counter() - t0
+    print(f"baseline diffusion_policy script: {results['script']['seconds']:.1f} s in all")
+    return results
+
+
+def dp_ddim_request(card: str, algo, obs) -> dict:
+    """One 16-env request of the same DP weights sampled by DDIM in 10 steps."""
+    from lipvq_tpu_torch.algo import algo_factory
+
+    ddim = algo_factory("diffusion_policy", baseline_config("diffusion_policy", {"ddim": {
+        "enabled": True, "num_inference_timesteps": DP_DDIM_STEPS}}), OBS_SHAPES,
+        ac_dim=AC_DIM)
+    ddim.deserialize(algo.serialize())
+    assert ddim.use_ddim and ddim.num_inference_timesteps == DP_DDIM_STEPS
+
+    def fresh():
+        ddim.reset()
+        return ddim.get_action(obs)
+
+    zero_launch_counts()
+    act = fresh()
+    counts = launch_counts()
+    assert counts == (0, 0, 0) and act.shape == (N_ENVS, AC_DIM) and np.isfinite(act).all()
+    ms = host_ms(fresh, reps=10)
+    print(f"baseline diffusion_policy DDIM: a {N_ENVS}-env request with a new "
+          f"{DP_DDIM_STEPS}-step DDIM sample {ms:.3f} ms [{card}]")
+    return {"request_ms": ms, "launches": counts}
+
+
+def dp_sample_parity(algo, cpu, rng) -> dict:
+    """The 100-step DDPM chain of the card's EMA net and of the CPU algo
+    ``cpu`` given the card's weights, from the same obs and the same noise
+    (initial sample and per-step draws)."""
+    cpu.deserialize(algo.serialize())
+    n, steps = BASELINE_CPU_ENVS, algo.num_inference_timesteps
+    obs = baseline_obs(algo, rng, n)
+    gen = torch.Generator().manual_seed(28)
+    shape = (n, algo.Tp, AC_DIM)
+    noise = (torch.randn(shape, generator=gen), torch.randn((steps, *shape), generator=gen))
+    got = algo.sample(algo._put_infer(obs), noise=tuple(x.cuda() for x in noise)).cpu()
+    want = cpu.sample(cpu._put_infer(obs), noise=noise)
+    err = float((got - want).abs().max())
+    if not err <= DP_SAMPLE_ATOL:
+        raise AssertionError(f"DDPM sample: card against CPU max abs {err}")
+    print(f"baseline diffusion_policy: a {steps}-step DDPM chain from the same noise on the "
+          f"card and on the CPU agrees to {err:.3g} (limit {DP_SAMPLE_ATOL})")
+    return {"max_abs_err": err}
+
+
+def baseline_holds(items) -> dict:
+    """One fp32 step of DP, ACT and BC-Transformer-GMM on the card held
+    against the CPU step by ``hold_step`` (the same draws on both devices,
+    no warmup, no dropout), batch 16; for DP, each device's EMA net also
+    equals decay * start + (1 - decay) * its own new parameters, and then
+    the two DP algos, given the card's weights, sample a DDPM chain from the
+    same noise (``dp_sample_parity``)."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.data.loaders import DataLoader
+
+    results = {}
+    for label, algo_name, over in BASELINES:
+        if label not in ("diffusion_policy", "act", "bc_transformer_gmm"):
+            continue
+        t0 = time.perf_counter()
+        card, cpu = (algo_factory(algo_name, baseline_config(algo_name, over, hold=True),
+                                  OBS_SHAPES, ac_dim=AC_DIM, device=d) for d in (None, "cpu"))
+        batch = card.process_batch_for_training(
+            next(iter(DataLoader(items, BASELINE_HOLD_BATCH, seed=7))))
+        gen = torch.Generator().manual_seed(29)
+        draws, zero = None, []
+        if label == "diffusion_policy":
+            draws = {"noise": torch.randn(batch["actions"].shape, generator=gen),
+                     "timesteps": torch.randint(cpu.scheduler.num_train_timesteps,
+                                                (BASELINE_HOLD_BATCH,), generator=gen)}
+            ema_start = {n: p.detach().cpu().clone() for n, p in cpu.ema_nets.named_parameters()}
+        elif label == "act":
+            draws = {"eps": torch.randn((BASELINE_HOLD_BATCH, cpu.nets.latent_dim),
+                                        generator=gen)}
+            zero = [n for n, _ in cpu.nets.named_parameters()
+                    if n.endswith(("_attn.key.bias", "_cross.key.bias"))]
+            assert len(zero) == 4 + 2 * 7, zero
+        losses, worst = hold_step(card, cpu, batch, zero=zero, draws=draws)
+        if label == "diffusion_policy":
+            decay = cpu.ema_decay(1)
+            for a in (card, cpu):
+                for (n, e), p in zip(a.ema_nets.named_parameters(), a.nets.parameters()):
+                    want = decay * ema_start[n] + (1 - decay) * p.detach().cpu()
+                    assert_allclose(e.detach().cpu(), want, rtol=1e-6, atol=1e-7,
+                                    err_msg=f"EMA of {n}")
+        results[label] = {"losses": losses, "worst": worst}
+        if label == "diffusion_policy":
+            results[label]["ddpm_vs_cpu"] = dp_sample_parity(card, cpu,
+                                                             np.random.default_rng(26))
+        results[label]["seconds"] = time.perf_counter() - t0
+        print(f"baseline {label} train parity: one fp32 step on the card == the CPU step "
+              f"(hold_step: losses rtol 1e-4, gradients, each device's Adam step, buffers)"
+              + (", the EMA net on each device" if label == "diffusion_policy" else "")
+              + f"; losses {losses}; worst {worst}; {results[label]['seconds']:.1f} s")
+        del card, cpu
+    return results
+
+
+def dp_script(card: str) -> dict:
+    """scripts/train.py with the Diffusion Policy template over a seeded
+    export (flagship obs): 2 epochs x 10 steps, one checkpoint, rollouts off
+    (the script's single-env rollout raises for a baseline, reference fault
+    (d)); the checkpoint rebuilds bit-equal, the EMA net included."""
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import file_utils, train_utils
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        obs_shapes = {k: tuple(s) for k, s in OBS_SHAPES.items() if k != "lang_emb"}
+        root = make_synthetic_export(os.path.join(tmp, "export"), n_demos=SCRIPT_DEMOS,
+                                     demo_len=SCRIPT_DEMO_LEN, action_dim=AC_DIM,
+                                     obs_key_shapes=obs_shapes, lang="synthetic dp task",
+                                     seed=30)
+        cfg = json.loads(baseline_config("diffusion_policy", {}).dump())
+        cfg["train"].update({"data": root, "output_dir": os.path.join(tmp, "out"),
+                             "num_epochs": SCRIPT_EPOCHS, "hdf5_cache_mode": "low_dim"})
+        exp = cfg["experiment"]
+        exp.update({"name": "chip_smoke_dp", "epoch_every_n_steps": SCRIPT_STEPS,
+                    "render_video": False, "validate": False})
+        exp["logging"].update({"terminal_output_to_txt": False, "log_tb": False})
+        exp["save"].update({"enabled": True, "every_n_epochs": SCRIPT_EPOCHS})
+        exp["rollout"]["enabled"] = False
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+
+        seen = {}
+        run_epoch = train_utils.run_epoch
+
+        def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+            seen["algo"] = model
+            return run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+
+        out = io.StringIO()
+        train_utils.run_epoch = observed_run_epoch
+        try:
+            # the main path: the training script, counted
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            script_s = time.perf_counter() - t0
+            counts = launch_counts()
+        except BaseException:
+            print(out.getvalue()[-8000:])
+            raise
+        finally:
+            train_utils.run_epoch = run_epoch
+        if counts != (0, 0, 0):
+            raise AssertionError(f"DP script: launches (K1, K1f, K2) {counts}")
+        names = sorted(os.listdir(ckpt_dir))
+        if not {f"model_epoch_{SCRIPT_EPOCHS}.ckpt", "latest_full.state"} <= set(names):
+            raise AssertionError(f"DP script: checkpoint files {names}")
+        with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+            logs = json.load(f)
+        if not all(np.isfinite(v).all() for v in logs.values()):
+            raise AssertionError(f"DP script: non-finite logs {logs}")
+        algo = seen["algo"]
+        t0 = time.perf_counter()
+        reloaded, _ = file_utils.policy_from_checkpoint(
+            os.path.join(ckpt_dir, f"model_epoch_{SCRIPT_EPOCHS}.ckpt"))
+        load_s = time.perf_counter() - t0
+        want, got = algo.serialize(), reloaded.serialize()
+        ema = sum(k.startswith("ema.") for k in want)
+        if want.keys() != got.keys() or not ema or not all(
+                torch.equal(want[k], got[k]) for k in want):
+            raise AssertionError("DP script: the reloaded checkpoint differs from the "
+                                 "in-process algo")
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, f"model_epoch_{SCRIPT_EPOCHS}.ckpt"))
+        del reloaded, algo
+    timing = {k: per_step_ms(logs, f"Timing_Stats/Train_{k}", SCRIPT_STEPS)
+              for k in ("Data_Loading", "Process_Batch", "Train_Batch", "Log_Info")}
+    print(f"baseline diffusion_policy script: {SCRIPT_EPOCHS} epochs x {SCRIPT_STEPS} steps over "
+          f"an export of {SCRIPT_DEMOS} demos x {SCRIPT_DEMO_LEN} steps in {script_s:.1f} s, "
+          f"launches (K1, K1f, K2) {counts}; the checkpoint ({ckpt_bytes / 1e6:.1f} MB, {ema} "
+          f"EMA tensors) reloads bit-equal in {load_s:.2f} s; Train/Loss {logs['Train/Loss']}; "
+          f"Time_* per step {({k: [round(x, 3) for x in v] for k, v in timing.items()})} ms "
+          f"[{card}]")
+    return {"launches": counts, "script_s": script_s, "ckpt_bytes": ckpt_bytes,
+            "load_s": load_s, "time_ms_per_step": timing, "loss": logs["Train/Loss"]}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2767,19 +3149,29 @@ def main() -> int:
     print(f"BPE library build (g++): {native.build().name} in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    k1 = kernel_phase(card)
-    k2 = stats_phase(card)
-    k1f = fast_phase(card)
-    served = slice_phase(card)
-    trained = train_phase(card)
-    scripted = script_phase(card, served)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    k1 = timed("kernel", kernel_phase, card)
+    k2 = timed("stats", stats_phase, card)
+    k1f = timed("fast", fast_phase, card)
+    served = timed("slice", slice_phase, card)
+    trained = timed("train", train_phase, card)
+    scripted = timed("script", script_phase, card, served)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
         root, actions, export_s = write_corpus_export(tmp)
-        corpus = corpus_phase(card, root, actions, export_s)
+        corpus = timed("corpus", corpus_phase, card, root, actions, export_s)
         del actions
-        tokenizers = tokenizers_phase(card, root)
-    arms = arms_phase(card)
-    visual = visual_phase(card)
+        tokenizers = timed("tokenizers", tokenizers_phase, card, root)
+    arms = timed("arms", arms_phase, card)
+    visual = timed("visual", visual_phase, card)
+    baselines = timed("baselines", baselines_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -2824,6 +3216,13 @@ def main() -> int:
     k1f_paths["visual train"] = visual["train"]["k1f_launches"]
     k1f_paths["visual train_ema"] = visual["train_ema"]["k1f_launches"]
     k1f_paths["visual train_script"] = visual["script"]["k1f"]
+    for label, _, _ in BASELINES:
+        for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+            paths[f"baseline {label}"] = baselines[label]["launches"][i]
+    for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+        paths["baseline diffusion_policy ddim"] = baselines["diffusion_policy"]["ddim"][
+            "launches"][i]
+        paths["baseline diffusion_policy train_script"] = baselines["script"]["launches"][i]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -2869,7 +3268,8 @@ def main() -> int:
         "visual_train_shape": k2["visual_train"],
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
-        "arms": arms, "tokenizers": tokenizers, "visual": visual}))
+        "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
+        "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,8 @@ from collections.abc import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from lipvq_tpu_torch.config.base import raise_unported
+
 ALGO_REGISTRY: dict[str, Callable] = {}
 
 
@@ -57,7 +59,10 @@ def frames_to_float(frames: torch.Tensor) -> torch.Tensor:
 
 def algo_factory(algo_name: str, config, obs_key_shapes: dict, ac_dim: int,
                  device=None):
-    """Instantiate an algorithm on ``device`` (CUDA when None)."""
+    """Instantiate an algorithm on ``device`` (CUDA when None). An algorithm
+    of the JAX package that the port does not have yet raises
+    NotImplementedError."""
+    raise_unported(algo_name)
     if algo_name not in ALGO_REGISTRY:
         raise KeyError(
             f"Unknown algo {algo_name!r}; registered: {sorted(ALGO_REGISTRY)}"
@@ -241,6 +246,10 @@ class Algo:
                 else np.asarray(tree).dtype == np.uint8):
             return frames_to_float(torch.as_tensor(tree, device=self.device))
         return torch.as_tensor(tree, dtype=torch.float32, device=self.device)
+
+    def _put_batch(self, batch):
+        """Host batch -> float32 tensors on ``self.device`` (None stays)."""
+        return {k: None if v is None else self._put_infer(v) for k, v in batch.items()}
 
     # -- to implement ------------------------------------------------------
     def _create_networks(self):

@@ -262,10 +262,6 @@ class ICLTransformerGMM(PolicyAlgo):
             chunks, self._fast_lang,
             seq_len=chunks.shape[1], feat_dim=FAST_FEAT_DIM)
 
-    def _put_batch(self, batch):
-        """Host batch -> float32 tensors on ``self.device`` (None stays)."""
-        return {k: None if v is None else self._put_infer(v) for k, v in batch.items()}
-
     # -- head-specific pieces (overridden by the non-GMM variant) ----------
     def _slice_last_step(self, dists: GMMParams) -> GMMParams:
         return GMMParams(*(a[:, -1] for a in dists))

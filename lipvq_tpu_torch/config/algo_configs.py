@@ -1,9 +1,11 @@
 """Per-algorithm config classes (copy of ``lipvq_tpu/config/algo_configs.py``).
 
-``ICLConfig`` and ``ICLMambaConfig`` and the helpers they call are ported so
-far. Defaults
-mirror the reference per-algo configs so the reference's JSON templates
-apply unchanged (reference: robomimic/config/icl_config.py).
+``ICLConfig``, ``ICLMambaConfig``, ``BCConfig``, ``ACTConfig`` and
+``DiffusionPolicyConfig`` and the helpers they call are ported so far; the
+other algorithms' configs raise in ``config_factory`` (``UNPORTED_ALGOS`` in
+``config/base.py``). Defaults mirror the reference per-algo configs so the
+reference's JSON templates apply unchanged (reference:
+robomimic/config/{icl,bc,act,diffusion_policy}_config.py).
 
 The four mutually-exclusive action-tokenizer switches live under
 ``algo.transformer.{vq_vae_enabled,bin_enabled,fast_enabled,ln_act_enabled}``
@@ -172,3 +174,93 @@ class ICLMambaConfig(BaseConfig):
         algo.vq.hidden_dim = 128
         algo.vq.ema_codebook = False
         algo.vq.ema_decay = 0.99
+
+
+class BCConfig(BaseConfig):
+    ALGO_NAME = "bc"
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        _loss_defaults(algo)
+        algo.actor_layer_dims = [1024, 1024]
+        _gaussian_defaults(algo)
+        _gmm_defaults(algo)
+        _vae_defaults(algo)
+        _rnn_defaults(algo)
+        _seq_backbone_defaults(algo.transformer)
+        algo.language_conditioned = False
+
+
+class ACTConfig(BaseConfig):
+    """Reference: robomimic/config/act_config.py (+ algo/act.py defaults)."""
+
+    ALGO_NAME = "act"
+
+    def train_config(self):
+        super().train_config()
+        self.train.seq_length = 10
+        self.train.hdf5_load_next_obs = False
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        algo.optim_params.policy.learning_rate.initial = 5e-5
+        algo.optim_params.policy.regularization.L2 = 1e-4
+        algo.act.chunk_size = 10
+        algo.act.hidden_dim = 512
+        algo.act.latent_dim = 32
+        algo.act.num_heads = 8
+        algo.act.enc_layers = 4
+        algo.act.dec_layers = 7
+        algo.act.ff_dim = 3200
+        algo.act.kl_weight = 20.0
+
+
+class DiffusionPolicyConfig(BaseConfig):
+    """Reference: robomimic/config/diffusion_policy_config.py."""
+
+    ALGO_NAME = "diffusion_policy"
+
+    def train_config(self):
+        super().train_config()
+        self.train.seq_length = 16
+        self.train.frame_stack = 2
+        self.train.hdf5_load_next_obs = False
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        algo.optim_params.policy.learning_rate.initial = 1e-4
+        algo.optim_params.policy.learning_rate.scheduler_type = "cosine"
+        algo.optim_params.policy.learning_rate.num_warmup_steps = 500
+        algo.optim_params.policy.regularization.L2 = 1e-6
+
+        algo.horizon.observation_horizon = 2
+        algo.horizon.action_horizon = 8
+        algo.horizon.prediction_horizon = 16
+
+        algo.unet.enabled = True
+        algo.unet.diffusion_step_embed_dim = 256
+        algo.unet.down_dims = [256, 512, 1024]
+        algo.unet.kernel_size = 5
+        algo.unet.n_groups = 8
+
+        algo.ema.enabled = True
+        algo.ema.power = 0.75
+
+        algo.ddpm.enabled = True
+        algo.ddpm.num_train_timesteps = 100
+        algo.ddpm.num_inference_timesteps = 100
+        algo.ddpm.beta_schedule = "squaredcos_cap_v2"
+        algo.ddpm.clip_sample = True
+        algo.ddpm.prediction_type = "epsilon"
+
+        algo.ddim.enabled = False
+        algo.ddim.num_train_timesteps = 100
+        algo.ddim.num_inference_timesteps = 10
+        algo.ddim.beta_schedule = "squaredcos_cap_v2"
+        algo.ddim.clip_sample = True
+        algo.ddim.set_alpha_to_one = True
+        algo.ddim.steps_offset = 0
+        algo.ddim.prediction_type = "epsilon"

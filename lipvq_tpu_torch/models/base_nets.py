@@ -49,6 +49,32 @@ class TorchLinear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+class MLP(nn.Module):
+    """The JAX package's ``MLP``: ``TorchLinear_0..n-1`` over ``layer_dims``,
+    each followed by ``activation``, then ``TorchLinear_n`` to
+    ``output_dim`` and the optional ``output_activation``."""
+
+    def __init__(self, in_features: int, layer_dims, output_dim: int,
+                 activation="relu", output_activation=None):
+        super().__init__()
+        self.activation = activation
+        self.output_activation = output_activation
+        widths = [in_features, *layer_dims, output_dim]
+        self.num_linears = len(widths) - 1
+        for i in range(self.num_linears):
+            self.add_module(f"TorchLinear_{i}", TorchLinear(widths[i], widths[i + 1]))
+
+    def forward(self, x):
+        act = get_activation(self.activation)
+        for i in range(self.num_linears):
+            x = getattr(self, f"TorchLinear_{i}")(x)
+            if i < self.num_linears - 1:
+                x = act(x)
+        if self.output_activation is not None:
+            x = get_activation(self.output_activation)(x)
+        return x
+
+
 class SpectralNormLinear(nn.Module):
     """Linear layer divided by its largest singular value, estimated by power
     iteration (``SpectralNormLinear`` of the JAX package, i.e.
@@ -155,14 +181,15 @@ def cudnn_fp32():
 
 
 class _ConvFp32(torch.autograd.Function):
-    """``aten.convolution`` (no dilation, one group) whose forward and
-    backward each run under ``cudnn_fp32``: cuDNN reads the TF32 setting
-    when the backward runs, outside any scope around the forward."""
+    """``aten.convolution`` (no dilation, one group, no output padding)
+    whose forward and backward each run under
+    ``cudnn_fp32``: cuDNN reads the TF32 setting when the backward runs,
+    outside any scope around the forward."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding):
+    def forward(ctx, x, weight, bias, stride, padding, transposed=False):
         dims = len(padding)
-        ctx.args = ([stride] * dims, padding, [1] * dims, False, [0] * dims, 1)
+        ctx.args = ([stride] * dims, padding, [1] * dims, transposed, [0] * dims, 1)
         ctx.bias_sizes = None if bias is None else list(bias.shape)
         ctx.save_for_backward(x, weight)
         with cudnn_fp32():
@@ -177,7 +204,7 @@ class _ConvFp32(torch.autograd.Function):
         with cudnn_fp32():
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 grad, x, weight, ctx.bias_sizes, *ctx.args, mask)
-        return gx, gw, gb, None, None
+        return gx, gw, gb, None, None, None
 
 
 class Conv(nn.Module):
@@ -220,6 +247,39 @@ class Conv(nn.Module):
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])  # last dim first
             pads = [(0, 0)] * len(pads)
         return _ConvFp32.apply(x, self.weight, self.bias, self.stride, [lo for lo, _ in pads])
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(features, (k,), strides=(s,), padding="SAME")``
+    over [B, C, L] (output length L * s), as ``conv_transpose1d``. flax
+    correlates the stride-dilated input, padded as ``lax.conv_transpose``
+    pads for "SAME", with its kernel [k, in, out] as it is; torch's
+    transposed convolution flips the taps, so ``weight`` [in, out, k] holds
+    the flax kernel with its tap axis reversed (``utils/jax_weights.py``
+    flips it). flax's init: lecun-normal weights, zero bias. Forward and
+    backward run in fp32 on the card (``cudnn_fp32``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, bias: bool = True):
+        super().__init__()
+        k, s = int(kernel_size), int(stride)
+        # lax.conv_transpose's "SAME" padding of the dilated input
+        pad_len = k + s - 2
+        pad_lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+        if pad_len - pad_lo != pad_lo:
+            raise ValueError(f"flax's SAME pads k={k}, s={s} unevenly; not supported")
+        self.stride, self.padding = s, k - 1 - pad_lo
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, k))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight.shape[0] * self.weight.shape[2], generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        return _ConvFp32.apply(x, self.weight, self.bias, self.stride, [self.padding], True)
 
 
 class BatchNorm(nn.Module):

@@ -14,6 +14,9 @@
   tokenizer on the context action stream
 - ``ICLMIMOTransformer``         — 3-stream embed, [ctx_obs, ctx_act]
   interleave + query obs -> GPT or Mamba over 3T tokens -> decode the last T
+- ``MIMOTransformer``            — the non-ICL composite of the BC
+  transformer baseline: embed each timestep's obs -> GPT over T tokens ->
+  decode every timestep
 
 Low-dim and image observations and every tokenizer arm (LipVQ, bin,
 ln_act, raw and FAST, whose token features the algo computes on the host)
@@ -68,6 +71,13 @@ def _numel(shape) -> int:
     for s in shape:
         n *= s
     return n
+
+
+def flatten_time(tree, b: int, t: int):
+    """Every leaf of a (nested) dict [B, T, ...] -> [B * T, ...]."""
+    if isinstance(tree, dict):
+        return {k: flatten_time(v, b, t) for k, v in tree.items()}
+    return tree.reshape((b * t,) + tuple(tree.shape[2:]))
 
 
 def spec_flat_dim(spec: ObsSpec) -> int:
@@ -385,13 +395,11 @@ class ICLMIMOTransformer(nn.Module):
         """All obs leaves [B, T, ...]; prompt_actions [B, T, A].
         Returns (outputs dict of [B, T, ...], vq_aux_loss)."""
         b, t = next(iter(obs.values())).shape[:2]
-
-        def flat(tree):
-            return {k: v.reshape((b * t,) + tuple(v.shape[2:])) for k, v in tree.items()}
-
         obs_f, ctx_obs_f, ctx_act_f, aux = self.encoder(
-            flat(obs), flat(prompt_obs), prompt_actions.reshape(b * t, -1),
-            goal=flat(goal) if goal is not None else None, train=train, generator=generator)
+            flatten_time(obs, b, t), flatten_time(prompt_obs, b, t),
+            prompt_actions.reshape(b * t, -1),
+            goal=flatten_time(goal, b, t) if goal is not None else None, train=train,
+            generator=generator)
         obs_emb = self.input_embedding(obs_f.reshape(b, t, -1), train, generator)
         ctx_obs_emb = self.input_embedding(ctx_obs_f.reshape(b, t, -1), train, generator)
         ctx_act_emb = self.input_embedding(ctx_act_f.reshape(b, t, -1), train, generator)
@@ -402,3 +410,60 @@ class ICLMIMOTransformer(nn.Module):
         tokens = torch.cat([interleaved, obs_emb], dim=1)  # [B, 3T, D]
         hidden = self.transformer(tokens, train, generator)
         return self.decoder(hidden[:, -t:]), aux
+
+
+class MIMOTransformer(nn.Module):
+    """Non-ICL MIMO transformer (the JAX package's ``MIMOTransformer``, used by
+    the BC transformer baseline): encode the obs of each timestep, linear
+    embed + timestep embedding + LN + dropout, GPT over the T tokens, one
+    decoder head per output key at every timestep. The timestep embedding
+    is sinusoidal with ``sinusoidal_embedding``, else the learned offset
+    ``embed_timestep`` (zeros) with ``nn_parameter_for_timesteps``, else
+    none; the parameter exists whenever ``nn_parameter_for_timesteps`` is
+    set, as in flax. Its GPT runs in fp32 without remat, as the JAX
+    package's only caller builds it (ROADMAP queue 3, fault (e))."""
+
+    def __init__(self, group_specs: ObsSpec, output_spec: ObsSpec, embed_dim: int = 512,
+                 num_layers: int = 6, num_heads: int = 8, context_length: int = 10,
+                 causal: bool = True, emb_dropout: float = 0.1, attn_dropout: float = 0.1,
+                 block_output_dropout: float = 0.1, sinusoidal_embedding: bool = False,
+                 nn_parameter_for_timesteps: bool = True, activation: str = "gelu",
+                 encoder_cores: ObsSpec = ()):
+        super().__init__()
+        self.embed_dim = embed_dim
+        self.emb_dropout = emb_dropout
+        self.sinusoidal_embedding = sinusoidal_embedding
+        self.encoder = ObservationGroupEncoder(group_specs, feature_activation=None,
+                                               encoder_cores=encoder_cores)
+        in_dim = sum(spec_encoded_dim(spec, encoder_cores) for _, spec in group_specs)
+        self.embed_encoder = TorchLinear(in_dim, embed_dim)
+        self.embed_ln = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.embed_timestep = (nn.Parameter(torch.empty(1, context_length, embed_dim))
+                               if nn_parameter_for_timesteps else None)
+        self.transformer = GPTBackbone(
+            embed_dim=embed_dim, context_length=context_length, causal=causal,
+            attn_dropout=attn_dropout, block_output_dropout=block_output_dropout,
+            num_layers=num_layers, num_heads=num_heads, activation=activation)
+        self.decoder = ObservationDecoder(embed_dim, output_spec)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.embed_timestep is not None:
+            with torch.no_grad():
+                self.embed_timestep.zero_()
+
+    def forward(self, obs, goal=None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """obs (and goal) leaves [B, T, ...] -> outputs dict of [B, T, ...];
+        ``train`` turns on dropout, drawing from ``generator``."""
+        b, t = next(iter(obs.values())).shape[:2]
+        groups = {"obs": flatten_time(obs, b, t)}
+        if goal is not None:
+            groups["goal"] = flatten_time(goal, b, t)
+        emb = self.embed_encoder(self.encoder(train, generator, **groups).reshape(b, t, -1))
+        if self.sinusoidal_embedding:
+            ts = torch.arange(t, dtype=torch.float32, device=emb.device).expand(b, t)
+            emb = emb + sinusoidal_position_encoding(ts, self.embed_dim)
+        elif self.embed_timestep is not None:
+            emb = emb + self.embed_timestep[:, :t]
+        emb = dropout(self.embed_ln(emb), self.emb_dropout, generator, train)
+        return self.decoder(self.transformer(emb, train, generator))

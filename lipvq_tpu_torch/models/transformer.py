@@ -18,6 +18,13 @@ it: on the fp32 softmax (before the bf16 cast), after the attention output
 Dense, and after ``mlp_proj`` once cast to the residual dtype. It is active
 only with ``train=True`` and draws its masks from the ``generator`` passed
 down with it.
+
+``remat=True`` recomputes each block in the backward instead of keeping its
+activations (flax ``nn.remat``), through ``torch.utils.checkpoint``. The
+recomputation replays the block's dropout masks: it restores the
+generator's state from before the block's forward, runs, and puts the
+generator back where it was (``preserve_rng_state`` covers only the global
+generators, not an explicit one).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from lipvq_tpu_torch.models.base_nets import dropout, gelu_exact
@@ -161,9 +169,7 @@ class GPTBackbone(nn.Module):
                  remat: bool = False, compute_dtype: torch.dtype | None = None,
                  activation_dtype: torch.dtype | None = None):
         super().__init__()
-        if remat:
-            raise NotImplementedError("rematerialized blocks are ROADMAP queue 1, "
-                                      "item 4; not ported yet")
+        self.remat = remat
         self.embed_dim = embed_dim
         self.context_length = context_length
         self.num_layers = num_layers
@@ -182,5 +188,33 @@ class GPTBackbone(nn.Module):
         if self.activation_dtype is not None:
             x = x.to(self.activation_dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, train, generator)
+            block = getattr(self, f"block_{i}")
+            if self.remat and torch.is_grad_enabled():
+                x = _rematerialized(block, x, train, generator)
+            else:
+                x = block(x, train, generator)
         return layer_norm(self.output_ln, x)
+
+
+def _rematerialized(block: nn.Module, x, train: bool, generator: torch.Generator | None):
+    """``block(x, train, generator)`` whose activations are recomputed in the
+    backward, with the same dropout masks as the forward drew."""
+    if not train or generator is None:
+        return torch.utils.checkpoint.checkpoint(block, x, train, None, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    before = generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(1)
+            return block(x, train, generator)
+        after = generator.get_state()  # the recomputation: replay the forward's draws
+        generator.set_state(before)
+        try:
+            return block(x, train, generator)
+        finally:
+            generator.set_state(after)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)

@@ -1,6 +1,8 @@
 // Native BPE trainer/encoder/decoder for the PRISE/FAST action-token paths
-// of lipvq_tpu_torch: a copy of lipvq_tpu/native/bpe.cpp, so both packages
-// fit the same merges and read each other's serialized vocabularies.
+// of lipvq_tpu_torch: lipvq_tpu/native/bpe.cpp's rules, so both packages
+// fit the same merges and read each other's serialized vocabularies. The
+// trainer keeps its pair counts current as it merges instead of recounting
+// every word at every merge; the merges it picks are the same.
 //
 // Equivalent of the HF `tokenizers` Rust BPE used by the
 // reference (reference: robomimic/models/prise/backbone.py:8-53;
@@ -21,6 +23,7 @@
 #include <cstdint>
 #include <cstring>
 #include <map>
+#include <queue>
 #include <sstream>
 #include <string>
 #include <unordered_map>
@@ -89,50 +92,100 @@ struct BPE {
         words[w].syms.push_back(vocab_index[ch]);
     }
 
+    // Adjacent-pair counts, kept current as merges rewrite words: each merge
+    // visits only the words that hold its pair. `holders` lists, per pair,
+    // the words that held it when it was counted (a word may be listed twice
+    // or after it lost the pair). `queue` orders (count, pair) entries by
+    // count, then by the smaller pair, the rule of a full rescan (highest
+    // count; tie -> smaller left id, then smaller right id); an entry whose
+    // count is no longer the pair's is skipped.
+    using Pair = std::pair<int32_t, int32_t>;
+    using Entry = std::pair<int64_t, Pair>;
+    std::map<Pair, int64_t> pair_counts;
+    std::map<Pair, std::vector<int32_t>> holders;
+    auto lower = [](const Entry& a, const Entry& b) {
+      return a.first != b.first ? a.first < b.first : a.second > b.second;
+    };
+    std::priority_queue<Entry, std::vector<Entry>, decltype(lower)> queue(lower);
+    auto eligible = [&](const Pair& p) {
+      return max_token_length <= 0 ||
+             (int32_t)(utf8_len(vocab[p.first]) + utf8_len(vocab[p.second])) <=
+                 max_token_length;
+    };
+    for (size_t w = 0; w < words.size(); ++w) {
+      auto& s = words[w].syms;
+      for (size_t i = 0; i + 1 < s.size(); ++i) {
+        pair_counts[{s[i], s[i + 1]}] += words[w].count;
+        holders[{s[i], s[i + 1]}].push_back((int32_t)w);
+      }
+    }
+    for (auto& kv : pair_counts)
+      if (kv.second > 0 && eligible(kv.first)) queue.push({kv.second, kv.first});
+
+    std::vector<int32_t> recounted(words.size(), -1);  // rank of the last visit
     int32_t rank = 0;
     while ((int32_t)vocab.size() < vocab_size) {
-      // count all adjacent pairs
-      std::map<std::pair<int32_t, int32_t>, int64_t> pair_counts;
-      for (auto& word : words) {
-        for (size_t i = 0; i + 1 < word.syms.size(); ++i)
-          pair_counts[{word.syms[i], word.syms[i + 1]}] += word.count;
-      }
-      // pick best: max count; tie -> smaller left id, then smaller right id
-      std::pair<int32_t, int32_t> best{-1, -1};
+      Pair best{-1, -1};
       int64_t best_count = 0;
-      for (auto& kv : pair_counts) {
-        if (max_token_length > 0) {
-          size_t merged_len = utf8_len(vocab[kv.first.first]) +
-                              utf8_len(vocab[kv.first.second]);
-          if ((int32_t)merged_len > max_token_length) continue;
-        }
-        if (kv.second > best_count ||
-            (kv.second == best_count && best.first >= 0 && kv.first < best)) {
-          best_count = kv.second;
-          best = kv.first;
+      while (!queue.empty()) {
+        Entry top = queue.top();
+        queue.pop();
+        auto it = pair_counts.find(top.second);
+        if (it != pair_counts.end() && it->second == top.first) {
+          best = top.second;
+          best_count = top.first;
+          break;
         }
       }
       if (best.first < 0 || best_count < min_frequency) break;
 
       std::string merged = vocab[best.first] + vocab[best.second];
       int32_t new_id = intern(merged);
-      merges[best] = {rank++, new_id};
+      merges[best] = {rank, new_id};
 
-      // apply merge to every word
-      for (auto& word : words) {
-        auto& s = word.syms;
-        size_t j = 0;
+      // apply the merge to every word that holds the pair; the counts change
+      // only around each merged occurrence (prev a b next -> prev n next,
+      // prev being the rewritten symbol before it)
+      std::vector<int32_t> words_of_best;
+      words_of_best.swap(holders[best]);
+      std::map<Pair, int64_t> changed;
+      auto add = [&](const Pair& p, int64_t delta, int32_t w) {
+        changed[p] += delta;
+        if (delta > 0) holders[p].push_back(w);
+      };
+      std::vector<int32_t> out;
+      for (int32_t w : words_of_best) {
+        if (recounted[w] == rank) continue;
+        recounted[w] = rank;
+        auto& s = words[w].syms;
+        const int64_t c = words[w].count;
+        out.clear();
         for (size_t i = 0; i < s.size();) {
-          if (i + 1 < s.size() && s[i] == best.first &&
-              s[i + 1] == best.second) {
-            s[j++] = new_id;
+          if (i + 1 < s.size() && s[i] == best.first && s[i + 1] == best.second) {
+            if (!out.empty()) {
+              add({out.back(), best.first}, -c, w);
+              add({out.back(), new_id}, c, w);
+            }
+            add(best, -c, w);
+            if (i + 2 < s.size()) {
+              add({best.second, s[i + 2]}, -c, w);
+              add({new_id, s[i + 2]}, c, w);
+            }
+            out.push_back(new_id);
             i += 2;
           } else {
-            s[j++] = s[i++];
+            out.push_back(s[i++]);
           }
         }
-        s.resize(j);
+        s.assign(out.begin(), out.end());
       }
+      for (auto& kv : changed) {
+        if (kv.second == 0) continue;
+        int64_t& count = pair_counts[kv.first];
+        count += kv.second;
+        if (count > 0 && eligible(kv.first)) queue.push({count, kv.first});
+      }
+      ++rank;
     }
   }
 

@@ -2,13 +2,18 @@
 
 The port mirrors the flax module tree (layer lists such as the FAST arm's
 ``fast_proj_0..2`` or the VQ-VAEs' ``enc_0..2`` keep flax's names), so a
-flax path maps to a state_dict key by joining with dots, with three renames:
+flax path maps to a state_dict key by joining with dots, with these renames:
 
 - a Dense ``kernel`` [in, out] becomes ``weight`` [out, in] (transposed); a
-  ``DenseGeneral`` kernel of more than two axes (the raw tokenizer's
-  attention: query/key/value [D, H, Dh], out [H, Dh, D]) becomes ``weight``
-  in its flax layout;
-- a LayerNorm ``scale`` becomes ``weight``;
+  ``DenseGeneral`` kernel of more than two axes (the attention of the raw
+  tokenizer and of ACT: query/key/value [D, H, Dh], out [H, Dh, D]) becomes
+  ``weight`` in its flax layout;
+- a convolution's ``kernel`` [*taps, in, out] (the visual cores' 2-D ones,
+  the UNet's 1-D [K, in, out]) becomes ``weight`` [out, in, *taps]; a 1-D
+  transposed convolution's (the UNet's ``Upsample1d``) [K, in, out] becomes
+  ``weight`` [in, out, K] with its taps reversed (``base_nets.ConvTranspose``);
+  the port's module at the tree's root tells the three apart;
+- a LayerNorm or GroupNorm ``scale`` becomes ``weight``;
 - a flax ``OptimizedLSTMCell`` (``ii``/``if``/``ig``/``io`` kernels [in, H],
   ``hi``/``hf``/``hg``/``ho`` kernels [H, H] and biases) becomes the port's
   packed cell: ``w_ih`` [4H, in], ``w_hh`` [4H, H] and ``b_hh`` [4H], the
@@ -16,7 +21,9 @@ flax path maps to a state_dict key by joining with dots, with three renames:
 
 Every other leaf (``bias``, LipschitzDense ``W``/``b``/``ci``, the
 quantizer ``codebook``, the VQ-VAEs' ``embedding`` table, ``embed_timestep``,
-``embed_timestep_table``, the bin tokenizer's ``embedding_tables``, Mamba's
+``embed_timestep_table``, ACT's ``cls_embed`` / ``enc_pos_embed`` /
+``query_embed``, a learned VAE prior's ``prior_mu`` / ``prior_logvar`` /
+``prior_logits``, the bin tokenizer's ``embedding_tables``, Mamba's
 ``conv_kernel``/``conv_bias``/``A_log``/``D``, the CLIP tower's
 ``token_embedding.embedding`` [V, H], ``position_embedding`` [P, H] and
 ``text_projection`` [H, proj]) keeps its name and layout. The mutable collections map onto
@@ -24,7 +31,8 @@ buffers of the same names: ``batch_stats`` (each BatchNorm's ``mean`` and
 ``var``), ``vq_stats`` (``ema_cluster_size``,
 ``ema_embed_sum``), ``bin_stats`` (``running_min``, ``running_max``, the
 int32 ``num_step``) and ``spectral_stats`` (each spectral-norm layer's
-``u``). Integer leaves keep their integer type. The bridge takes the trees
+``u``). Diffusion Policy's ``ema_params`` tree has the params tree's layout
+and goes into the algo's ``ema_nets``. Integer leaves keep their integer type. The bridge takes the trees
 as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), so
 this module imports no JAX.
 """
@@ -37,19 +45,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from lipvq_tpu_torch.models.base_nets import Conv
+from lipvq_tpu_torch.models.base_nets import Conv, ConvTranspose
 
 COLLECTIONS = ("batch_stats", "vq_stats", "bin_stats", "spectral_stats")  # the mutable ones
 LSTM_GATES = "ifgo"  # flax OptimizedLSTMCell's gates, in the packed order
 
 
-def _is_conv(module: nn.Module | None, prefix: tuple) -> bool:
+def _module_at(module: nn.Module | None, prefix: tuple) -> nn.Module | None:
     if module is None:
-        return False
+        return None
     try:
-        return isinstance(module.get_submodule(".".join(prefix)), Conv)
+        return module.get_submodule(".".join(prefix))
     except AttributeError:
-        return False
+        return None
 
 
 def state_dict_from_jax_params(params_np: Mapping,
@@ -76,8 +84,11 @@ def state_dict_from_jax_params(params_np: Mapping,
             arr = np.asarray(value)
             arr = arr.astype(np.int32 if arr.dtype.kind in "iu" else np.float32)
             if key == "kernel":
-                if _is_conv(module, prefix):
+                owner = _module_at(module, prefix)
+                if isinstance(owner, Conv):
                     arr = arr.transpose((arr.ndim - 1, arr.ndim - 2) + tuple(range(arr.ndim - 2)))
+                elif isinstance(owner, ConvTranspose):
+                    arr = arr[::-1].transpose(1, 2, 0)
                 elif arr.ndim == 2:
                     arr = arr.T
                 key, arr = "weight", np.ascontiguousarray(arr)
@@ -89,10 +100,12 @@ def state_dict_from_jax_params(params_np: Mapping,
     return out
 
 
-def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = None) -> None:
+def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = None,
+                    ema_params_np: Mapping | None = None) -> None:
     """Load the JAX algo's ``state.params`` and its ``state.extra_vars``
-    (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``.
-    Every key must match: a missing or extra parameter or buffer raises."""
+    (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``, and
+    Diffusion Policy's ``ema_params`` tree into ``algo.ema_nets``. Every key
+    must match: a missing or extra parameter or buffer raises."""
     state = state_dict_from_jax_params(params_np, algo.nets)
     for collection, tree in (extra_vars_np or {}).items():
         if collection not in COLLECTIONS:
@@ -102,3 +115,6 @@ def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = No
             raise KeyError(f"{collection} repeats keys {sorted(stats.keys() & state.keys())}")
         state.update(stats)
     algo.nets.load_state_dict(state, strict=True)
+    if ema_params_np is not None:
+        algo.ema_nets.load_state_dict(state_dict_from_jax_params(ema_params_np, algo.ema_nets),
+                                      strict=True)

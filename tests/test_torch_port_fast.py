@@ -60,9 +60,10 @@ def _t(x):
 
 # -- the BPE library ---------------------------------------------------------
 
-def _corpus(seed, n_words=200, hi=32):
+def _corpus(seed, n_words=200, hi=32, longest=12):
     rng = np.random.default_rng(seed)
-    return [[int(x) for x in rng.integers(0, hi, rng.integers(3, 12))] for _ in range(n_words)]
+    return [[int(x) for x in rng.integers(0, hi, rng.integers(3, longest))]
+            for _ in range(n_words)]
 
 
 def _jax_bytes(tok, tmp_path) -> bytes:
@@ -71,14 +72,20 @@ def _jax_bytes(tok, tmp_path) -> bytes:
     return path.read_bytes()
 
 
-@pytest.mark.parametrize("seed,vocab,min_frequency,max_len", [
-    (0, 128, 2, 8), (1, 96, 2, 16), (2, 300, 3, 100), (3, 1024, 2, 100)])
-def test_bpe_library_matches_jax(tmp_path, seed, vocab, min_frequency, max_len):
-    corpus = _corpus(seed)
+# the last four: two- and three-symbol alphabets with long words (many
+# tied counts, merged strings that another pair already made, runs of one
+# symbol), short token limits, and a FAST-sized fit
+@pytest.mark.parametrize("seed,vocab,min_frequency,max_len,hi,longest,n_words", [
+    (0, 128, 2, 8, 32, 12, 200), (1, 96, 2, 16, 32, 12, 200), (2, 300, 3, 100, 32, 12, 200),
+    (3, 1024, 2, 100, 32, 12, 200), (5, 400, 1, 3, 2, 30, 300), (6, 300, 1, 100, 3, 25, 300),
+    (7, 200, 2, 2, 5, 20, 300), (8, 1024, 2, 100, 40, 120, 400)])
+def test_bpe_library_matches_jax(tmp_path, seed, vocab, min_frequency, max_len, hi, longest,
+                                 n_words):
+    corpus = _corpus(seed, n_words, hi, longest)
     got, want = PriseTokenizer("bpe", vocab), JaxPrise("bpe", vocab)
     got.train(corpus, min_frequency=min_frequency, max_token_length=max_len)
     want.train(corpus, min_frequency=min_frequency, max_token_length=max_len)
-    assert got.vocab_size == want.vocab_size > 32
+    assert got.vocab_size == want.vocab_size > hi + 1  # [UNK], the alphabet, merges
     assert got.to_bytes() == _jax_bytes(want, tmp_path)
     for word in corpus[:30] + [corpus[0] + corpus[1]]:
         ids = got.encode(word)

@@ -42,7 +42,10 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.models.tokenizers.fast", "lipvq_tpu_torch.models.clip_text",
              "lipvq_tpu_torch.models.tokenizers.vqvae",
              "lipvq_tpu_torch.scripts.tokenizer_sweep", "lipvq_tpu_torch.models.obs_core",
-             "lipvq_tpu_torch.utils.vis_utils"):
+             "lipvq_tpu_torch.utils.vis_utils", "lipvq_tpu_torch.algo.bc",
+             "lipvq_tpu_torch.algo.act", "lipvq_tpu_torch.algo.diffusion_policy",
+             "lipvq_tpu_torch.models.diffusion_nets", "lipvq_tpu_torch.models.vae_nets",
+             "lipvq_tpu_torch.ops.diffusion_schedulers"):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -204,3 +207,49 @@ def test_fast_and_sweep_entry_points_without_device_raise_without_gpu(monkeypatc
         tokenizer_sweep.main(["--dataset", export, "--codebook_sizes", "4", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tokenizer_sweep.train_tokenizer(np.zeros((8, 12), np.float32), 4, False, 8, 1, 4)
+
+
+PORTED = ["act", "bc", "diffusion_policy", "icl", "icl_mamba"]
+UNPORTED = ["bcq", "cql", "gl", "hbc", "iql", "iris", "mcr", "td3_bc"]
+
+
+def test_registry_lists_the_ported_algorithms_and_raises_for_the_others():
+    """The port registers the baselines beside ICL; the JAX package's other
+    algorithms raise NotImplementedError naming ROADMAP item 12, from the
+    config factory and from the algo factory."""
+    from lipvq_tpu.algo.base import ALGO_REGISTRY as JAX_REGISTRY
+    from lipvq_tpu_torch.algo.base import ALGO_REGISTRY
+    from lipvq_tpu_torch.config import REGISTERED_CONFIGS, UNPORTED_ALGOS
+
+    import lipvq_tpu.algo  # noqa: F401  (registers the JAX algos)
+
+    assert sorted(ALGO_REGISTRY) == PORTED
+    assert sorted(REGISTERED_CONFIGS) == PORTED
+    assert sorted(UNPORTED_ALGOS) == UNPORTED
+    assert sorted(JAX_REGISTRY) == sorted(PORTED + UNPORTED)
+    cfg = config_factory("bc")
+    for name in UNPORTED:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            config_factory(name)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            algo_factory(name, cfg, {"object": [14]}, ac_dim=12, device="cpu")
+    with pytest.raises(KeyError):
+        config_factory("no_such_algo")
+
+
+@pytest.mark.parametrize("algo_name,over", [
+    ("bc", {"algo": {"gmm": {"enabled": True}, "actor_layer_dims": [16]}}),
+    ("act", {"algo": {"act": {"hidden_dim": 16, "ff_dim": 16, "enc_layers": 1,
+                              "dec_layers": 1}}}),
+    ("diffusion_policy", {"algo": {"unet": {"down_dims": [16, 32]}}}),
+])
+def test_every_baseline_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, algo_name, over):
+    cfg = config_factory(algo_name, over)
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = ["robot0_eef_pos", "object"]
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    algo = algo_factory(algo_name, cfg, shapes, ac_dim=12, device="cpu")
+    assert all(p.device.type == "cpu" for p in algo.nets.parameters())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        algo_factory(algo_name, cfg, shapes, ac_dim=12)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's served, training and corpus paths, the
-tokenizer-ablation arms, the image protocol and the policy baselines on one
-NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch versions.
+tokenizer-ablation arms, the image protocol, the policy baselines and the
+offline-RL and hierarchical algorithms on one NVIDIA GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -154,7 +155,34 @@ all started together). Phases:
    with the DP template over a seeded export: 2 epochs x 10 steps, rollouts
    off (a baseline's single-env rollout raises in the script, as in the JAX
    package), the checkpoint reloaded bit-equal, the EMA net included.
-11. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+11. Offline RL and hierarchical (``rl_phase``): the JAX package's templates
+   (exps/templates/{td3_bc,iql,cql,bcq,gl,hbc,iris}.json) at their widths on
+   the flagship's low-dim obs (791 wide, 12-d actions, batch 100), over
+   seeded in-memory windows with next_obs, rewards and dones (10 steps:
+   GL, HBC and IRIS read the subgoal at ``subgoal_horizon`` 10, so their
+   ``train.seq_length`` is 10, not the templates' 1): TD3-BC (256 x 256),
+   IQL, CQL and BCQ (300 x 400), GL (a 300 x 400 planner), HBC (GL planner,
+   BC-GMM actor 1024 x 1024, 5 modes) and IRIS (GL-VAE planner, the same
+   actor, a BCQ value at its defaults scoring 10 subgoal samples per env).
+   Each serves 5 requests of 16 envs (GL: subgoal predictions), rolls out
+   one 40-step single-env episode through ``RolloutPolicy`` +
+   ``rollout_with_stats`` on the synthetic env (not GL, a planner; HBC and
+   IRIS ``reset()`` first) and takes 10 ``run_epoch`` steps: K1 / K1f / K2
+   launch 0 times. Printed: the parameter count, a 16-env request (HBC and
+   IRIS: with a new subgoal, and on the current one), the step (median of
+   10), device busy and idle share, the top kernels; no kernel of a
+   profiled request or step is named TF32. One fp32 step of TD3-BC (two:
+   the second skips the actor), IQL, CQL, BCQ and IRIS (batch 16, the same
+   draws, HBC's actor without warmup) is held against the CPU by
+   ``hold_step`` (each optimizer's Adam step from its moments, the target
+   networks by polyak on each device, CQL's ``log_alpha`` with its own
+   Adam), no kernel of the card's steps named TF32. Then
+   ``scripts/train.py`` with the TD3-BC template over a seeded export with
+   next_obs / rewards / dones: 2 epochs x 10 steps, rollouts off, the
+   checkpoint reloaded bit-equal (target networks included), and a fresh
+   algo from ``latest_full.state`` takes the writer's next two steps with
+   losses within rtol 1e-5, the actor moved on the first (step 20) only.
+12. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +194,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import multiprocessing
 import os
 import statistics
@@ -1089,9 +1118,10 @@ def ema_wide_step(card: str) -> dict:
 LOOSE_FROBENIUS = 2e-2  # hold_step's limit on a visual core's gradient, card against CPU
 
 
-def capture_grads(algo) -> dict:
+def capture_grads(algo, handles: list | None = None) -> dict:
     """{parameter name: grad}, filled with the grads each of ``algo``'s
-    optimizer steps receives as it runs."""
+    optimizer steps receives as it runs; the hooks' handles go into
+    ``handles`` where one is given (for their removal)."""
     names = {id(p): n for n, p in algo.nets.named_parameters()}
     grads = {}
 
@@ -1101,8 +1131,58 @@ def capture_grads(algo) -> dict:
                 grads[names[id(p)]] = p.grad.detach().cpu().clone()
 
     for o in algo.optimizers().values():
-        o.optimizer.register_step_pre_hook(hook)
+        handle = o.optimizer.register_step_pre_hook(hook)
+        if handles is not None:
+            handles.append(handle)
     return grads
+
+
+def adam_states(algo) -> dict:
+    """{parameter name: (lr, weight decay, eps, betas, decoupled, exp_avg,
+    exp_avg_sq, step)} of each parameter's optimizer before a step, on the
+    CPU (the moments None before the optimizer's first step)."""
+    names = {id(p): n for n, p in algo.nets.named_parameters()}
+    out = {}
+    for o in algo.optimizers().values():
+        g = o.optimizer.param_groups[0]
+        for p in o.params:
+            st = o.optimizer.state.get(p) or {}
+            moments = ((st["exp_avg"].cpu().clone(), st["exp_avg_sq"].cpu().clone(),
+                        int(st["step"])) if st else (None, None, 0))
+            out[names[id(p)]] = (g["lr"], g["weight_decay"], g["eps"], g["betas"],
+                                 isinstance(o.optimizer, torch.optim.AdamW), *moments)
+    return out
+
+
+def adam_step(p0, g, state) -> torch.Tensor:
+    """The parameter after one Adam (L2 into the gradient) or AdamW step of
+    gradient ``g`` from ``p0`` and the optimizer ``state`` (``adam_states``)."""
+    lr, wd, eps, (b1, b2), decoupled, m0, v0, t0 = state
+    if decoupled:
+        p0 = p0 * (1 - lr * wd)
+    else:
+        g = g + wd * p0
+    m = (1 - b1) * g if m0 is None else b1 * m0 + (1 - b1) * g
+    v = (1 - b2) * g * g if v0 is None else b2 * v0 + (1 - b2) * g * g
+    t = t0 + 1
+    return p0 - lr / (1 - b1 ** t) * m / (v.sqrt() / math.sqrt(1 - b2 ** t) + eps)
+
+
+def polyak_pairs(algo) -> dict:
+    """{target buffer name: (online parameter name, tau)} of an offline-RL
+    algo's target networks, and of those of IRIS's value BCQ."""
+    from lipvq_tpu_torch.algo.rl_common import RLAlgo
+
+    out = {}
+    parts = algo.parts() if hasattr(algo, "parts") else {"": algo}
+    for part_name, part in parts.items():
+        if not isinstance(part, RLAlgo):
+            continue
+        pre = f"{part_name}." if part_name else ""
+        for net in part.TARGETS:
+            for key, _ in getattr(part.nets, net).named_parameters():
+                out[f"{pre}target.{net}.{key}"] = (f"{pre}{net}.{key}", part.tau)
+    return out
 
 
 def assert_allclose(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float,
@@ -1123,10 +1203,11 @@ def rel_frobenius(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / max(float(want.norm()), 1e-30))
 
 
-def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tuple[dict, dict]:
-    """One fp32 train step of ``card`` and ``cpu`` (the same weights) on
-    ``batch`` (with the same random ``draws`` where the algo takes them),
-    held as follows.
+def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None,
+              targets=None) -> tuple[dict, dict]:
+    """One fp32 train step of ``card`` and ``cpu`` (the same weights and
+    optimizer states) on ``batch`` (with the same random ``draws`` where the
+    algo takes them), held as follows.
 
     Adam's first step moves an element by lr * g / (|g| + 1e-8): where |g| is
     near that eps, the last digits of g, which differ between the two
@@ -1138,11 +1219,19 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tup
     arithmetic (the key bias of attention, to which the softmax is
     invariant): they hold only rounding noise, which differs between the
     devices, and are held below 1e-6 of the step's largest |g| on both; (3) on
-    each device, every parameter to the first AdamW step of its own gradient,
-    p0 (1 - lr wd) - lr g / (|g| + eps) (Adam's with L2: p0 - lr g' / (|g'| +
-    eps), g' = g + wd p0), at the learning rate of the step, to atol 1e-3 lr
-    + rtol 1e-6, but for the elements ``keep(cpu)`` ({name: mask}) excludes; (4) every
-    buffer, card against CPU, to rtol 1e-5 / atol 1e-7. The gradients of
+    each device, every parameter to its optimizer's step of its own gradient
+    from the moments it held before (the first step: p0 (1 - lr wd) - lr g /
+    (|g| + eps) for AdamW, p0 - lr g' / (|g'| + eps), g' = g + wd p0, for
+    Adam with L2), at the learning rate of the step, to atol 1e-3 lr + rtol
+    1e-6, but for the elements ``keep(cpu)`` ({name: mask}) excludes; a
+    parameter whose optimizer did not step (TD3-BC's actor between its
+    updates, BCQ's perturbation when it is off) must be unchanged, bit for
+    bit, on both; (4) every buffer, card against CPU, to rtol 1e-5 / atol
+    1e-7, but the target networks ``targets`` ({buffer: (parameter, tau)},
+    ``polyak_pairs``): each, on each device, to (1 - tau) t0 + tau p of that
+    device's own new parameter (rtol 1e-6 / atol 1e-7), and card against
+    CPU within tau times its parameter's card-vs-CPU difference (+ 1e-6
+    |t| + 1e-7). The gradients of
     parameters whose name holds one of ``loose`` (the visual cores) pass
     back through BatchNorms that renormalize by batch statistics, which
     cancels most of the terms of some elements, so the two devices' fp32
@@ -1153,17 +1242,21 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tup
     their buffers (the
     BatchNorm statistics, reductions over ~1e5 values per channel) to rtol
     1e-5 / atol 2e-6. Returns (the card's losses, the worst errors)."""
-    start = {n: p.detach().cpu().clone() for n, p in cpu.nets.named_parameters()}
-    hyper = {}
-    for o in cpu.optimizers().values():
-        g = o.optimizer.param_groups[0]
-        for p in o.params:
-            hyper[id(p)] = (g["lr"], g["weight_decay"], g["eps"],
-                            isinstance(o.optimizer, torch.optim.AdamW))
-    grads = {"card": capture_grads(card), "cpu": capture_grads(cpu)}
+    targets = targets or {}
+    start = {"card": {n: p.detach().cpu().clone() for n, p in card.nets.named_parameters()},
+             "cpu": {n: p.detach().clone() for n, p in cpu.nets.named_parameters()}}
+    before = {"card": {n: b.cpu().clone() for n, b in card.nets.named_buffers() if n in targets},
+              "cpu": {n: b.clone() for n, b in cpu.nets.named_buffers() if n in targets}}
+    states = {"card": adam_states(card), "cpu": adam_states(cpu)}
+    handles = []
+    grads = {"card": capture_grads(card, handles), "cpu": capture_grads(cpu, handles)}
     kwargs = {} if draws is None else {"draws": draws}
-    got = card.train_on_batch(batch, 1, **kwargs)["losses"]
-    want = cpu.train_on_batch(batch, 1, **kwargs)["losses"]
+    try:
+        got = card.train_on_batch(batch, 1, **kwargs)["losses"]
+        want = cpu.train_on_batch(batch, 1, **kwargs)["losses"]
+    finally:
+        for handle in handles:
+            handle.remove()
     for k in want:
         np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, err_msg=k)
 
@@ -1172,8 +1265,17 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tup
              "card_vs_cpu_in_lr": 0.0, "buffers": 0.0}
     if loose:
         worst.update(loose_grad_err_over_max=0.0, loose_grad_frobenius=0.0, loose_buffers=0.0)
+    if targets:
+        worst.update(target_step_err=0.0, target_card_vs_cpu=0.0)
     top = max(float(g.abs().max()) for g in grads["cpu"].values())
-    for (name, p), (_, q) in zip(card.nets.named_parameters(), cpu.nets.named_parameters()):
+    after = {"card": {n: p.detach().cpu() for n, p in card.nets.named_parameters()},
+             "cpu": {n: q.detach() for n, q in cpu.nets.named_parameters()}}
+    for name in start["cpu"]:
+        if name not in grads["cpu"]:
+            if name in grads["card"] or not all(torch.equal(after[d][name], start[d][name])
+                                                for d in ("card", "cpu")):
+                raise AssertionError(f"{name}: its optimizer did not step, yet it moved")
+            continue
         g_card, g_cpu = grads["card"][name], grads["cpu"][name]
         scale = float(g_cpu.abs().max())
         if name in zero:
@@ -1195,23 +1297,36 @@ def hold_step(card, cpu, batch, keep=None, zero=(), loose=(), draws=None) -> tup
             worst["grad_err_over_max"] = max(
                 worst["grad_err_over_max"],
                 float((g_card - g_cpu).abs().max()) / max(scale, 1e-30))
-        lr, wd, eps, decoupled = hyper[id(q)]
+        lr = states["cpu"][name][0]
         mask = masks.get(name)
-        for after, g in ((p.detach().cpu(), g_card), (q.detach(), g_cpu)):
-            if decoupled:
-                adam = start[name] * (1 - lr * wd) - lr * g / (g.abs() + eps)
-            else:
-                g = g + wd * start[name]
-                adam = start[name] - lr * g / (g.abs() + eps)
+        for device, g in (("card", g_card), ("cpu", g_cpu)):
+            now, adam = after[device][name], adam_step(start[device][name], g,
+                                                       states[device][name])
             if mask is not None:
-                after, adam = after[mask], adam[mask]
-            assert_allclose(after, adam, rtol=1e-6, atol=1e-3 * lr,
-                            err_msg=f"AdamW step of {name}")
+                now, adam = now[mask], adam[mask]
+            assert_allclose(now, adam, rtol=1e-6, atol=1e-3 * lr,
+                            err_msg=f"Adam step of {name}")
             worst["step_err_in_lr"] = max(worst["step_err_in_lr"],
-                                          float((after - adam).abs().max()) / lr)
-        worst["card_vs_cpu_in_lr"] = max(worst["card_vs_cpu_in_lr"],
-                                         float((p.detach().cpu() - q.detach()).abs().max()) / lr)
+                                          float((now - adam).abs().max()) / lr)
+        worst["card_vs_cpu_in_lr"] = max(
+            worst["card_vs_cpu_in_lr"],
+            float((after["card"][name] - after["cpu"][name]).abs().max()) / lr)
     for (name, b), (_, c) in zip(card.nets.named_buffers(), cpu.nets.named_buffers()):
+        if name in targets:
+            param, tau = targets[name]
+            for device, now in (("card", b.cpu()), ("cpu", c)):
+                want_t = before[device][name] * (1 - tau) + after[device][param] * tau
+                assert_allclose(now, want_t, rtol=1e-6, atol=1e-7,
+                                err_msg=f"the target {name} on the {device}")
+                worst["target_step_err"] = max(worst["target_step_err"],
+                                               float((now - want_t).abs().max()))
+            diff = (b.cpu() - c).abs()
+            allowed = tau * (after["card"][param] - after["cpu"][param]).abs() + \
+                1e-6 * c.abs() + 1e-7
+            if not bool((diff <= allowed).all()):
+                raise AssertionError(f"the target {name}: card against CPU {float(diff.max())}")
+            worst["target_card_vs_cpu"] = max(worst["target_card_vs_cpu"], float(diff.max()))
+            continue
         is_loose = any(k in name for k in loose)
         assert_allclose(b.cpu(), c, rtol=1e-5, atol=2e-6 if is_loose else 1e-7, err_msg=name)
         key = "loose_buffers" if is_loose else "buffers"
@@ -3122,6 +3237,332 @@ def dp_script(card: str) -> dict:
     return {"launches": counts, "script_s": script_s, "ckpt_bytes": ckpt_bytes,
             "load_s": load_s, "time_ms_per_step": timing, "loss": logs["Train/Loss"]}
 
+# phase 11: the offline-RL and hierarchical algorithms at their templates' widths
+RL_ALGOS = ("td3_bc", "iql", "cql", "bcq", "gl", "hbc", "iris")
+RL_HOLD = ("td3_bc", "iql", "cql", "bcq", "iris")
+RL_SEQ = 10  # GL / HBC / IRIS read next_obs[:, subgoal_horizon - 1]: windows of 10
+RL_STEPS, RL_REQUESTS, RL_HORIZON, RL_HOLD_BATCH = 10, 5, 40, 16
+
+
+def rl_config(algo: str, hold: bool = False):
+    """exps/templates/{algo}.json at its widths on the flagship's low-dim
+    obs, the hierarchical ones with ``train.seq_length`` at their subgoal
+    horizon (the templates' 1 cannot reach it, ROADMAP queue 3). ``hold``:
+    HBC's and IRIS's actor without warmup (the template warms up over 10000
+    steps: the held step would not move it)."""
+    cfg = baseline_config(algo, {})
+    with cfg.unlocked():
+        if algo in ("gl", "hbc", "iris"):
+            cfg.train.seq_length = RL_SEQ
+        if hold and algo in ("hbc", "iris"):
+            cfg.algo.actor.optim_params.policy.learning_rate.num_warmup_steps = 0
+    return cfg
+
+
+class RLItems:
+    """In-memory transition windows shaped like SequenceDataset's with
+    ``hdf5_load_next_obs``: obs and next_obs leaves [10, ...] (next_obs the
+    obs one step on), actions [10, 12], rewards and dones [10] (one window
+    in eight ends in a done), made in bulk from a seed."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        obs = random_obs(rng, (n, RL_SEQ + 1))
+        actions = rng.uniform(-1, 1, (n, RL_SEQ, AC_DIM)).astype(np.float32)
+        rewards = rng.standard_normal((n, RL_SEQ)).astype(np.float32)
+        dones = np.zeros((n, RL_SEQ), np.float32)
+        dones[::8, -1] = 1.0
+        self.items = [{"obs": {k: v[i, :-1] for k, v in obs.items()},
+                       "next_obs": {k: v[i, 1:] for k, v in obs.items()},
+                       "actions": actions[i], "rewards": rewards[i], "dones": dones[i]}
+                      for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def rl_phase(card: str) -> dict:
+    """Phase 11: TD3-BC, IQL, CQL, BCQ, GL, HBC and IRIS at their templates'
+    widths: each serves 16-env requests (GL: subgoal predictions), rolls out
+    one single-env episode (not GL, a planner) and takes 10 train steps (K1 /
+    K1f / K2 launches 0), timed and profiled; one fp32 step of TD3-BC (two),
+    IQL, CQL, BCQ and IRIS held against the CPU; then TD3-BC through
+    scripts/train.py."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import RolloutPolicy
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
+    from lipvq_tpu_torch.envs.rollout import rollout_with_stats
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+    from lipvq_tpu_torch.utils.train_utils import run_epoch
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "cuBLAS TF32 must stay off"
+    items = RLItems(2 * BATCH, seed=31)
+    results = {}
+    for name in RL_ALGOS:
+        t_start = time.perf_counter()
+        algo = algo_factory(name, rl_config(name), OBS_SHAPES, ac_dim=AC_DIM)  # CUDA
+        assert algo.device.type == "cuda"
+        params = sum(p.numel() for p in algo.nets.parameters())
+        r = results[name] = {"class": type(algo).__name__, "params": params}
+        rng = np.random.default_rng(32)
+        requests = [random_obs(rng, (N_ENVS,)) for _ in range(RL_REQUESTS)]
+        loader = DataLoader(items, BATCH, seed=5)
+        hier = hasattr(algo, "reset")  # HBC / IRIS: the subgoal state
+
+        def serve(obs):
+            if name == "gl":
+                out = algo.get_subgoal_predictions(obs)
+                return np.concatenate([v.reshape(N_ENVS, -1).cpu().numpy()
+                                       for v in out.values()], axis=1)
+            return algo.get_action(obs)
+
+        # the main path: requests, one episode, 10 train steps, counted
+        zero_launch_counts()
+        served = [serve(o) for o in requests]
+        stats = episode_s = None
+        if name != "gl":
+            policy = RolloutPolicy(algo, lang_encoder=LangEncoder(device=algo.device))
+            if hier:
+                algo.reset()  # the rollout does not (reference fault (a))
+            t0 = time.perf_counter()
+            rollout, _ = rollout_with_stats(policy, {"SyntheticKitchen": SyntheticKitchenEnv(
+                seed=27)}, horizon=RL_HORIZON, num_episodes=1)
+            episode_s = time.perf_counter() - t0
+            stats = rollout["SyntheticKitchen"]
+        log = run_epoch(algo, loader, epoch=1, num_steps=RL_STEPS)
+        counts = launch_counts()
+        if counts != (0, 0, 0):
+            raise AssertionError(f"{name}: launches (K1, K1f, K2) {counts}")
+        width = 791 if name == "gl" else AC_DIM
+        if not all(a.shape == (N_ENVS, width) and np.isfinite(a).all() for a in served):
+            raise AssertionError(f"{name}: served outputs not finite of shape (16, {width})")
+        if stats is not None and (stats["Horizon"] != RL_HORIZON
+                                  or not np.isfinite(stats["Return"])):
+            raise AssertionError(f"{name}: episode {stats}")
+        if not all(np.isfinite(v) for v in log.values()):
+            raise AssertionError(f"{name}: non-finite step log {log}")
+
+        def fresh():  # HBC / IRIS: a request that plans a new subgoal
+            if hier:
+                algo.reset()
+            serve(requests[0])
+
+        new_ms = host_ms(fresh, reps=10)
+        cached_ms = None
+        if hier:  # calls 1-9 of an interval of 10 reuse the subgoal
+            fresh()
+            cached_ms = host_ms(lambda: serve(requests[0]), reps=8, warmup=False)
+        request_busy, request_kernels = profile_device(fresh, 2)
+        batch = algo.process_batch_for_training(next(iter(loader)))
+
+        def step():
+            algo.train_on_batch(batch, 1)
+            torch.cuda.synchronize()
+
+        step_ms = host_ms(step, reps=RL_STEPS)
+        step_busy, kernels = profile_device(lambda: algo.train_on_batch(batch, 1), 2)
+        assert_no_tf32(list(kernels) + list(request_kernels), name)
+        top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
+        r.update({
+            "launches": counts, "log": log, "episode": stats, "episode_s": episode_s,
+            "request_ms": new_ms, "cached_subgoal_request_ms": cached_ms,
+            "request_busy_ms": request_busy,
+            "request_idle_share": None if request_busy is None else 1 - request_busy / new_ms,
+            "step_ms": step_ms, "step_busy_ms": step_busy,
+            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+            "step_top_ops_ms": top,
+            "request_top_ops_ms": dict(sorted(request_kernels.items(),
+                                              key=lambda kv: -kv[1])[:4]),
+            "seconds": time.perf_counter() - t_start})
+        print(f"rl {name} ({r['class']}, {params / 1e6:.3f} M parameters): {RL_REQUESTS} "
+              f"requests of {N_ENVS} envs"
+              + ("" if stats is None else f", one {RL_HORIZON}-step episode (Return "
+                 f"{stats['Return']:.3f}, {episode_s:.2f} s)")
+              + f" and {RL_STEPS} steps of batch {BATCH}, launches (K1, K1f, K2) {counts}; "
+              f"Loss {log['Loss']:.4f}; {N_ENVS}-env request {new_ms:.3f} ms"
+              + (" with a new subgoal" if hier else "")
+              + f" (device busy {request_busy} ms, idle share {r['request_idle_share']})"
+              + ("" if cached_ms is None else f", {cached_ms:.3f} ms on the current subgoal")
+              + f"; step {step_ms:.3f} ms (device busy {step_busy} ms, idle share "
+              f"{r['step_idle_share']}); top {top}; {r['seconds']:.1f} s [{card}]")
+        del algo, batch, served
+    results["hold"] = rl_holds(items)
+    t0 = time.perf_counter()
+    results["script"] = td3_script(card)
+    results["script"]["seconds"] = time.perf_counter() - t0
+    return results
+
+
+def rl_draws(name: str, gen, b: int) -> dict | None:
+    """Seeded draws for one step of ``name`` at batch ``b`` (the template's
+    latent 14 and 10 candidates for BCQ and IRIS's value BCQ)."""
+    def bcq():
+        return {"vae": torch.randn((b, 14), generator=gen),
+                "next": torch.randn((b * 10, 14), generator=gen),
+                "perturb": torch.randn((b, 14), generator=gen)}
+
+    if name == "td3_bc":
+        return {"noise": torch.randn((b, AC_DIM), generator=gen)}
+    if name == "cql":
+        out = {k: torch.randn((b, AC_DIM), generator=gen)
+               for k in ("next_eps", "pi_eps", "actor_eps")}
+        out["rand"] = torch.rand((10, b, AC_DIM), generator=gen) * 2 - 1
+        return out
+    if name == "bcq":
+        return bcq()
+    if name == "iris":
+        return {"planner": {"noise": torch.randn((b, 14), generator=gen)}, "value": bcq()}
+    return None
+
+
+def rl_holds(items) -> dict:
+    """One fp32 step of TD3-BC (two: the second skips the actor), IQL, CQL,
+    BCQ and IRIS (its GL-VAE planner, BC-GMM actor and BCQ value) on the card
+    held against the CPU step by ``hold_step`` (the same weights and draws,
+    batch 16; the target networks by polyak on each device), no kernel of
+    the card's steps named TF32."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.data.loaders import DataLoader
+
+    results = {}
+    loader = iter(DataLoader(items, RL_HOLD_BATCH, seed=7))
+    for name in RL_HOLD:
+        t0 = time.perf_counter()
+        card, cpu = (algo_factory(name, rl_config(name, hold=True), OBS_SHAPES, ac_dim=AC_DIM,
+                                  device=d) for d in (None, "cpu"))
+        gen = torch.Generator().manual_seed(33)
+        held = []
+        for _ in range(2 if name == "td3_bc" else 1):
+            batch = card.process_batch_for_training(next(loader))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                held.append(hold_step(card, cpu, batch, draws=rl_draws(name, gen, RL_HOLD_BATCH),
+                                      targets=polyak_pairs(cpu)))
+            assert_no_tf32(list(device_busy(prof)[1]), f"{name} hold")
+        actor_losses = [h[0]["actor_loss"] for h in held if "actor_loss" in h[0]]
+        if name == "td3_bc" and (actor_losses[0] == 0 or actor_losses[1] != 0):
+            raise AssertionError(f"TD3-BC: actor losses {actor_losses} (the actor moves on "
+                                 f"the first step only)")
+        results[name] = {"losses": [h[0] for h in held], "worst": [h[1] for h in held],
+                         "seconds": time.perf_counter() - t0}
+        print(f"rl {name} train parity: {len(held)} fp32 step(s) on the card == the CPU's "
+              f"(hold_step: losses rtol 1e-4, gradients, each device's Adam step, the target "
+              f"networks by polyak, buffers), no TF32 kernel; losses "
+              f"{results[name]['losses']}; worst {results[name]['worst']}; "
+              f"{results[name]['seconds']:.1f} s")
+        del card, cpu
+    return results
+
+
+def td3_script(card: str) -> dict:
+    """scripts/train.py with the TD3-BC template (its widths, obs and batch)
+    over a seeded export with next_obs, rewards and dones: 2 epochs x 10
+    steps, a checkpoint each epoch, rollouts off (the script's single-env
+    rollout raises for a baseline, reference fault (d)). The last checkpoint
+    reloads bit-equal (the target networks included); a fresh algo loaded
+    from ``latest_full.state`` takes the writer's next two steps with losses
+    within rtol 1e-5, its actor moved on the first (step 20) only."""
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import file_utils, train_utils
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_td3_") as tmp:
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "exps", "templates",
+                               "td3_bc.json")) as f:
+            cfg = json.load(f)
+        obs_shapes = {k: tuple(s) for k, s in OBS_SHAPES.items()
+                      if k in cfg["observation"]["modalities"]["obs"]["low_dim"]}
+        root = make_synthetic_export(os.path.join(tmp, "export"), n_demos=SCRIPT_DEMOS,
+                                     demo_len=SCRIPT_DEMO_LEN, action_dim=AC_DIM,
+                                     obs_key_shapes=obs_shapes, seed=34, transitions=True)
+        cfg["train"].update({"data": root, "output_dir": os.path.join(tmp, "out"),
+                             "num_epochs": SCRIPT_EPOCHS})
+        cfg["experiment"] = {"name": "chip_smoke_td3", "epoch_every_n_steps": SCRIPT_STEPS,
+                             "render_video": False, "validate": False,
+                             "logging": {"terminal_output_to_txt": False, "log_tb": False},
+                             "save": {"enabled": True, "every_n_epochs": 1},
+                             "rollout": {"enabled": False}}
+        cfg_path = os.path.join(tmp, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+
+        seen = {}
+        run_epoch = train_utils.run_epoch
+
+        def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+            seen["algo"], seen["loader"] = model, loader
+            return run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+
+        out = io.StringIO()
+        train_utils.run_epoch = observed_run_epoch
+        try:
+            # the main path: the training script, counted
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            script_s = time.perf_counter() - t0
+            counts = launch_counts()
+        except BaseException:
+            print(out.getvalue()[-8000:])
+            raise
+        finally:
+            train_utils.run_epoch = run_epoch
+        if counts != (0, 0, 0):
+            raise AssertionError(f"TD3-BC script: launches (K1, K1f, K2) {counts}")
+        names = sorted(os.listdir(ckpt_dir))
+        if not {f"model_epoch_{SCRIPT_EPOCHS}.ckpt", "latest_full.state"} <= set(names):
+            raise AssertionError(f"TD3-BC script: checkpoint files {names}")
+        with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+            logs = json.load(f)
+        if not all(np.isfinite(v).all() for v in logs.values()):
+            raise AssertionError(f"TD3-BC script: non-finite logs {logs}")
+        algo = seen["algo"]
+        ckpt = os.path.join(ckpt_dir, f"model_epoch_{SCRIPT_EPOCHS}.ckpt")
+        reloaded, _ = file_utils.policy_from_checkpoint(ckpt)
+        want, got = algo.serialize(), reloaded.serialize()
+        targets = sum(k.startswith("target.") for k in want)
+        if want.keys() != got.keys() or not targets or not all(
+                torch.equal(want[k], got[k]) for k in want):
+            raise AssertionError("TD3-BC script: the reloaded checkpoint differs from the "
+                                 "in-process algo")
+        reloaded.deserialize_full(torch.load(os.path.join(ckpt_dir, "latest_full.state"),
+                                             weights_only=True))
+        if reloaded.step != algo.step or algo.step != SCRIPT_EPOCHS * SCRIPT_STEPS:
+            raise AssertionError(f"TD3-BC script: steps {algo.step} / {reloaded.step}")
+        gen = torch.Generator().manual_seed(35)
+        resumed = []
+        for _ in range(2):
+            batch = algo.process_batch_for_training(next(iter(seen["loader"])))
+            draws = rl_draws("td3_bc", gen, batch["actions"].shape[0])
+            want = algo.train_on_batch(batch, 3, draws=draws)["losses"]
+            got = reloaded.train_on_batch(batch, 3, draws=draws)["losses"]
+            for k in want:
+                np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                           err_msg=f"resumed {k}")
+            resumed.append({k: float(v) for k, v in got.items()})
+        if resumed[0]["actor_loss"] == 0 or resumed[1]["actor_loss"] != 0:
+            raise AssertionError(f"TD3-BC resume: the actor-update phase {resumed}")
+        ckpt_bytes = os.path.getsize(ckpt)
+        del reloaded, algo, seen
+    timing = {k: per_step_ms(logs, f"Timing_Stats/Train_{k}", SCRIPT_STEPS)
+              for k in ("Data_Loading", "Process_Batch", "Train_Batch", "Log_Info")}
+    print(f"rl td3_bc script: {SCRIPT_EPOCHS} epochs x {SCRIPT_STEPS} steps over an export of "
+          f"{SCRIPT_DEMOS} demos x {SCRIPT_DEMO_LEN} steps with next_obs / rewards / dones in "
+          f"{script_s:.1f} s, launches (K1, K1f, K2) {counts}; the checkpoint "
+          f"({ckpt_bytes / 1e6:.2f} MB, {targets} target tensors) reloads bit-equal; a fresh "
+          f"algo from latest_full.state takes the writer's steps 21-22 (losses within rtol "
+          f"1e-5, the actor moved on 21 only): {resumed}; Train/Loss {logs['Train/Loss']}; "
+          f"Time_* per step {({k: [round(x, 3) for x in v] for k, v in timing.items()})} ms "
+          f"[{card}]")
+    return {"launches": counts, "script_s": script_s, "ckpt_bytes": ckpt_bytes,
+            "resumed": resumed, "time_ms_per_step": timing, "loss": logs["Train/Loss"]}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3172,6 +3613,7 @@ def main() -> int:
     arms = timed("arms", arms_phase, card)
     visual = timed("visual", visual_phase, card)
     baselines = timed("baselines", baselines_phase, card)
+    offline = timed("rl", rl_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -3223,6 +3665,9 @@ def main() -> int:
         paths["baseline diffusion_policy ddim"] = baselines["diffusion_policy"]["ddim"][
             "launches"][i]
         paths["baseline diffusion_policy train_script"] = baselines["script"]["launches"][i]
+        for name in RL_ALGOS:
+            paths[f"rl {name}"] = offline[name]["launches"][i]
+        paths["rl td3_bc train_script"] = offline["script"]["launches"][i]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -3269,7 +3714,7 @@ def main() -> int:
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
-        "phase_s": phase_s}))
+        "rl": offline, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

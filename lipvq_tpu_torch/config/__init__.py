@@ -9,9 +9,16 @@ from lipvq_tpu_torch.config.base import (
 from lipvq_tpu_torch.config.algo_configs import (
     ACTConfig,
     BCConfig,
+    BCQConfig,
+    CQLConfig,
     DiffusionPolicyConfig,
+    GLConfig,
+    HBCConfig,
     ICLConfig,
     ICLMambaConfig,
+    IQLConfig,
+    IRISConfig,
+    TD3BCConfig,
 )
 
 __all__ = [
@@ -24,7 +31,14 @@ __all__ = [
     "config_from_json",
     "ACTConfig",
     "BCConfig",
+    "BCQConfig",
+    "CQLConfig",
     "DiffusionPolicyConfig",
+    "GLConfig",
+    "HBCConfig",
     "ICLConfig",
     "ICLMambaConfig",
+    "IQLConfig",
+    "IRISConfig",
+    "TD3BCConfig",
 ]

@@ -1,11 +1,13 @@
 """Per-algorithm config classes (copy of ``lipvq_tpu/config/algo_configs.py``).
 
-``ICLConfig``, ``ICLMambaConfig``, ``BCConfig``, ``ACTConfig`` and
-``DiffusionPolicyConfig`` and the helpers they call are ported so far; the
-other algorithms' configs raise in ``config_factory`` (``UNPORTED_ALGOS`` in
-``config/base.py``). Defaults mirror the reference per-algo configs so the
-reference's JSON templates apply unchanged (reference:
-robomimic/config/{icl,bc,act,diffusion_policy}_config.py).
+Every algorithm's config but ``mcr``'s is ported (``UNPORTED_ALGOS`` in
+``config/base.py``): ``ICLConfig``, ``ICLMambaConfig``, ``BCConfig``,
+``ACTConfig``, ``DiffusionPolicyConfig``, the offline-RL ``IQLConfig``,
+``TD3BCConfig``, ``CQLConfig`` and ``BCQConfig``, and the hierarchical
+``GLConfig``, ``HBCConfig`` and ``IRISConfig``. Defaults mirror the
+reference per-algo configs so the reference's JSON templates apply
+unchanged (reference: robomimic/config/{icl,bc,act,diffusion_policy,iql,
+td3_bc,cql,bcq,gl,hbc,iris}_config.py).
 
 The four mutually-exclusive action-tokenizer switches live under
 ``algo.transformer.{vq_vae_enabled,bin_enabled,fast_enabled,ln_act_enabled}``
@@ -264,3 +266,167 @@ class DiffusionPolicyConfig(BaseConfig):
         algo.ddim.set_alpha_to_one = True
         algo.ddim.steps_offset = 0
         algo.ddim.prediction_type = "epsilon"
+
+
+def _gl_algo_defaults(section):
+    """GL planner algo section (reference gl_config.py)."""
+    section.optim_params.goal_network.learning_rate.initial = 1e-4
+    section.optim_params.goal_network.learning_rate.decay_factor = 0.1
+    section.optim_params.goal_network.learning_rate.epoch_schedule = []
+    section.optim_params.goal_network.learning_rate.scheduler_type = "constant"
+    section.optim_params.goal_network.regularization.L2 = 0.0
+    section.subgoal_horizon = 10
+    section.ae.planner_layer_dims = [300, 400]
+    _vae_defaults(section)
+
+
+class GLConfig(BaseConfig):
+    """Reference: robomimic/config/gl_config.py."""
+
+    ALGO_NAME = "gl"
+
+    def algo_config(self):
+        _gl_algo_defaults(self.algo)
+
+
+class HBCConfig(BaseConfig):
+    """Reference: robomimic/config/hbc_config.py — nested planner (GL) and
+    actor (BC) sections."""
+
+    ALGO_NAME = "hbc"
+
+    def algo_config(self):
+        algo = self.algo
+        algo.subgoal_update_interval = 10
+        algo.latent_subgoal.enabled = False
+        _gl_algo_defaults(algo.planner)
+        a = algo.actor
+        _policy_optim_defaults(a)
+        _loss_defaults(a)
+        a.actor_layer_dims = [1024, 1024]
+        _gaussian_defaults(a)
+        _gmm_defaults(a)
+        a.gmm.enabled = True
+        _vae_defaults(a)
+        _rnn_defaults(a)
+        _seq_backbone_defaults(a.transformer)
+
+
+class IRISConfig(HBCConfig):
+    """Reference: robomimic/config/iris_config.py."""
+
+    ALGO_NAME = "iris"
+
+    def algo_config(self):
+        super().algo_config()
+        self.algo.planner.vae.enabled = True
+        self.algo.discount = 0.99
+        self.algo.num_subgoal_samples = 10
+
+
+def _rl_optim(algo, names, lr=1e-4):
+    for n in names:
+        algo.optim_params[n].learning_rate.initial = lr
+        algo.optim_params[n].learning_rate.decay_factor = 0.1
+        algo.optim_params[n].learning_rate.epoch_schedule = []
+        algo.optim_params[n].learning_rate.scheduler_type = "constant"
+        algo.optim_params[n].regularization.L2 = 0.0
+
+
+class IQLConfig(BaseConfig):
+    """Reference: robomimic/config/iql_config.py."""
+
+    ALGO_NAME = "iql"
+
+    def algo_config(self):
+        algo = self.algo
+        _rl_optim(algo, ["critic", "vf", "actor"], lr=1e-4)
+        algo.discount = 0.99
+        algo.target_tau = 0.01
+        algo.vf_quantile = 0.9
+        algo.actor.net.type = "gaussian"
+        algo.actor.net.common.std_activation = "softplus"
+        algo.actor.net.common.low_noise_eval = True
+        algo.actor.net.common.use_tanh = False
+        algo.actor.net.gaussian.init_last_fc_weight = 0.001
+        algo.actor.net.gaussian.init_std = 0.3
+        algo.actor.net.gaussian.fixed_std = False
+        algo.actor.net.gmm.num_modes = 5
+        algo.actor.net.gmm.min_std = 1e-4
+        algo.actor.layer_dims = [300, 400]
+        algo.actor.max_gradient_norm = None
+        algo.critic.ensemble.n = 2
+        algo.critic.layer_dims = [300, 400]
+        algo.critic.use_huber = False
+        algo.critic.max_gradient_norm = None
+        algo.adv.clip_adv_value = None
+        algo.adv.beta = 1.0
+        algo.adv.use_final_clip = True
+
+
+class TD3BCConfig(BaseConfig):
+    """Reference: robomimic/config/td3_bc_config.py."""
+
+    ALGO_NAME = "td3_bc"
+
+    def algo_config(self):
+        algo = self.algo
+        _rl_optim(algo, ["critic", "actor"], lr=3e-4)
+        algo.alpha = 2.5
+        algo.discount = 0.99
+        algo.n_step = 1
+        algo.target_tau = 0.005
+        algo.infinite_horizon = False
+        algo.critic.use_huber = False
+        algo.critic.max_gradient_norm = None
+        algo.critic.value_bounds = None
+        algo.critic.ensemble.n = 2
+        algo.critic.ensemble.weight = 1.0
+        algo.critic.layer_dims = [256, 256]
+        algo.actor.update_freq = 2
+        algo.actor.noise_std = 0.2
+        algo.actor.noise_clip = 0.5
+        algo.actor.layer_dims = [256, 256]
+
+
+class CQLConfig(BaseConfig):
+    """Reference: robomimic/config/cql_config.py."""
+
+    ALGO_NAME = "cql"
+
+    def algo_config(self):
+        algo = self.algo
+        _rl_optim(algo, ["critic", "actor"], lr=1e-4)
+        algo.discount = 0.99
+        algo.target_tau = 0.005
+        algo.actor.layer_dims = [300, 400]
+        algo.critic.ensemble.n = 2
+        algo.critic.layer_dims = [300, 400]
+        algo.critic.cql_weight = 1.0
+        algo.critic.num_random_actions = 10
+
+
+class BCQConfig(BaseConfig):
+    """Reference: robomimic/config/bcq_config.py."""
+
+    ALGO_NAME = "bcq"
+
+    def algo_config(self):
+        algo = self.algo
+        _rl_optim(algo, ["critic", "actor", "action_sampler"], lr=1e-3)
+        algo.discount = 0.99
+        algo.n_step = 1
+        algo.target_tau = 0.005
+        algo.infinite_horizon = False
+        algo.critic.use_huber = False
+        algo.critic.max_gradient_norm = None
+        algo.critic.value_bounds = None
+        algo.critic.num_action_samples = 10
+        algo.critic.ensemble.n = 2
+        algo.critic.ensemble.weight = 0.75
+        algo.critic.layer_dims = [300, 400]
+        algo.actor.enabled = False
+        algo.actor.perturbation_scale = 0.05
+        algo.actor.layer_dims = [300, 400]
+        algo.action_sampler.vae.latent_dim = 14
+        algo.action_sampler.vae.kl_weight = 0.5

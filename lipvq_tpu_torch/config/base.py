@@ -14,9 +14,9 @@ from lipvq_tpu_torch.config.config import Config
 # algo_name -> BaseConfig subclass
 REGISTERED_CONFIGS: dict[str, type] = {}
 
-# the JAX package's algorithms that the port does not have yet (ROADMAP §1
-# item 12): their configs and algos raise NotImplementedError
-UNPORTED_ALGOS = ("bcq", "cql", "iql", "td3_bc", "gl", "hbc", "iris", "mcr")
+# the JAX package's algorithm that the port does not have yet (ROADMAP §1
+# item 12): its config and algo raise NotImplementedError
+UNPORTED_ALGOS = ("mcr",)
 
 
 def raise_unported(algo_name: str) -> None:

@@ -38,16 +38,23 @@ def gmm_log_prob(p: GMMParams, x: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(comp_lp + mix_lp, dim=-1)
 
 
-def gmm_sample(p: GMMParams, generator: torch.Generator) -> torch.Tensor:
-    """Ancestral sample: categorical mode (Gumbel-max), then diagonal Gaussian."""
-    u = torch.rand(p.logits.shape, generator=generator, device=p.logits.device)
-    u = u.clamp_min(torch.finfo(u.dtype).tiny)
-    mode = torch.argmax(p.logits.float() - torch.log(-torch.log(u)), dim=-1)
-    idx = mode[..., None, None].expand(*mode.shape, 1, p.means.shape[-1])
+def gmm_sample(p: GMMParams, generator: torch.Generator | None, noise=None) -> torch.Tensor:
+    """Ancestral sample: categorical mode (Gumbel-max), then diagonal
+    Gaussian; ``noise`` = (mode ids [...], standard normals [..., A]) in
+    place of the generator's draws."""
+    if noise is None:
+        u = torch.rand(p.logits.shape, generator=generator, device=p.logits.device)
+        u = u.clamp_min(torch.finfo(u.dtype).tiny)
+        mode = torch.argmax(p.logits.float() - torch.log(-torch.log(u)), dim=-1)
+        eps = None
+    else:
+        mode, eps = noise
+    idx = mode.long()[..., None, None].expand(*mode.shape, 1, p.means.shape[-1])
     mean = p.means.gather(-2, idx).squeeze(-2)
     scale = p.scales.gather(-2, idx).squeeze(-2)
-    eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                      dtype=mean.dtype)
+    if eps is None:
+        eps = torch.randn(mean.shape, generator=generator, device=mean.device,
+                          dtype=mean.dtype)
     return mean + scale * eps
 
 

@@ -32,9 +32,13 @@ buffers of the same names: ``batch_stats`` (each BatchNorm's ``mean`` and
 ``ema_embed_sum``), ``bin_stats`` (``running_min``, ``running_max``, the
 int32 ``num_step``) and ``spectral_stats`` (each spectral-norm layer's
 ``u``). Diffusion Policy's ``ema_params`` tree has the params tree's layout
-and goes into the algo's ``ema_nets``. Integer leaves keep their integer type. The bridge takes the trees
-as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side), so
-this module imports no JAX.
+and goes into the algo's ``ema_nets``; an offline-RL algo's
+``target_params`` (a tree per tracked network: critic, actor,
+perturbation) goes into the target buffers under ``nets.target``, and
+HBC's and IRIS's parts load one by one (``load_jax_parts``). Integer leaves
+keep their integer type. The bridge takes the trees as numpy arrays
+(``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -101,12 +105,18 @@ def state_dict_from_jax_params(params_np: Mapping,
 
 
 def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = None,
-                    ema_params_np: Mapping | None = None) -> None:
+                    ema_params_np: Mapping | None = None,
+                    target_params_np: Mapping | None = None) -> None:
     """Load the JAX algo's ``state.params`` and its ``state.extra_vars``
-    (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``, and
-    Diffusion Policy's ``ema_params`` tree into ``algo.ema_nets``. Every key
-    must match: a missing or extra parameter or buffer raises."""
+    (the collections of ``COLLECTIONS``), as numpy, into ``algo.nets``,
+    Diffusion Policy's ``ema_params`` tree into ``algo.ema_nets`` and an
+    offline-RL algo's ``target_params`` (its per-network target copies) into
+    the buffers under ``algo.nets.target``. Every key must match: a missing
+    or extra parameter or buffer raises."""
     state = state_dict_from_jax_params(params_np, algo.nets)
+    if target_params_np is not None:
+        state.update({f"target.{k}": v for k, v in state_dict_from_jax_params(
+            target_params_np, algo.nets.target).items()})
     for collection, tree in (extra_vars_np or {}).items():
         if collection not in COLLECTIONS:
             raise KeyError(f"the port has no counterpart of the {collection!r} collection")
@@ -118,3 +128,14 @@ def load_jax_params(algo, params_np: Mapping, extra_vars_np: Mapping | None = No
     if ema_params_np is not None:
         algo.ema_nets.load_state_dict(state_dict_from_jax_params(ema_params_np, algo.ema_nets),
                                       strict=True)
+
+
+def load_jax_parts(algo, parts: Mapping[str, Mapping]) -> None:
+    """HBC and IRIS: ``parts`` maps each of the algo's parts (``planner``,
+    ``actor`` and IRIS's ``value``) to ``load_jax_params``' keyword
+    arguments for that part, the JAX sub-algo's trees as numpy."""
+    own = algo.parts()
+    if set(parts) != set(own):
+        raise KeyError(f"the algo has the parts {sorted(own)}, not {sorted(parts)}")
+    for name, trees in parts.items():
+        load_jax_params(own[name], **trees)

@@ -27,9 +27,14 @@ def make_synthetic_export(
     lang: str = "pick the object and place it in the sink",
     seed: int = 0,
     image_key_shapes: dict | None = None,
+    transitions: bool = False,
 ) -> str:
     """Write a synthetic export with smooth sinusoid trajectories (and, for
-    ``image_key_shapes`` {key: (H, W, C)}, uniform uint8 frames)."""
+    ``image_key_shapes`` {key: (H, W, C)}, uniform uint8 frames). With
+    ``transitions`` each demo also gets ``next_obs/<key>`` (the obs shifted
+    by one step, the last repeated, as the JAX package's ``write_demos``
+    stores them) and a sparse success: reward 1 and done at its last step,
+    for the offline-RL and hierarchical algorithms."""
     obs_key_shapes = obs_key_shapes or {
         "robot0_eef_pos": (3,),
         "robot0_eef_quat": (4,),
@@ -58,6 +63,12 @@ def make_synthetic_export(
             arrays[f"obs/{k}"] = np.cos(fr * tt + ph).astype(np.float32)
         for k, shape in (image_key_shapes or {}).items():
             arrays[f"obs/{k}"] = frames.integers(0, 256, (demo_len, *shape), dtype=np.uint8)
+        if transitions:
+            for k in list(arrays):
+                if k.startswith("obs/"):
+                    obs = arrays[k]
+                    arrays[f"next_{k}"] = np.concatenate([obs[1:], obs[-1:]], axis=0)
+            arrays["rewards"][-1] = arrays["dones"][-1] = 1.0
         writer.add_demo(f"demo_{d}", {"num_samples": demo_len,
                                       "ep_meta": json.dumps({"lang": lang})}, arrays)
         total += demo_len

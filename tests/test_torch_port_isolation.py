@@ -45,7 +45,11 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.utils.vis_utils", "lipvq_tpu_torch.algo.bc",
              "lipvq_tpu_torch.algo.act", "lipvq_tpu_torch.algo.diffusion_policy",
              "lipvq_tpu_torch.models.diffusion_nets", "lipvq_tpu_torch.models.vae_nets",
-             "lipvq_tpu_torch.ops.diffusion_schedulers"):
+             "lipvq_tpu_torch.ops.diffusion_schedulers", "lipvq_tpu_torch.algo.rl_common",
+             "lipvq_tpu_torch.algo.td3_bc", "lipvq_tpu_torch.algo.iql",
+             "lipvq_tpu_torch.algo.cql", "lipvq_tpu_torch.algo.bcq",
+             "lipvq_tpu_torch.algo.gl", "lipvq_tpu_torch.algo.hbc",
+             "lipvq_tpu_torch.models.value_nets"):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -209,8 +213,9 @@ def test_fast_and_sweep_entry_points_without_device_raise_without_gpu(monkeypatc
         tokenizer_sweep.train_tokenizer(np.zeros((8, 12), np.float32), 4, False, 8, 1, 4)
 
 
-PORTED = ["act", "bc", "diffusion_policy", "icl", "icl_mamba"]
-UNPORTED = ["bcq", "cql", "gl", "hbc", "iql", "iris", "mcr", "td3_bc"]
+PORTED = ["act", "bc", "bcq", "cql", "diffusion_policy", "gl", "hbc", "icl", "icl_mamba", "iql",
+          "iris", "td3_bc"]
+UNPORTED = ["mcr"]
 
 
 def test_registry_lists_the_ported_algorithms_and_raises_for_the_others():
@@ -242,6 +247,14 @@ def test_registry_lists_the_ported_algorithms_and_raises_for_the_others():
     ("act", {"algo": {"act": {"hidden_dim": 16, "ff_dim": 16, "enc_layers": 1,
                               "dec_layers": 1}}}),
     ("diffusion_policy", {"algo": {"unet": {"down_dims": [16, 32]}}}),
+    ("td3_bc", {"algo": {"actor": {"layer_dims": [16]}, "critic": {"layer_dims": [16]}}}),
+    ("iql", {"algo": {"actor": {"layer_dims": [16]}, "critic": {"layer_dims": [16]}}}),
+    ("cql", {"algo": {"actor": {"layer_dims": [16]}, "critic": {"layer_dims": [16]}}}),
+    ("bcq", {"algo": {"critic": {"layer_dims": [16]}}}),
+    ("gl", {"algo": {"ae": {"planner_layer_dims": [16]}, "vae": {"enabled": True}}}),
+    ("hbc", {"algo": {"planner": {"ae": {"planner_layer_dims": [16]}},
+                      "actor": {"actor_layer_dims": [16]}}}),
+    ("iris", {"algo": {"actor": {"actor_layer_dims": [16]}}}),
 ])
 def test_every_baseline_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, algo_name, over):
     cfg = config_factory(algo_name, over)

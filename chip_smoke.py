@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's served, training and corpus paths, the
-tokenizer-ablation arms, the image protocol, the policy baselines and the
-offline-RL and hierarchical algorithms on one NVIDIA GPU, and hold its CUDA
-kernels against their plain PyTorch versions.
+tokenizer-ablation arms, the image protocol, the policy baselines, the
+offline-RL and hierarchical algorithms, MCR and the synthetic closed loop on
+one NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -74,7 +75,11 @@ all started together). Phases:
    launch per step). Printed: ``Time_*`` per step, the idle share over the
    last epoch's steps (torch.profiler), ms per batched rollout step against
    phase 3's bare request and the 16 envs' own step, the checkpoint's size
-   and save / load times.
+   and save / load times. Then the same script with ``train.hdf5_cache_mode
+   = "device"`` (``device_cache_script``): the corpus preprocessed once into
+   tables on the card, the loader's first batch bit-equal to the host path's
+   ``process_batch_for_training`` of the same items, K1 again 20 + 100, and
+   its ``Time_Data_Loading`` per step printed beside the host path's.
 6. Corpus: ``lipvq_tpu_torch.scripts.tokenize_corpus`` on a seeded export
    of 2^20 action rows (1024 demos x 1024 steps of smooth trajectories) at
    full width (latent 208, 1024 codes), the tokenizer from a state_dict
@@ -182,7 +187,27 @@ all started together). Phases:
    checkpoint reloaded bit-equal (target networks included), and a fresh
    algo from ``latest_full.state`` takes the writer's next two steps with
    losses within rtol 1e-5, the actor moved on the first (step 20) only.
-12. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+12. MCR (``mcr_phase``): the representation workspace at its defaults
+   (112 x 112 crops, batch 16, embed 128, langweight 0.1) trains 20 steps on
+   the synthetic corpus in the manifest layout, its snapshot reloads
+   bit-equal and takes 2 more steps; the pretrainer takes 20 steps at batch
+   16; ``MCRTransformerGMM`` at the mcr template's widths (6 x 512, 8 heads,
+   context 10) with one 128 x 128 camera (the template names none) grafts
+   the snapshot's trunk (every core's trunk parameters equal the
+   snapshot's, its statistics the init's), serves 5 requests of 16 envs and
+   takes 10 steps at the image protocol's batch of 16; one fp32 step is
+   held against the CPU by ``hold_step`` (the visual core as a whole). K1 /
+   K1f / K2 launch 0 times on every path.
+13. Closed loop (``closed_loop_phase``): the convergence twin
+   (``lipvq_tpu_torch/examples/convergence_demo.py``) at its settings: K1
+   launches exactly once per train step and once per policy request, K1f
+   and K2 never; its last evaluation's success may fall at most 0.3 below
+   the JAX package's CPU curve (``JAX_CPU_CURVE``). A step and a request are
+   timed and profiled; K1 at the loop's shapes (160 and 10 rows x 256 codes
+   x 791) gives exact ids on Gaussian fixtures and ids within ``tie_gap`` on
+   the loop's own latents, timed beside its bound, the plain version and
+   addmm + argmin.
+14. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2316,6 +2341,7 @@ def script_phase(card: str, served: dict) -> dict:
                     np.isfinite(v) for v in stats.values()):
             raise AssertionError(f"eval_checkpoint: K1 {k1_eval} (want {want_eval}), K1f "
                                  f"{k1f_eval}, K2 {k2_eval}, stats {stats}")
+        device_cache = device_cache_script(card, exports, tmp)
 
     # the host's share of a rollout step: 16 synthetic envs stepped with
     # their frame stacks, no request
@@ -2348,7 +2374,14 @@ def script_phase(card: str, served: dict) -> dict:
           f"[{card}]")
     print(f"eval_checkpoint: {EVAL_EPISODES} episodes x {EVAL_HORIZON} steps in {eval_s:.1f} s, "
           f"K1 launched {k1_eval} times; {stats}")
-    return {"k1_train_steps": k1_steps, "k1_rollout": k1_rollout, "k1_eval": k1_eval,
+    print(f"script data loading per step, host path (low_dim cache) against the device cache: "
+          f"{[round(x, 3) for x in timing['Data_Loading']]} against "
+          f"{[round(x, 3) for x in device_cache['time_ms_per_step']['Data_Loading']]} ms "
+          f"(epochs 1, {SCRIPT_EPOCHS}); train batch "
+          f"{[round(x, 3) for x in timing['Train_Batch']]} against "
+          f"{[round(x, 3) for x in device_cache['time_ms_per_step']['Train_Batch']]} ms [{card}]")
+    return {"device_cache": device_cache,
+            "k1_train_steps": k1_steps, "k1_rollout": k1_rollout, "k1_eval": k1_eval,
             "k1f_train_steps": seen["k1f_steps"], "k1f_rollout": k1f - seen["k1f_steps"],
             "k1f_eval": k1f_eval, "k2_train_steps": seen["k2_steps"],
             "k2_rollout": k2 - seen["k2_steps"], "k2_eval": k2_eval, "script_s": script_s,
@@ -3564,6 +3597,449 @@ def td3_script(card: str) -> dict:
             "resumed": resumed, "time_ms_per_step": timing, "loss": logs["Train/Loss"]}
 
 
+# phase 12, MCR: the representation workspace at its defaults (112 x 112
+# crops, batch 16, embed 128) with langweight 0.1, the pretrainer at batch
+# 16, and the grafted policy at the mcr template's widths with one camera
+MCR_STEPS, MCR_RESUME_STEPS, MCR_POLICY_STEPS, MCR_REQUESTS = 20, 2, 10, 5
+MCR_CAM, MCR_FRAME = "robot0_agentview_left_image", (128, 128, 3)
+MCR_LOW_DIM = ("robot0_eef_pos", "robot0_eef_quat", "robot0_gripper_qpos", "object")
+MCR_SHAPES = {**{k: OBS_SHAPES[k] for k in MCR_LOW_DIM}, MCR_CAM: list(MCR_FRAME)}
+MCR_BATCH = 16  # the image protocol's batch: the template's 100 is a low-dim batch
+MCR_HOLD_BATCH = 4
+
+
+def mcr_config(snapshot: str, hold: bool = False):
+    """exps/templates/mcr.json with one 128 x 128 rgb camera (the template
+    names none, so the graft would have no target), the workspace's
+    snapshot as ``pretrained_ckpt`` and the image protocol's batch; ``hold``:
+    no dropout and no warmup, for the card-vs-CPU step."""
+    from lipvq_tpu_torch.config import config_factory
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "exps", "templates",
+                           "mcr.json")) as f:
+        template = json.load(f)
+    template["observation"]["modalities"]["obs"]["rgb"] = [MCR_CAM]
+    template["algo"]["mcr"]["pretrained_ckpt"] = snapshot
+    template["train"]["batch_size"] = MCR_BATCH
+    if hold:
+        template["algo"]["transformer"].update(
+            {"emb_dropout": 0.0, "attn_dropout": 0.0, "block_output_dropout": 0.0})
+    cfg = config_factory("mcr", template)
+    if hold:
+        with cfg.unlocked():
+            cfg.algo.optim_params.policy.learning_rate.num_warmup_steps = 0
+    return cfg
+
+
+class MCRItems:
+    """Sequence items of the grafted policy: the template's low-dim keys and
+    the uint8 camera, [10, ...] windows, 12-d actions, made from a seed."""
+
+    def __init__(self, n: int, t: int, seed: int):
+        rng = np.random.default_rng(seed)
+        low = {k: rng.standard_normal((n, t, *OBS_SHAPES[k]), dtype=np.float32)
+               for k in MCR_LOW_DIM}
+        frames = rng.integers(0, 256, (n, t, *MCR_FRAME), dtype=np.uint8)
+        actions = rng.uniform(-1, 1, (n, t, AC_DIM)).astype(np.float32)
+        self.items = [{"obs": {**{k: v[i] for k, v in low.items()}, MCR_CAM: frames[i]},
+                       "actions": actions[i]} for i in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def mcr_phase(card: str) -> dict:
+    """Phase 12: the MCR pipeline on the card. The workspace trains 20 steps
+    on the synthetic corpus in the manifest layout, its snapshot reloads
+    bit-equal and the reloaded workspace takes 2 more steps; the pretrainer
+    takes 20 steps on the buffer's frames; MCRTransformerGMM at the
+    template's widths (6 x 512, 8 heads, context 10) with one 128 x 128
+    camera grafts the snapshot's trunk, serves 5 requests of 16 envs and
+    takes 10 run_epoch steps at batch 16; one fp32 step is held against the
+    CPU by ``hold_step`` (the visual core's gradients as wholes, the
+    keypoint conv's bias, of exact gradient 0, as zeros). K1 / K1f / K2
+    launch 0 times on every path."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.mcr import MCRPretrainer, flatten
+    from lipvq_tpu_torch.algo.mcr_data import build_synthetic_corpus
+    from lipvq_tpu_torch.data.loaders import DataLoader
+    from lipvq_tpu_torch.scripts.train_mcr_representation import RepresentationWorkspace
+    from lipvq_tpu_torch.utils import obs_utils
+    from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+    from lipvq_tpu_torch.utils.train_utils import run_epoch
+
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mcr_") as tmp:
+        corpus = build_synthetic_corpus(tmp)  # the manifest layout: the card has no h5py
+        assert os.path.isfile(os.path.join(tmp, "manifest.csv"))
+
+        # the workspace at its defaults, counted
+        ws = RepresentationWorkspace(corpus, langweight=0.1)  # CUDA by default
+        assert ws.device.type == "cuda" and ws.train_buffer.out_hw == (112, 112)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        hist = ws.train(MCR_STEPS, log_every=0)
+        torch.cuda.synchronize()
+        ws_s = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != (0, 0, 0) or not all(np.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"mcr workspace: launches {counts}, history {hist[-1]}")
+        snap = os.path.join(tmp, "mcr_snapshot.pt")
+        ws.save_snapshot(snap)
+        fresh = RepresentationWorkspace(corpus, langweight=0.1, seed=1)
+        fresh.load_snapshot(snap)
+        for (k, a), b in zip(ws.encoder.state_dict().items(),
+                             fresh.encoder.state_dict().values()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mcr snapshot: {k} differs after the reload")
+        zero_launch_counts()
+        resumed = fresh.train(MCR_RESUME_STEPS, log_every=0)
+        if launch_counts() != (0, 0, 0) or fresh.global_step != MCR_STEPS + MCR_RESUME_STEPS \
+                or not all(np.isfinite(v) for h in resumed for v in h.values()):
+            raise AssertionError(f"mcr resume: {resumed}")
+        ws_busy, ws_kernels = profile_device(lambda: fresh.train(1, log_every=0), 2)
+        ev = fresh.evaluate()
+        results["workspace"] = {
+            "launches": counts, "first": hist[0], "last": hist[-1], "resumed": resumed[-1],
+            "step_ms": ws_s * 1e3 / MCR_STEPS, "step_busy_ms": ws_busy,
+            "step_idle_share": None if ws_busy is None else 1 - ws_busy / (ws_s * 1e3 / MCR_STEPS),
+            "evaluate": ev, "snapshot_bytes": os.path.getsize(snap),
+            "top_ops_ms": dict(sorted(ws_kernels.items(), key=lambda kv: -kv[1])[:5])}
+        print(f"mcr workspace: {MCR_STEPS} steps (112 x 112, batch 16, embed 128, langweight "
+              f"0.1) on the manifest corpus, launches (K1, K1f, K2) {counts}; first {hist[0]}, "
+              f"last {hist[-1]}; {results['workspace']['step_ms']:.2f} ms per step (device "
+              f"busy {ws_busy} ms, idle share {results['workspace']['step_idle_share']}); "
+              f"snapshot ({os.path.getsize(snap)} bytes) reloaded bit-equal, {MCR_RESUME_STEPS} "
+              f"more steps {resumed[-1]}; evaluate {ev} [{card}]")
+        del ws
+
+        # the pretrainer on the buffer's frames: anchor s1, positive s2, far start
+        pre = MCRPretrainer()  # CUDA by default
+        rng = np.random.default_rng(41)
+        batches = []
+        for _ in range(MCR_STEPS):
+            frames, _ = fresh.train_buffer.sample_batch(MCR_BATCH)
+            batches.append((np.ascontiguousarray(frames[:, [3, 4, 0]]),
+                            rng.uniform(-1, 1, (MCR_BATCH, AC_DIM)).astype(np.float32)))
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        pre_hist = [pre.train_step(f, a) for f, a in batches]
+        pre_s = time.perf_counter() - t0
+        counts = launch_counts()
+        if counts != (0, 0, 0) or not all(np.isfinite(v) for h in pre_hist for v in h.values()):
+            raise AssertionError(f"mcr pretrainer: launches {counts}, history {pre_hist[-1]}")
+        pre_busy, _ = profile_device(lambda: pre.train_step(*batches[0]), 2)
+        results["pretrainer"] = {"launches": counts, "first": pre_hist[0], "last": pre_hist[-1],
+                                 "step_ms": pre_s * 1e3 / MCR_STEPS, "step_busy_ms": pre_busy}
+        print(f"mcr pretrainer: {MCR_STEPS} steps at batch {MCR_BATCH} (3 x 112 x 112 frames "
+              f"each), launches {counts}; first {pre_hist[0]}, last {pre_hist[-1]}; "
+              f"{pre_s * 1e3 / MCR_STEPS:.2f} ms per step (device busy {pre_busy} ms) [{card}]")
+        del pre, fresh, batches
+
+        # the grafted policy at the template's widths: graft, serve, train, counted
+        cfg = mcr_config(snap)
+        obs_utils.initialize_obs_utils_with_config(cfg)
+        algo = algo_factory("mcr", cfg, MCR_SHAPES, ac_dim=AC_DIM)  # CUDA by default
+        assert type(algo).__name__ == "MCRTransformerGMM" and algo.device.type == "cuda"
+        trunk = flatten(torch.load(snap, weights_only=True)["params"]["backbone"])
+        cores = [(n, m) for n, m in algo.nets.named_modules() if n.endswith("backbone")]
+        if len(cores) != 1:
+            raise AssertionError(f"mcr policy: trunks {[n for n, _ in cores]}")
+        for name, core in cores:
+            params = dict(core.named_parameters())
+            if params.keys() != trunk.keys() or not all(
+                    torch.equal(p.detach().cpu(), trunk[k]) for k, p in params.items()):
+                raise AssertionError(f"mcr policy: {name} is not the snapshot's trunk")
+            if not all(torch.equal(b, torch.zeros_like(b) if k.endswith("mean")
+                                   else torch.ones_like(b)) for k, b in core.named_buffers()):
+                raise AssertionError(f"mcr policy: {name}'s statistics are not the init's")
+        n_params = sum(p.numel() for p in algo.nets.parameters())
+        t = int(cfg.algo.transformer.context_length)
+        items = MCRItems(4 * MCR_BATCH, t, seed=42)
+        loader = DataLoader(items, MCR_BATCH, seed=43)
+        rng = np.random.default_rng(44)
+        requests = [stack_collate([items[int(i)] for i in rng.integers(len(items), size=N_ENVS)])
+                    ["obs"] for _ in range(MCR_REQUESTS)]
+        zero_launch_counts()
+        served = [algo.get_action(o) for o in requests]
+        log = run_epoch(algo, loader, epoch=1, num_steps=MCR_POLICY_STEPS)
+        counts = launch_counts()
+        if counts != (0, 0, 0) or not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all()
+                                           for a in served) or not np.isfinite(log["Loss"]):
+            raise AssertionError(f"mcr policy: launches {counts}, log {log}")
+        request_ms = host_ms(lambda: algo.get_action(requests[0]))
+        request_busy, _ = profile_device(lambda: algo.get_action(requests[0]), 2)
+        batch = algo.process_batch_for_training(next(iter(loader)))
+
+        def step():
+            algo.train_on_batch(batch, 1)
+            torch.cuda.synchronize()
+
+        step_ms = host_ms(step, reps=MCR_POLICY_STEPS)
+        step_busy, kernels, convs, names = profile_convs(lambda: algo.train_on_batch(batch, 1),
+                                                         2)
+        assert_fp32_convs(names, "mcr policy step")
+        assert_no_tf32(list(kernels), "mcr policy step")
+        results["policy"] = {
+            "params": n_params, "launches": counts, "log": log, "request_ms": request_ms,
+            "request_busy_ms": request_busy,
+            "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
+            "step_ms": step_ms, "step_busy_ms": step_busy,
+            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+            "step_conv_ms": sum(convs.values()),
+            "step_top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])}
+        print(f"mcr policy (MCRTransformerGMM, {n_params / 1e6:.2f} M parameters, the "
+              f"snapshot's trunk grafted, its statistics the init's): {MCR_REQUESTS} requests "
+              f"of {N_ENVS} envs and {MCR_POLICY_STEPS} steps of batch {MCR_BATCH}, launches "
+              f"{counts}; Loss {log['Loss']:.4f}; request {request_ms:.3f} ms (device busy "
+              f"{request_busy} ms), step {step_ms:.3f} ms (device busy {step_busy} ms, "
+              f"convolution kernels {results['policy']['step_conv_ms']:.3f} ms) [{card}]")
+        del algo, batch, served
+
+        # one fp32 step, card against CPU, from the same weights
+        t0 = time.perf_counter()
+        hold_cfg = mcr_config(snap, hold=True)
+        card_algo, cpu_algo = (algo_factory("mcr", hold_cfg, MCR_SHAPES, ac_dim=AC_DIM,
+                                            device=d) for d in (None, "cpu"))
+        hold_batch = card_algo.process_batch_for_training(
+            next(iter(DataLoader(items, MCR_HOLD_BATCH, seed=45))))
+        # the keypoint conv's bias: a spatial softmax is invariant to it, its
+        # exact gradient is 0
+        kp_biases = [n for n, _ in cpu_algo.nets.named_parameters()
+                     if n.endswith("kp_conv.bias")]
+        losses, worst = hold_step(card_algo, cpu_algo, hold_batch, zero=kp_biases,
+                                  loose=("core_",))
+        results["hold"] = {"losses": losses, "worst": worst,
+                           "seconds": time.perf_counter() - t0}
+        print(f"mcr policy train parity: one fp32 step on the card == the CPU step "
+              f"(hold_step, the visual core's gradients as wholes); losses {losses}; worst "
+              f"{worst}; {results['hold']['seconds']:.1f} s")
+        del card_algo, cpu_algo
+    torch.cuda.empty_cache()
+    return results
+
+
+# phase 13, the synthetic closed loop: the convergence twin at its settings
+# and K1 at its shapes (a train step's 16 context demos x 10 steps and a
+# single-env request's 10 context steps, 256 codes, latent 791)
+LOOP_TRAIN_SHAPE, LOOP_REQUEST_SHAPE = (160, 256, 791), (10, 256, 791)
+# the JAX package's examples/convergence_demo.py on the CPU (JAX_PLATFORMS=cpu,
+# the seeds written there): (epoch, success rate, mean horizon)
+JAX_CPU_CURVE = ((0, 0.2, 97.0), (4, 1.0, 16.0), (8, 1.0, 19.0), (12, 1.0, 22.0))
+LOOP_SUCCESS_MARGIN = 0.3
+
+
+def closed_loop_phase(card: str) -> dict:
+    """Phase 13: ``lipvq_tpu_torch.examples.convergence_demo`` at its full
+    settings on the card (40 scripted demos, 4 x 256 flagship with 256
+    codes, 12 epochs of 50 steps, 5 + 3 x 10 evaluation episodes): K1 must
+    launch exactly once per train step and once per policy request, K1f and
+    K2 never; the last evaluation's success may fall at most 0.3 below the
+    JAX package's CPU curve. Then a step and a request are timed and
+    profiled, and K1 is held against its plain version at the loop's shapes
+    (exact ids on Gaussian fixtures, ``tie_gap`` on the loop's own latents)
+    and timed beside its bound, the plain version and addmm + argmin."""
+    from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
+    from lipvq_tpu_torch.envs.wrappers import FrameStackWrapper
+    from lipvq_tpu_torch.examples import convergence_demo
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_reference
+
+    zero_launch_counts()
+    out = convergence_demo.run(seed=0, log=lambda line: print(f"  closed loop: {line}"))
+    counts = launch_counts()
+    want = out["train_steps"] + out["requests"]
+    if counts != (want, 0, 0):
+        raise AssertionError(f"closed loop: launches (K1, K1f, K2) {counts}, want "
+                             f"({out['train_steps']} steps + {out['requests']} requests, 0, 0)")
+    curve = out["curve"]
+    if [c["epoch"] for c in curve] != [e for e, _, _ in JAX_CPU_CURVE]:
+        raise AssertionError(f"closed loop: evaluations at {[c['epoch'] for c in curve]}")
+    last, jax_last = curve[-1]["success"], JAX_CPU_CURVE[-1][1]
+    if last < jax_last - LOOP_SUCCESS_MARGIN:
+        raise AssertionError(f"closed loop: last success {last} more than "
+                             f"{LOOP_SUCCESS_MARGIN} below the JAX package's {jax_last}")
+    model, policy, ctx = out["model"], out["policy"], out["context"]
+    batch = model.process_batch_for_training(next(iter(out["loader"])))
+
+    def step():
+        model.train_on_batch(batch, 13)
+        torch.cuda.synchronize()
+
+    step_ms = host_ms(step, reps=20)
+    step_busy, step_kernels = profile_device(lambda: model.train_on_batch(batch, 13), 5)
+    env = FrameStackWrapper(SyntheticKitchenEnv(seed=98, horizon=120), num_frames=10)
+    policy.start_episode(lang="drive the effector to the goal")
+    ob = env.reset()
+    request_ms = host_ms(lambda: policy(ob, ctx))
+    request_busy, request_kernels = profile_device(lambda: policy(ob, ctx), 10)
+    points = [(c["epoch"], c["success"], c["horizon"], c["loss"], c["distinct_ids"])
+              for c in curve]
+    print(f"closed loop: {out['train_steps']} train steps + {out['requests']} requests = "
+          f"{counts[0]} K1 launches, K1f {counts[1]}, K2 {counts[2]}, in {out['seconds']:.1f} s; "
+          f"curve (epoch, success, horizon, loss, distinct ids) {points} "
+          f"against the JAX package's CPU curve {JAX_CPU_CURVE}; step {step_ms:.3f} ms (device "
+          f"busy {step_busy} ms), single-env request {request_ms:.3f} ms (device busy "
+          f"{request_busy} ms) [{card}]")
+
+    # K1 at the loop's shapes: Gaussian fixtures exact, the loop's latents
+    # within the near-tie bound
+    tok = model.nets.net.encoder.action_network
+    c_loop = tok.quantizer.codebook.detach()
+    assert tuple(c_loop.shape) == LOOP_TRAIN_SHAPE[1:], c_loop.shape
+    with torch.no_grad():
+        loop_z = {"train": tok.encode(torch.as_tensor(
+                      batch["actions"][:len(batch["actions"]) // 2], device=model.device)
+                      .reshape(-1, AC_DIM)),
+                  "request": tok.encode(torch.as_tensor(ctx["actions"], device=model.device)
+                                        .reshape(-1, AC_DIM))}
+    gen = torch.Generator(device=model.device).manual_seed(51)
+    rows = {}
+    for label, (b, n, d) in (("train", LOOP_TRAIN_SHAPE), ("request", LOOP_REQUEST_SHAPE)):
+        z = torch.randn(b, d, generator=gen, device=model.device)
+        c = torch.randn(n, d, generator=gen, device=model.device)
+        if not torch.equal(vq_nearest_cuda(z, c), vq_nearest_reference(z, c)):
+            raise AssertionError(f"K1 ids differ from the plain version at {b}x{n}x{d}")
+        zl = loop_z[label]
+        assert tuple(zl.shape) == (b, d), zl.shape
+        got = vq_nearest_cuda(zl, c_loop)
+        mismatches, max_gap, _ = check_near_ties(zl, c_loop, got,
+                                                 vq_nearest_reference(zl, c_loop), bf16=False)
+        ms = cuda_ms(lambda: vq_nearest_cuda(z, c), 50)
+        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), 10)
+        library_ms = cuda_ms(
+            lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), 50)
+        device_ms, _ = profile_device(lambda: vq_nearest_cuda(z, c), 50)
+        bound_ms, bound_by = vq_bound(b, n, d)
+        rows[label] = {"shape": [b, n, d], "mismatches": mismatches, "max_abs_err": max_gap,
+                       "loop_codes_used": int(torch.unique(got).numel()), "ms": ms,
+                       "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K1 closed loop {label} {b}x{n}x{d}: Gaussian ids exact; the loop's latents "
+              f"{mismatches} ids off the plain lookup (near-ties, max fp64 gap {max_gap:.3g}) on "
+              f"{rows[label]['loop_codes_used']} codes; K1 {ms:.4f} ms per call (device "
+              f"{device_ms} ms), plain {plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    result = {k: v for k, v in out.items() if k not in ("model", "loader", "dataset",
+                                                         "context", "policy")}
+    result.update({"launches": counts, "jax_cpu_curve": JAX_CPU_CURVE, "step_ms": step_ms,
+                   "step_busy_ms": step_busy,
+                   "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+                   "request_ms": request_ms, "request_busy_ms": request_busy,
+                   "request_idle_share": (None if request_busy is None
+                                          else 1 - request_busy / request_ms),
+                   "step_top_ops_ms": dict(sorted(step_kernels.items(),
+                                                  key=lambda kv: -kv[1])[:5]),
+                   "request_top_ops_ms": dict(sorted(request_kernels.items(),
+                                                     key=lambda kv: -kv[1])[:5]),
+                   "k1": rows})
+    del out, model, policy, batch
+    torch.cuda.empty_cache()
+    return result
+
+
+def device_cache_script(card: str, exports: list[str], tmp: str) -> dict:
+    """The script phase's run once more with ``train.hdf5_cache_mode =
+    "device"``: the corpus preprocessed once into tables on the card, each
+    batch one gather there. The loader's first batch must equal, bit for
+    bit, the host path's ``process_batch_for_training`` of the same items;
+    K1 launches once per train step and once per rollout request, as on the
+    host path."""
+    import copy
+
+    from lipvq_tpu_torch.data.loaders import DeviceCachedLoader
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import train_utils
+    from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+
+    cfg = script_config(exports, os.path.join(tmp, "out_device"))
+    cfg["train"]["hdf5_cache_mode"] = "device"
+    cfg_path = os.path.join(tmp, "config_device.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+
+    seen = {"k1_steps": 0, "checked": None, "setup_s": None}
+    run_epoch, make_loaders = train_utils.run_epoch, train_utils.make_loaders
+
+    def observed_make_loaders(config, train_ds, valid_ds, model=None):
+        t0 = time.perf_counter()
+        loaders = make_loaders(config, train_ds, valid_ds, model=model)
+        torch.cuda.synchronize()
+        seen.update(setup_s=time.perf_counter() - t0, dataset=train_ds)
+        return loaders
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            return {p: a for k, v in tree.items() for p, a in leaves(v, path + (k,)).items()}
+        if tree is None:
+            return {}
+        return {path: tree.cpu().numpy() if isinstance(tree, torch.Tensor) else np.asarray(tree)}
+
+    def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+        if seen["checked"] is None:
+            if not isinstance(loader, DeviceCachedLoader) or not loader.preprocessed:
+                raise AssertionError(f"device cache: the train loader is a "
+                                     f"{type(loader).__name__}")
+            idx = copy.deepcopy(loader._rng).choice(loader._n, size=loader.batch_size,
+                                                    replace=True, p=loader._p)
+            got = leaves(loader.gather(idx))
+            want = leaves(model.process_batch_for_training(
+                stack_collate([seen["dataset"][int(i)] for i in idx])))
+            if got.keys() != want.keys() or not all(
+                    got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+                    for k in want):
+                raise AssertionError("device cache: the first batch differs from the host "
+                                     "path's")
+            seen["checked"] = {
+                "leaves": len(got),
+                "table_rows": [int(t.shape[0]) for t in loader._tables],
+                "items": loader._n,
+                "table_bytes": sum(t.numel() * t.element_size() for t in loader._tables)}
+        before = launch_counts()[0]
+        log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+        seen["k1_steps"] += launch_counts()[0] - before
+        return log
+
+    out = io.StringIO()
+    train_utils.run_epoch, train_utils.make_loaders = observed_run_epoch, observed_make_loaders
+    try:
+        # the main path: the training script with the device cache, counted
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ckpt_dir = train_script.main(["--config", cfg_path])
+        script_s = time.perf_counter() - t0
+        k1, k1f, k2 = launch_counts()
+    except BaseException:
+        print(out.getvalue()[-8000:])
+        raise
+    finally:
+        train_utils.run_epoch, train_utils.make_loaders = run_epoch, make_loaders
+    k1_rollout = k1 - seen["k1_steps"]
+    want = (SCRIPT_EPOCHS * SCRIPT_STEPS, SCRIPT_EPOCHS * ROLLOUT_HORIZON, 0, 0)
+    if (seen["k1_steps"], k1_rollout, k1f, k2) != want:
+        raise AssertionError(f"device cache script: K1 {seen['k1_steps']} in steps and "
+                             f"{k1_rollout} in rollouts, K1f {k1f}, K2 {k2}; want {want}")
+    with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+        logs = json.load(f)
+    bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
+    if bad:
+        raise AssertionError(f"device cache script: non-finite logs {bad}")
+    timing = {k: per_step_ms(logs, f"Timing_Stats/Train_{k}", SCRIPT_STEPS)
+              for k in ("Data_Loading", "Process_Batch", "Train_Batch")}
+    print(f"script, device cache: the first batch bit-equal to the host path's "
+          f"({seen['checked']['leaves']} leaves; tables of {seen['checked']['table_rows']} rows "
+          f"for {seen['checked']['items']} items, {seen['checked']['table_bytes']} bytes, built "
+          f"in {seen['setup_s']:.2f} s); {SCRIPT_EPOCHS} epochs in {script_s:.1f} s, K1 "
+          f"{seen['k1_steps']} in steps + {k1_rollout} in rollouts, K2 {k2}; Time_* per step "
+          f"{ {k: [round(x, 3) for x in v] for k, v in timing.items()} } ms [{card}]")
+    return {"k1_train_steps": seen["k1_steps"], "k1_rollout": k1_rollout, "k1f": k1f, "k2": k2,
+            "first_batch": seen["checked"], "setup_s": seen["setup_s"], "script_s": script_s,
+            "time_ms_per_step": timing}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3614,6 +4090,8 @@ def main() -> int:
     visual = timed("visual", visual_phase, card)
     baselines = timed("baselines", baselines_phase, card)
     offline = timed("rl", rl_phase, card)
+    mcr = timed("mcr", mcr_phase, card)
+    loop = timed("closed_loop", closed_loop_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -3668,6 +4146,14 @@ def main() -> int:
         for name in RL_ALGOS:
             paths[f"rl {name}"] = offline[name]["launches"][i]
         paths["rl td3_bc train_script"] = offline["script"]["launches"][i]
+        for part in ("workspace", "pretrainer", "policy"):
+            paths[f"mcr {part}"] = mcr[part]["launches"][i]
+        paths["closed_loop"] = loop["launches"][i]
+    dc = scripted["device_cache"]
+    k1_paths["train_script_device_cache"] = dc["k1_train_steps"]
+    k1_paths["rollout_device_cache"] = dc["k1_rollout"]
+    k1f_paths["device_cache_script"] = dc["k1f"]
+    k2_paths["device_cache_script"] = dc["k2"]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -3683,6 +4169,8 @@ def main() -> int:
         "visual_serve_shape": k1["visual_serve"],
         "visual_single_shape": k1["visual_single"],
         "visual_train_shape": k1["visual_train"],
+        "closed_loop_train_shape": loop["k1"]["train"],
+        "closed_loop_request_shape": loop["k1"]["request"],
         "card": card,
     }, {
         "name": "vq_nearest_fast (K1f)",
@@ -3714,7 +4202,7 @@ def main() -> int:
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
-        "rl": offline, "phase_s": phase_s}))
+        "rl": offline, "mcr": mcr, "closed_loop": loop, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

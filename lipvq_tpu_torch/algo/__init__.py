@@ -16,6 +16,7 @@ import lipvq_tpu_torch.algo.gl  # noqa: F401  (registers gl)
 import lipvq_tpu_torch.algo.hbc  # noqa: F401  (registers hbc and iris)
 import lipvq_tpu_torch.algo.icl  # noqa: F401  (registers icl and icl_mamba)
 import lipvq_tpu_torch.algo.iql  # noqa: F401  (registers iql)
+import lipvq_tpu_torch.algo.mcr  # noqa: F401  (registers mcr)
 import lipvq_tpu_torch.algo.td3_bc  # noqa: F401  (registers td3_bc)
 
 __all__ = [

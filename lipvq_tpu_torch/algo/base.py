@@ -22,8 +22,6 @@ from collections.abc import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from lipvq_tpu_torch.config.base import raise_unported
-
 ALGO_REGISTRY: dict[str, Callable] = {}
 
 
@@ -59,10 +57,7 @@ def frames_to_float(frames: torch.Tensor) -> torch.Tensor:
 
 def algo_factory(algo_name: str, config, obs_key_shapes: dict, ac_dim: int,
                  device=None):
-    """Instantiate an algorithm on ``device`` (CUDA when None). An algorithm
-    of the JAX package that the port does not have yet raises
-    NotImplementedError."""
-    raise_unported(algo_name)
+    """Instantiate an algorithm on ``device`` (CUDA when None)."""
     if algo_name not in ALGO_REGISTRY:
         raise KeyError(
             f"Unknown algo {algo_name!r}; registered: {sorted(ALGO_REGISTRY)}"

@@ -2,7 +2,6 @@ from lipvq_tpu_torch.config.config import Config, ConfigLockError
 from lipvq_tpu_torch.config.base import (
     BaseConfig,
     REGISTERED_CONFIGS,
-    UNPORTED_ALGOS,
     config_factory,
     config_from_json,
 )
@@ -18,6 +17,7 @@ from lipvq_tpu_torch.config.algo_configs import (
     ICLMambaConfig,
     IQLConfig,
     IRISConfig,
+    MCRConfig,
     TD3BCConfig,
 )
 
@@ -26,7 +26,6 @@ __all__ = [
     "ConfigLockError",
     "BaseConfig",
     "REGISTERED_CONFIGS",
-    "UNPORTED_ALGOS",
     "config_factory",
     "config_from_json",
     "ACTConfig",
@@ -40,5 +39,6 @@ __all__ = [
     "ICLMambaConfig",
     "IQLConfig",
     "IRISConfig",
+    "MCRConfig",
     "TD3BCConfig",
 ]

@@ -1,13 +1,12 @@
 """Per-algorithm config classes (copy of ``lipvq_tpu/config/algo_configs.py``).
 
-Every algorithm's config but ``mcr``'s is ported (``UNPORTED_ALGOS`` in
-``config/base.py``): ``ICLConfig``, ``ICLMambaConfig``, ``BCConfig``,
-``ACTConfig``, ``DiffusionPolicyConfig``, the offline-RL ``IQLConfig``,
-``TD3BCConfig``, ``CQLConfig`` and ``BCQConfig``, and the hierarchical
-``GLConfig``, ``HBCConfig`` and ``IRISConfig``. Defaults mirror the
-reference per-algo configs so the reference's JSON templates apply
-unchanged (reference: robomimic/config/{icl,bc,act,diffusion_policy,iql,
-td3_bc,cql,bcq,gl,hbc,iris}_config.py).
+Every algorithm's config is ported: ``ICLConfig``, ``ICLMambaConfig``,
+``BCConfig``, ``MCRConfig``, ``ACTConfig``, ``DiffusionPolicyConfig``, the
+offline-RL ``IQLConfig``, ``TD3BCConfig``, ``CQLConfig`` and ``BCQConfig``,
+and the hierarchical ``GLConfig``, ``HBCConfig`` and ``IRISConfig``.
+Defaults mirror the reference per-algo configs so the reference's JSON
+templates apply unchanged (reference: robomimic/config/{icl,bc,mcr,act,
+diffusion_policy,iql,td3_bc,cql,bcq,gl,hbc,iris}_config.py).
 
 The four mutually-exclusive action-tokenizer switches live under
 ``algo.transformer.{vq_vae_enabled,bin_enabled,fast_enabled,ln_act_enabled}``
@@ -191,6 +190,30 @@ class BCConfig(BaseConfig):
         _vae_defaults(algo)
         _rnn_defaults(algo)
         _seq_backbone_defaults(algo.transformer)
+        algo.language_conditioned = False
+
+
+class MCRConfig(BaseConfig):
+    """Reference: robomimic/config/mcr_config.py — transformer GMM BC with
+    a pretrained MCR representation."""
+
+    ALGO_NAME = "mcr"
+
+    def algo_config(self):
+        algo = self.algo
+        _policy_optim_defaults(algo)
+        _loss_defaults(algo)
+        algo.actor_layer_dims = [1024, 1024]
+        _gaussian_defaults(algo)
+        _gmm_defaults(algo)
+        algo.gmm.enabled = True
+        _vae_defaults(algo)
+        _rnn_defaults(algo)
+        _seq_backbone_defaults(algo.transformer)
+        algo.transformer.enabled = True
+        algo.mcr.pretrained_ckpt = None
+        algo.mcr.freeze_backbone = False
+        algo.mcr.embed_dim = 128
         algo.language_conditioned = False
 
 

@@ -14,18 +14,6 @@ from lipvq_tpu_torch.config.config import Config
 # algo_name -> BaseConfig subclass
 REGISTERED_CONFIGS: dict[str, type] = {}
 
-# the JAX package's algorithm that the port does not have yet (ROADMAP §1
-# item 12): its config and algo raise NotImplementedError
-UNPORTED_ALGOS = ("mcr",)
-
-
-def raise_unported(algo_name: str) -> None:
-    """NotImplementedError for an algorithm the port does not have yet."""
-    if algo_name in UNPORTED_ALGOS:
-        raise NotImplementedError(f"the {algo_name!r} algorithm is not ported yet "
-                                  f"(ROADMAP §1 item 12)")
-
-
 def register_config(cls):
     name = getattr(cls, "ALGO_NAME", None)
     if name is not None:
@@ -39,7 +27,6 @@ def config_factory(algo_name: str, dic: dict | None = None) -> Config:
     Mirrors reference config_factory (base_config.py:49-67) + the JSON
     override flow in train.py:491-497 (unknown keys error).
     """
-    raise_unported(algo_name)
     if algo_name not in REGISTERED_CONFIGS:
         raise KeyError(
             f"Unknown algo {algo_name!r}; registered: {sorted(REGISTERED_CONFIGS)}"

@@ -5,7 +5,8 @@ The same windowing, padding, filter keys, caching, normalization and
 samplers as the JAX package; where it opens the HDF5 file, this reads the
 export of ``data/export.py`` (``hdf5_path`` is the export's directory).
 Everything here is numpy on the host; the algo moves each batch to its
-device. ``R2D2Dataset`` is not ported yet (ROADMAP §1 item 7).
+device. ``R2D2Dataset`` is the JAX package's: it defers to
+``SequenceDataset`` in both of its branches.
 """
 
 from __future__ import annotations
@@ -362,6 +363,23 @@ class SequenceDataset:
                 self._demo_id_to_demo_lang_emb[ep], (t, 1)
             )
         return meta
+
+
+class R2D2Dataset(SequenceDataset):
+    """DROID/R2D2-format variant (reference dataset.py:731-790): the whole
+    file is one long stream segmented into pseudo-demos at gripper
+    open/close transitions. As in the JAX package, both branches defer to
+    ``SequenceDataset``: ``gripper_dim`` is kept and not used."""
+
+    def __init__(self, *args, gripper_dim: int = -1, **kwargs):
+        self._gripper_dim = gripper_dim
+        super().__init__(*args, **kwargs)
+
+    def _load_demo_info(self, filter_by_attribute, demos, lang_encoder):
+        if len(self.export.demos) > 1:
+            # already segmented: the standard path
+            return super()._load_demo_info(filter_by_attribute, demos, lang_encoder)
+        return super()._load_demo_info(filter_by_attribute, demos, lang_encoder)
 
 
 class CustomWeightedRandomSampler:

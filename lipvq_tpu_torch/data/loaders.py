@@ -12,10 +12,15 @@ batch to its device.
   batches and return them in completion order (``num_data_workers > 1``,
   the image protocol's 5). Workers read numpy only and never touch the
   card; the export reader keeps no file open between reads.
+- ``DevicePrefetchLoader``: copies the next batches to the device on a side
+  CUDA stream from pinned host memory while the caller trains.
+- ``DeviceCachedLoader`` (``train.hdf5_cache_mode="device"``): the whole
+  preprocessed corpus on the device, each batch one gather there.
 """
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 from collections import OrderedDict
@@ -186,6 +191,157 @@ class MultiprocessLoader:
     def __iter__(self):
         for batch in self._loader:
             yield _map(batch, torch.Tensor.numpy)
+
+
+class DevicePrefetchLoader:
+    """Keep ``size`` batches of ``loader`` ahead on ``device`` (the flax
+    ``prefetch_to_device`` pattern of the JAX package): each batch, after the
+    host-side ``transform``, is copied into pinned host memory and from there
+    with ``non_blocking`` copies on a side CUDA stream, whose recorded event
+    the consumer's stream waits on before the batch is handed out, so the
+    copy overlaps the previous steps. On a CPU device the batches are plain
+    tensors. Each batch equals the inner loader's, as tensors on the device.
+    Compose outside ``PrefetchLoader``: host assembly overlaps in its thread."""
+
+    def __init__(self, loader, device, size: int = 2, transform=None):
+        self.loader = loader
+        self.device = torch.device(device)
+        self.size = max(1, int(size))
+        self.transform = transform
+
+    def __len__(self):
+        return len(self.loader)
+
+    def _put(self, batch, stream):
+        if stream is None:
+            return _map(batch, lambda a: torch.as_tensor(a, device=self.device)), None
+        host = _map(batch, lambda a: torch.as_tensor(a).pin_memory())
+        with torch.cuda.stream(stream):
+            out = _map(host, lambda t: t.to(self.device, non_blocking=True))
+            event = torch.cuda.Event()
+            event.record(stream)
+        return out, event
+
+    def _ready(self, item):
+        out, event = item
+        if event is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(event)
+            for _, t in _flatten(out)[0]:
+                # made on the side stream, used on the consumer's: the
+                # allocator must not reuse them before the consumer is done
+                t.record_stream(consumer)
+        return out
+
+    def __iter__(self):
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        q: collections.deque = collections.deque()
+        for batch in self.loader:
+            if self.transform is not None:
+                batch = self.transform(batch)
+            q.append(self._put(batch, stream))
+            if len(q) > self.size:
+                yield self._ready(q.popleft())
+        while q:
+            yield self._ready(q.popleft())
+
+
+def _flatten(tree, path=()):
+    """(leaves [(path, array)], skeleton): the skeleton is ``tree`` with each
+    array leaf replaced by its index into the leaves; None stays None."""
+    if isinstance(tree, dict):
+        leaves, skeleton = [], OrderedDict()
+        for k, v in tree.items():
+            sub, skeleton[k] = _flatten(v, path + (k,))
+            leaves += sub
+        return leaves, skeleton
+    if tree is None:
+        return [], None
+    return [(path, tree)], path
+
+
+def _unflatten(skeleton, values: dict):
+    if isinstance(skeleton, dict):
+        return OrderedDict((k, _unflatten(v, values)) for k, v in skeleton.items())
+    return None if skeleton is None else values[skeleton]
+
+
+class DeviceCachedLoader:
+    """The device-resident corpus (``train.hdf5_cache_mode="device"``;
+    counterpart of the JAX package's loader of that name).
+
+    Every windowed item is materialized once, in chunks of ``chunk`` items,
+    and run through the model's ``process_batch_for_training`` once; each
+    leaf of the result is stored de-duplicated, its distinct rows (by their
+    bytes) in a table and a per-item index map, both on the model's device.
+    A batch is ``table[map[idx]]`` per leaf, gathered there; the host only
+    draws the indices: ``numpy.random.default_rng(seed).choice(n,
+    batch_size, replace=True, p=sampler.weights)``, the JAX package's draw,
+    so one seed gives the same batches in both packages (a MetaDataset's
+    weights carry over). Item-constant leaves such as a per-demo
+    ``lang_emb`` shrink to a few rows. Batches come out preprocessed
+    (``preprocessed = True``): ``run_epoch`` does not process them again."""
+
+    preprocessed = True
+
+    def __init__(self, dataset, batch_size: int, model, seed: int = 0,
+                 sampler=None, max_bytes: float = 4e9, chunk: int = 4096):
+        self.batch_size = int(batch_size)
+        self.device = model.device
+        self._rng = np.random.default_rng(seed)
+        p = getattr(sampler, "weights", None)
+        self._p = None if p is None else np.asarray(p, np.float64)
+        n = len(dataset)
+        skeleton = None
+        uniq = tabs = maps = None
+        for s in range(0, n, chunk):
+            items = [dataset[i] for i in range(s, min(n, s + chunk))]
+            leaves, skeleton = _flatten(model.process_batch_for_training(stack_collate(items)))
+            if uniq is None:
+                uniq = [{} for _ in leaves]
+                tabs = [[] for _ in leaves]
+                maps = [[] for _ in leaves]
+            for li, (_, leaf) in enumerate(leaves):
+                arr = np.ascontiguousarray(np.asarray(leaf))
+                ids = np.empty(len(arr), np.int64)
+                seen, tab = uniq[li], tabs[li]
+                for r in range(len(arr)):
+                    key = arr[r].tobytes()
+                    j = seen.get(key)
+                    if j is None:
+                        j = len(tab)
+                        seen[key] = j
+                        tab.append(arr[r])
+                    ids[r] = j
+                maps[li].append(ids)
+        del uniq
+        tables = [np.stack(tab) for tab in tabs]
+        nbytes = sum(t.nbytes for t in tables)
+        if nbytes > max_bytes:
+            raise ValueError(
+                f"device corpus cache would be {nbytes / 1e9:.2f} GB "
+                f"(> {max_bytes / 1e9:.1f} GB); use hdf5_cache_mode="
+                f"'low_dim' for this dataset (image-scale corpora do "
+                f"not fit HBM)")
+        self._paths = [path for path, _ in leaves]
+        self._tables = [torch.as_tensor(t, device=self.device) for t in tables]
+        self._maps = [torch.as_tensor(np.concatenate(m), device=self.device) for m in maps]
+        self._skeleton = skeleton
+        self._n = n
+
+    def gather(self, idx):
+        """The batch of items ``idx``, gathered on the device."""
+        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        return _unflatten(self._skeleton, {
+            path: t[m[i]] for path, t, m in zip(self._paths, self._tables, self._maps)})
+
+    def __len__(self):
+        return max(1, self._n // self.batch_size)
+
+    def __iter__(self):
+        for _ in range(len(self)):
+            yield self.gather(self._rng.choice(self._n, size=self.batch_size, replace=True,
+                                               p=self._p))
 
 
 class CyclingIterator:

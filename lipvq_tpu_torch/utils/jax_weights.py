@@ -38,7 +38,8 @@ perturbation) goes into the target buffers under ``nets.target``, and
 HBC's and IRIS's parts load one by one (``load_jax_parts``). Integer leaves
 keep their integer type. The bridge takes the trees as numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the JAX side), so this module
-imports no JAX.
+imports no JAX. ``mcr_checkpoint_from_msgpack`` converts the JAX package's
+MCR snapshot files (flax msgpack, decoded without flax) into the port's.
 """
 
 from __future__ import annotations
@@ -139,3 +140,48 @@ def load_jax_parts(algo, parts: Mapping[str, Mapping]) -> None:
         raise KeyError(f"the algo has the parts {sorted(own)}, not {sorted(parts)}")
     for name, trees in parts.items():
         load_jax_params(own[name], **trees)
+
+
+def _flax_msgpack_ext(code, data):
+    """flax.serialization's msgpack extension types: an ndarray (1) or a
+    numpy scalar (3) as msgpack (shape, dtype name, C-order bytes)."""
+    import msgpack  # only where msgpack is installed; never at import
+
+    if code not in (1, 3):
+        raise ValueError(f"unknown flax msgpack extension type {code}")
+    shape, dtype, buf = msgpack.unpackb(data, raw=True)
+    arr = np.frombuffer(buf, dtype=np.dtype(dtype.decode())).reshape(shape)
+    return arr if code == 1 else arr[()]
+
+
+def mcr_checkpoint_from_msgpack(src: str, dst: str) -> str:
+    """Convert an MCR file of the JAX package (flax msgpack) into the port's
+    ``torch.save`` tree of the same layout (``algo/mcr.py``): the
+    workspace's snapshot ``{"params", "extra", "global_step"}`` or the
+    pretrainer's ``{"params": {"encoder", "head"}, "extra_vars"}``. Leaves
+    are renamed and laid out as ``state_dict_from_jax_params`` does. Needs
+    msgpack, which only this function imports."""
+    import msgpack  # only where msgpack is installed; never at import
+
+    from lipvq_tpu_torch.algo.mcr import MCREncoder, nest
+
+    with open(src, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_flax_msgpack_ext, raw=False)
+
+    def encoder_tree(params):
+        module = MCREncoder(embed_dim=np.asarray(params["proj"]["kernel"]).shape[1])
+        return nest(state_dict_from_jax_params(params, module))
+
+    def stats_tree(extra):
+        return {k: nest(state_dict_from_jax_params(v)) for k, v in extra.items()}
+
+    params = tree["params"]
+    if "encoder" in params:
+        out = {"params": {"encoder": encoder_tree(params["encoder"]),
+                          "head": nest(state_dict_from_jax_params(params["head"]))},
+               "extra_vars": stats_tree(tree["extra_vars"])}
+    else:
+        out = {"params": encoder_tree(params), "extra": stats_tree(tree.get("extra", {})),
+               "global_step": torch.tensor(int(tree.get("global_step", 0)))}
+    torch.save(out, dst)
+    return dst

@@ -8,10 +8,11 @@
 - ``get_exp_dir`` and ``should_save_from_rollout_logs``, the output tree
   and the checkpoint policy (reference :32-90, :1112).
 
-``make_loaders`` picks the train loader as the JAX package does: 0 data
-workers an in-process ``DataLoader``, 1 a ``PrefetchLoader`` thread, more a
-``MultiprocessLoader``; ``train.hdf5_cache_mode="device"`` (the
-``DeviceCachedLoader``) raises (ROADMAP §1 item 7).
+``make_loaders`` picks the train loader as the JAX package does: with
+``train.hdf5_cache_mode="device"`` and a model, the ``DeviceCachedLoader``
+(the corpus preprocessed once and resident on the model's device); else 0
+data workers an in-process ``DataLoader``, 1 a ``PrefetchLoader`` thread,
+more a ``MultiprocessLoader``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from lipvq_tpu_torch.data.dataset import MetaDataset, SequenceDataset
 from lipvq_tpu_torch.data.loaders import (
     CyclingIterator,
     DataLoader,
+    DeviceCachedLoader,
     MultiprocessLoader,
     PrefetchLoader,
 )
@@ -114,14 +116,13 @@ def load_data_for_training(config, obs_keys, lang_encoder=None):
 def make_loaders(config, train_ds, valid_ds, model=None):
     """(train_loader, valid_loader, context_loader) (reference
     train_utils.py:229-294): the train loader follows the MetaDataset's
-    sampler when it has one, with ``train.num_data_workers`` worker
-    processes where there are more than 1 (a thread for 1); the rollout
-    context loader draws one training item at a time (reference
-    train.py:217-224). The caller closes a ``MultiprocessLoader``."""
-    if config.train.hdf5_cache_mode == "device":
-        raise NotImplementedError(
-            "train.hdf5_cache_mode='device' (the DeviceCachedLoader) is not ported yet "
-            "(ROADMAP §1 item 7)")
+    sampler when it has one; with ``train.hdf5_cache_mode="device"`` and a
+    ``model`` it is a ``DeviceCachedLoader`` drawing from the sampler's
+    weights (``group_task_batches`` raises there), else it has
+    ``train.num_data_workers`` worker processes where there are more than 1
+    (a thread for 1); the rollout context loader draws one training item at
+    a time (reference train.py:217-224). The caller closes a
+    ``MultiprocessLoader``."""
     n_workers = int(config.train.num_data_workers or 0)
     sampler = None
     if hasattr(train_ds, "get_dataset_sampler"):
@@ -132,7 +133,15 @@ def make_loaders(config, train_ds, valid_ds, model=None):
         sampler = train_ds.get_dataset_sampler(
             seed=config.train.seed, batch_size=group_bs
         )
-    if n_workers > 1:
+    if config.train.hdf5_cache_mode == "device" and model is not None:
+        if config.train.get("group_task_batches", False):
+            raise ValueError(
+                "hdf5_cache_mode='device' draws i.i.d. weighted indices "
+                "and cannot honor group_task_batches; use 'low_dim'")
+        train_loader = DeviceCachedLoader(
+            train_ds, batch_size=config.train.batch_size, model=model,
+            seed=config.train.seed, sampler=sampler)
+    elif n_workers > 1:
         train_loader = MultiprocessLoader(
             train_ds, batch_size=config.train.batch_size, shuffle=True,
             seed=config.train.seed, sampler=sampler, num_workers=n_workers,
@@ -180,14 +189,17 @@ def run_epoch(model, data_loader, epoch: int, validate: bool = False,
     loader), cycling it as needed (reference train_utils.py:1238-1352).
 
     Returns the step log: each ``log_info`` key averaged over the steps, plus
-    ``Time_*`` phase minutes. The step metrics stay on the device during the
-    epoch and are fetched once at its end, so the loop never waits on the
-    card for a metric.
+    ``Time_*`` phase minutes. A loader whose batches are ``preprocessed``
+    (``DeviceCachedLoader``) skips ``process_batch_for_training``. The step
+    metrics stay on the device during the epoch and are fetched once at its
+    end, so the loop never waits on the card for a metric.
     """
     it = data_loader if isinstance(data_loader, CyclingIterator) else CyclingIterator(data_loader)
     inner = data_loader.loader if isinstance(data_loader, CyclingIterator) else data_loader
     if num_steps is None:
         num_steps = len(inner)
+    # a device-cached loader's batches are processed already, on the device
+    preprocessed = getattr(inner, "preprocessed", False)
 
     timing = {"Data_Loading": 0.0, "Process_Batch": 0.0, "Train_Batch": 0.0,
               "Log_Info": 0.0}
@@ -198,7 +210,7 @@ def run_epoch(model, data_loader, epoch: int, validate: bool = False,
         timing["Data_Loading"] += time.time() - t0
 
         t0 = time.time()
-        input_batch = model.process_batch_for_training(batch)
+        input_batch = batch if preprocessed else model.process_batch_for_training(batch)
         timing["Process_Batch"] += time.time() - t0
 
         t0 = time.time()

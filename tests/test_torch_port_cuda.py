@@ -467,3 +467,70 @@ def test_sweep_ema_step_launches_k2_once(cuda):
     assert (vq_nearest_cuda.launches - k1, vq_nearest_with_stats_cuda.launches - k2) == (0, 1)
     assert torch.isfinite(loss)
     np.testing.assert_allclose(float(model.ema_cluster_size.sum()), 0.01 * 512, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,d", [(160, 256, 791), (10, 256, 791)],
+                         ids=["closed_loop_train", "closed_loop_request"])
+def test_k1_at_the_closed_loops_shapes(cuda, b, n, d):
+    """The convergence twin's K1 shapes: a step's 16 context demos x 10
+    steps and a single-env request's 10 steps, 256 codes, latent 791."""
+    rng = np.random.default_rng(3)
+    got, want = _both(rng.standard_normal((b, d), dtype=np.float32),
+                      rng.standard_normal((n, d), dtype=np.float32), cuda)
+    np.testing.assert_array_equal(got, want)
+
+
+def _host_batches(n_batches: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [{"obs": {"x": rng.standard_normal((8, 10, 791), dtype=np.float32),
+                     "frames": rng.integers(0, 256, (8, 10, 16, 16, 3), dtype=np.uint8)},
+             "actions": rng.standard_normal((8, 10, 12), dtype=np.float32),
+             "goal_obs": None} for _ in range(n_batches)]
+
+
+def test_device_prefetch_loader_on_the_card(cuda):
+    """Batches copied on a side stream from pinned memory equal the inner
+    loader's, on the card, for work queued on the consumer's stream right
+    after each one arrives."""
+    from lipvq_tpu_torch.data.loaders import DevicePrefetchLoader
+
+    batches = _host_batches(6, seed=4)
+    loader = DevicePrefetchLoader(batches, cuda, size=2)
+    sums = []
+    for got in loader:
+        assert got["goal_obs"] is None and got["obs"]["frames"].dtype == torch.uint8
+        assert all(t.device.type == "cuda" for t in (got["obs"]["x"], got["actions"]))
+        sums.append(torch.stack([got["obs"]["x"].double().sum(),
+                                 got["obs"]["frames"].double().sum(),
+                                 got["actions"].double().sum()]))
+    want = [[b["obs"]["x"].astype(np.float64).sum(), b["obs"]["frames"].astype(np.float64).sum(),
+             b["actions"].astype(np.float64).sum()] for b in batches]
+    np.testing.assert_allclose(torch.stack(sums).cpu().numpy(), np.asarray(want), rtol=1e-12)
+
+
+def test_device_cached_loader_gathers_on_the_card(cuda):
+    """The tables live on the card and a gathered batch equals the host
+    collate of the same items, bit for bit."""
+    from lipvq_tpu_torch.data.loaders import DeviceCachedLoader
+    from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+
+    rng = np.random.default_rng(5)
+    items = [{"obs": {"x": rng.standard_normal((10, 23), dtype=np.float32),
+                      "lang": np.ones((10, 768), np.float32) * (i % 2)},
+              "actions": rng.standard_normal((10, 12), dtype=np.float32)} for i in range(50)]
+
+    class Identity:
+        device = cuda
+
+        def process_batch_for_training(self, batch):
+            return batch
+
+    loader = DeviceCachedLoader(items, batch_size=8, model=Identity(), seed=0, chunk=16)
+    assert all(t.device.type == "cuda" for t in loader._tables)
+    assert [len(t) for t in loader._tables] == [50, 2, 50]
+    idx = np.array([3, 3, 49, 0, 17])
+    got = loader.gather(idx)
+    want = stack_collate([items[i] for i in idx])
+    for k in ("x", "lang"):
+        assert torch.equal(got["obs"][k].cpu(), torch.from_numpy(want["obs"][k]))
+    assert torch.equal(got["actions"].cpu(), torch.from_numpy(want["actions"]))

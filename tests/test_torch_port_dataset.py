@@ -320,10 +320,27 @@ def _loader_config(data, **train):
 
 @pytest.mark.parametrize("train", [{"hdf5_cache_mode": "device"}], ids=["device_cache"])
 def test_unported_loaders_raise(sources, train):
+    """The device cache, which raised here until it was ported, no longer
+    raises: the dataset caches low_dim for it; without a model the train
+    loader is the host ``DataLoader``, as in the JAX package, and with one
+    the ``DeviceCachedLoader`` (tests/test_torch_port_device_cache.py)."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.data.loaders import DeviceCachedLoader
+
     cfg = _loader_config(sources["converted"][1], **train)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_ds, valid_ds = train_utils.load_data_for_training(cfg, obs_keys=OBS_KEYS)
-        train_utils.make_loaders(cfg, train_ds, valid_ds)
+    train_ds, valid_ds = train_utils.load_data_for_training(cfg, obs_keys=OBS_KEYS)
+    assert train_ds.hdf5_cache_mode == "low_dim"
+    assert type(train_utils.make_loaders(cfg, train_ds, valid_ds)[0]) is DataLoader
+    shapes = {k: list(np.asarray(train_ds[0]["obs"][k]).shape[1:]) for k in OBS_KEYS}
+    small = config_factory("icl", {"algo": {
+        "gmm": {"enabled": True}, "vq": {"num_codes": 8},
+        "transformer": {"enabled": True, "embed_dim": 16, "num_layers": 1, "num_heads": 2,
+                        "vq_vae_enabled": True, "ln_act_enabled": False}}})
+    with small.unlocked():
+        small.observation.modalities.obs.low_dim = list(OBS_KEYS)
+    model = algo_factory("icl", small, shapes, ac_dim=12, device="cpu")
+    loader = train_utils.make_loaders(cfg, train_ds, valid_ds, model=model)[0]
+    assert isinstance(loader, DeviceCachedLoader) and loader._n == len(train_ds)
 
 
 @pytest.mark.parametrize("workers,want", [(1, "PrefetchLoader"), (2, "MultiprocessLoader")],

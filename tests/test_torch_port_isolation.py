@@ -15,7 +15,7 @@ from lipvq_tpu_torch.algo import algo_factory
 from lipvq_tpu_torch.config import config_factory
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "lipvq_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "msgpack", "lipvq_tpu")
 # optional packages that modules import only inside the functions that need
 # them (the HF-backed PRISE algorithms, the pretrained CLIP loader)
 LAZY = ("tokenizers", "transformers")
@@ -49,7 +49,10 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.algo.td3_bc", "lipvq_tpu_torch.algo.iql",
              "lipvq_tpu_torch.algo.cql", "lipvq_tpu_torch.algo.bcq",
              "lipvq_tpu_torch.algo.gl", "lipvq_tpu_torch.algo.hbc",
-             "lipvq_tpu_torch.models.value_nets"):
+             "lipvq_tpu_torch.models.value_nets", "lipvq_tpu_torch.algo.mcr",
+             "lipvq_tpu_torch.algo.mcr_data", "lipvq_tpu_torch.scripts.train_mcr_representation",
+             "lipvq_tpu_torch.scripts.collect_demos",
+             "lipvq_tpu_torch.examples.convergence_demo"):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -71,9 +74,14 @@ def test_importing_every_module_loads_no_jax():
 
 _IMPORT_LINE = re.compile(
     r"^\s*(?:import|from)\s+(" + "|".join(FORBIDDEN) + r")\b", re.MULTILINE)
-# the one exception: the HDF5 converter imports h5py inside itself, so it
-# runs only where h5py is installed
-ALLOWED = {"lipvq_tpu_torch/data/export.py": ("hdf5_to_export", "h5py")}
+# the exceptions: the functions that read or write an HDF5 file or a flax
+# msgpack file import h5py or msgpack inside themselves, so they run only
+# where that package is installed
+ALLOWED = {"lipvq_tpu_torch/data/export.py": {"hdf5_to_export": "h5py"},
+           "lipvq_tpu_torch/algo/mcr_data.py": {"_open_hdf5": "h5py",
+                                                "_write_hdf5_clips": "h5py"},
+           "lipvq_tpu_torch/utils/jax_weights.py": {"_flax_msgpack_ext": "msgpack",
+                                                    "mcr_checkpoint_from_msgpack": "msgpack"}}
 
 
 def _forbidden_imports_in(tree, function: str) -> list[str]:
@@ -95,9 +103,10 @@ def test_source_imports_nothing_of_jax(path):
     text = (REPO / path).read_text()
     found = _IMPORT_LINE.findall(text)
     if path in ALLOWED:
-        function, module = ALLOWED[path]
-        assert found == [module], f"{path} imports {found}"
-        assert _forbidden_imports_in(ast.parse(text), function) == [module]
+        allowed = ALLOWED[path]
+        assert sorted(found) == sorted(allowed.values()), f"{path} imports {found}"
+        for function, module in allowed.items():
+            assert _forbidden_imports_in(ast.parse(text), function) == [module]
     else:
         assert not found, f"{path} imports {found}"
 
@@ -214,32 +223,28 @@ def test_fast_and_sweep_entry_points_without_device_raise_without_gpu(monkeypatc
 
 
 PORTED = ["act", "bc", "bcq", "cql", "diffusion_policy", "gl", "hbc", "icl", "icl_mamba", "iql",
-          "iris", "td3_bc"]
-UNPORTED = ["mcr"]
+          "iris", "mcr", "td3_bc"]
 
 
 def test_registry_lists_the_ported_algorithms_and_raises_for_the_others():
-    """The port registers the baselines beside ICL; the JAX package's other
-    algorithms raise NotImplementedError naming ROADMAP item 12, from the
-    config factory and from the algo factory."""
+    """The port registers every algorithm of the JAX package, all 13, in its
+    config and its algo factory; a name neither package knows raises
+    KeyError from both factories."""
     from lipvq_tpu.algo.base import ALGO_REGISTRY as JAX_REGISTRY
     from lipvq_tpu_torch.algo.base import ALGO_REGISTRY
-    from lipvq_tpu_torch.config import REGISTERED_CONFIGS, UNPORTED_ALGOS
+    from lipvq_tpu_torch.config import REGISTERED_CONFIGS
 
     import lipvq_tpu.algo  # noqa: F401  (registers the JAX algos)
 
+    assert len(PORTED) == 13
     assert sorted(ALGO_REGISTRY) == PORTED
     assert sorted(REGISTERED_CONFIGS) == PORTED
-    assert sorted(UNPORTED_ALGOS) == UNPORTED
-    assert sorted(JAX_REGISTRY) == sorted(PORTED + UNPORTED)
+    assert sorted(JAX_REGISTRY) == PORTED
     cfg = config_factory("bc")
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            config_factory(name)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            algo_factory(name, cfg, {"object": [14]}, ac_dim=12, device="cpu")
     with pytest.raises(KeyError):
         config_factory("no_such_algo")
+    with pytest.raises(KeyError):
+        algo_factory("no_such_algo", cfg, {"object": [14]}, ac_dim=12, device="cpu")
 
 
 @pytest.mark.parametrize("algo_name,over", [
@@ -255,6 +260,7 @@ def test_registry_lists_the_ported_algorithms_and_raises_for_the_others():
     ("hbc", {"algo": {"planner": {"ae": {"planner_layer_dims": [16]}},
                       "actor": {"actor_layer_dims": [16]}}}),
     ("iris", {"algo": {"actor": {"actor_layer_dims": [16]}}}),
+    ("mcr", {"algo": {"transformer": {"embed_dim": 16, "num_layers": 1, "num_heads": 2}}}),
 ])
 def test_every_baseline_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, algo_name, over):
     cfg = config_factory(algo_name, over)
@@ -266,3 +272,23 @@ def test_every_baseline_builds_on_the_cpu_and_raises_without_gpu(monkeypatch, al
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         algo_factory(algo_name, cfg, shapes, ac_dim=12)
+
+
+def test_mcr_and_closed_loop_entry_points_without_device_raise_without_gpu(monkeypatch,
+                                                                          tmp_path):
+    """The MCR pretrainer and workspace and the convergence twin take CUDA
+    unless they are given a device."""
+    from lipvq_tpu_torch.algo.mcr import MCRPretrainer
+    from lipvq_tpu_torch.algo.mcr_data import build_synthetic_corpus
+    from lipvq_tpu_torch.examples import convergence_demo
+    from lipvq_tpu_torch.scripts.train_mcr_representation import RepresentationWorkspace
+
+    corpus = build_synthetic_corpus(str(tmp_path), n_videos=2, length=6, hw=(32, 32))
+    assert MCRPretrainer(embed_dim=8, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MCRPretrainer(embed_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RepresentationWorkspace(corpus, embed_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convergence_demo.run(workdir=str(tmp_path), n_demos=1, log=lambda *_: None)

@@ -137,9 +137,13 @@ def test_make_loaders_picks_the_jax_packages_loader(export, workers, want):
         if hasattr(loaders[0], "shutdown"):
             loaders[0].shutdown()
     assert got == [want, want]
-    cfg = config_factory("icl", {"train": {"hdf5_cache_mode": "device"}})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_utils.make_loaders(cfg, ds, None)
+    # the device cache needs the model: without one both packages fall back
+    # to the host loader (the cache itself: tests/test_torch_port_device_cache.py)
+    got = [type(utils.make_loaders(factory("icl", {"train": {"hdf5_cache_mode": "device"}}),
+                                   ds, None)[0]).__name__
+           for factory, utils in ((jax_config_factory, jax_train_utils),
+                                  (config_factory, train_utils))]
+    assert got == ["DataLoader", "DataLoader"]
 
 
 def test_mse_metrics_match_jax():

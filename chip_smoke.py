@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's served, training and corpus paths, the
 tokenizer-ablation arms, the image protocol, the policy baselines, the
-offline-RL and hierarchical algorithms, MCR and the synthetic closed loop on
-one NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch
-versions.
+offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
+checkpoint import, policy export, the train-step profiler, data-parallel
+training and the subprocess vector env on one NVIDIA GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,9 @@ all started together). Phases:
    Times per call are CUDA-event medians; device times come from
    torch.profiler, per kernel and, for K2, per stage (cn, lookup, sort,
    sums); K1's wrapper host time is the median time from entry to return
-   on an idle card.
+   on an idle card, of the ``ctypes`` wrapper and of ``vq_nearest`` through
+   the registered op. K1 also runs at the profiler's largest low-dim batch
+   (8000 x 1024 x 791) and its image step (80 x 1024 x 905).
 3. Serve: the flagship ICLTransformerGMM at full width (6 layers x 512 x 8
    heads, 30 tokens, 1024 x 791 codebook, bf16 compute) behind
    ICLRolloutPolicy answers 5 requests for 16 envs and 3 single-env
@@ -207,7 +210,36 @@ all started together). Phases:
    x 791) gives exact ids on Gaussian fixtures and ids within ``tie_gap`` on
    the loop's own latents, timed beside its bound, the plain version and
    addmm + argmin.
-14. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+14. Import (``import_phase``): a seeded reference LLFQVAE_V4 payload at the
+   flagship's width through ``scripts/import_torch_ckpt.py`` into
+   ``LipVQVAE`` on the card: K1 ids exactly the plain version's on Gaussian
+   rows and within ``tie_gap`` on the tokenizer's latents (2 launches); a
+   seeded R3M-layout ResNet-18 through ``convert`` into ``R3MConv`` (its
+   running statistics taken from one batch, as a trained trunk's match its
+   activations), card against CPU within rtol 1e-3 / atol 1e-4.
+15. Export (``export_phase``): the flagship at the serving width through a
+   checkpoint and ``scripts/export_policy.py`` at 16 envs and 1; the graph
+   holds the K1 op once; each program runs in a fresh process that imports
+   only the op registration: one K1 launch per request (counted there), the
+   actions equal ``get_action``'s at the same draws (max abs difference 0),
+   per-request time beside eager's.
+16. Profile (``profile_phase``): ``scripts/profile_train_step.py`` at the
+   template width, low-dim at batches 100 and 1600, 100 with the EMA
+   codebook, image at 16: every row (FLOPs, bytes, step time, MFU against
+   the H100's bf16 and fp32 peaks), K1 once per loss-codebook step, K2 once
+   per EMA step. K1 at the largest batch's and the image step's shapes is
+   timed in phase 2.
+17. Data-parallel (``ddp_phase``): ``scripts/train.py`` on one seeded export
+   with the EMA codebook, 5 steps, ``train.num_devices=1`` (NCCL, a group of
+   one) against no mesh: losses and every tensor of the checkpoint bit-equal,
+   K2 once per step; then two ranks sharing the card over gloo with CUDA
+   tensors, 3 steps with dropout 0.1 against the single process at rtol 1e-4
+   (not a criterion: an error is printed and recorded).
+18. Vector (``vector_phase``): the flagship serves 16 synthetic envs stepped
+   in lock-step by ``SubprocVectorEnv`` and ``VectorEnv`` with the same
+   actions, 20 steps: observations, rewards and dones bit-equal, K1 once per
+   request; ms per rollout step of each beside the bare request.
+19. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -487,6 +519,7 @@ def hold_stats(z, ids, counts, sums, where: str) -> float:
 
 def kernel_phase(card: str) -> dict:
     from lipvq_tpu_torch.ops.vq_lookup import (
+        vq_nearest,
         vq_nearest_cuda,
         vq_nearest_reference,
     )
@@ -524,7 +557,9 @@ def kernel_phase(card: str) -> dict:
                                                ("corpus", CORPUS_SHAPE, 10, 1),
                                                ("visual_serve", VIS_SLICE_SHAPE, 50, 3),
                                                ("visual_single", VIS_SINGLE_SHAPE, 50, 3),
-                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3)):
+                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3),
+                                               ("profile_1600", PROFILE_SHAPE, 20, 1),
+                                               ("profile_image", PROFILE_IMAGE_SHAPE, 50, 3)):
         z = torch.randn(b, d, generator=gen, device=dev)
         c = torch.randn(n, d, generator=gen, device=dev)
         got = vq_nearest_cuda(z, c)
@@ -537,15 +572,19 @@ def kernel_phase(card: str) -> dict:
             lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), reps)
         device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c), reps)
         wrapper_ms = wrapper_host_ms(lambda: vq_nearest_cuda(z, c), reps)
+        # the dispatcher every path calls: the registered op over the same launch
+        op_wrapper_ms = wrapper_host_ms(lambda: vq_nearest(z, c), reps)
         bound_ms, bound_by = vq_bound(b, n, d)
         results[label] = {"shape": [b, n, d], "mismatches": mismatches,
                           "max_abs_err": max_gap, "ms": ms, "device_ms": device_ms,
-                          "wrapper_host_ms": wrapper_ms, "kernel_ms": kernels,
+                          "wrapper_host_ms": wrapper_ms, "op_wrapper_host_ms": op_wrapper_ms,
+                          "kernel_ms": kernels,
                           "plain_ms": plain_ms, "library_ms": library_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"K1 {label} {b}x{n}x{d}: {mismatches} rows differ within the tie "
               f"tolerance (max fp64 gap {max_gap:.3g}); K1 {ms:.4f} ms per call "
-              f"(wrapper host {wrapper_ms:.4f} ms; device busy {device_ms} ms: {kernels}), "
+              f"(wrapper host {wrapper_ms:.4f} ms, through the registered op "
+              f"{op_wrapper_ms:.4f} ms; device busy {device_ms} ms: {kernels}), "
               f"plain {plain_ms:.4f} ms, "
               f"addmm+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]")
@@ -589,7 +628,9 @@ def stats_phase(card: str) -> dict:
     results = {}
     for label, (b, n, d), reps, plain_reps in (("train", TRAIN_SHAPE, 50, 3),
                                                ("corpus", CORPUS_SHAPE, 10, 1),
-                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3)):
+                                               ("visual_train", VIS_TRAIN_SHAPE, 50, 3),
+                                               ("profile_1600", PROFILE_SHAPE, 20, 1),
+                                               ("profile_image", PROFILE_IMAGE_SHAPE, 50, 3)):
         z = torch.randn(b, d, generator=gen, device=dev)
         c = torch.randn(n, d, generator=gen, device=dev)
         ids, counts, sums = vq_nearest_with_stats_cuda(z, c)
@@ -4040,6 +4081,485 @@ def device_cache_script(card: str, exports: list[str], tmp: str) -> dict:
             "time_ms_per_step": timing}
 
 
+# ---------------------------------------------------------------------------
+# The twelfth slice: reference-checkpoint import, policy export, the
+# train-step profiler, data-parallel training, the subprocess vector env
+# ---------------------------------------------------------------------------
+
+PROFILE_SHAPE = (8000, 1024, 791)  # the profiler's largest batch: 800 context demos x 10
+PROFILE_IMAGE_SHAPE = (80, 1024, 905)  # its image step: 8 context demos, 2 cameras
+EXPORT_BATCHES = (N_ENVS, 1)
+EXPORT_REPS = 20
+DDP_STEPS = 5  # train steps of each ddp run
+VECTOR_STEPS = 20
+
+
+def _reference_lipvq_state_dict(rng) -> dict:
+    """A seeded state_dict in the reference LLFQVAE_V4 layout at the flagship's
+    width (12 -> 64 -> 128 -> 791, 1024 codes): torch Linear weights [out, in]."""
+    def lin(out, inp):
+        bound = 1.0 / math.sqrt(inp)
+        return (rng.uniform(-bound, bound, (out, inp)).astype(np.float32),
+                rng.uniform(-bound, bound, out).astype(np.float32))
+
+    sd = {}
+    for name, (out, inp) in (("encoder.0", (64, AC_DIM)), ("encoder.2", (128, 64)),
+                             ("decoder.0", (64, 791)), ("decoder.2", (128, 64)),
+                             ("to_output", (AC_DIM, 128))):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = lin(out, inp)
+    sd["to_latent.W"] = rng.standard_normal((791, 128)).astype(np.float32)
+    sd["to_latent.b"] = np.zeros(791, np.float32)
+    sd["to_latent.ci"] = np.ones(791, np.float32)
+    sd["quantizer.codebook"] = rng.standard_normal((1024, 791)).astype(np.float32)
+    return sd
+
+
+def _reference_resnet18_state_dict(rng, prefix: str) -> dict:
+    """A seeded torchvision-layout ResNet-18 state_dict (conv1, bn1,
+    layer{1..4}.{0,1}, the stage-entry downsample), BatchNorm statistics off
+    their init, an fc head the import ignores."""
+    sd = {}
+
+    def conv(key, out, inp, k):
+        sd[f"{key}.weight"] = (rng.standard_normal((out, inp, k, k))
+                               * math.sqrt(2.0 / (inp * k * k))).astype(np.float32)
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{key}.bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{key}.running_mean"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+        sd[f"{key}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[f"{key}.num_batches_tracked"] = np.asarray(100)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    width = 64
+    for stage, feats in enumerate((64, 128, 256, 512), start=1):
+        for block in range(2):
+            key, inp = f"layer{stage}.{block}", width if block == 0 else feats
+            conv(f"{key}.conv1", feats, inp, 3)
+            bn(f"{key}.bn1", feats)
+            conv(f"{key}.conv2", feats, feats, 3)
+            bn(f"{key}.bn2", feats)
+            if block == 0 and inp != feats:
+                conv(f"{key}.downsample.0", feats, inp, 1)
+                bn(f"{key}.downsample.1", feats)
+        width = feats
+    sd["fc.weight"] = rng.standard_normal((1000, 512)).astype(np.float32)
+    return {prefix + k: v for k, v in sd.items()}
+
+
+def import_phase(card: str) -> dict:
+    """Part A on the card: a seeded reference LLFQVAE_V4 payload through the
+    import CLI into ``LipVQVAE`` (K1 ids against the plain version), and a
+    seeded R3M-layout ResNet-18 through ``convert`` into ``R3MConv``
+    (card against CPU at the visual phase's tolerance)."""
+    from lipvq_tpu_torch.models import obs_core
+    from lipvq_tpu_torch.models.base_nets import BatchNorm
+    from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
+    from lipvq_tpu_torch.ops.vq_lookup import tie_gap, vq_nearest, vq_nearest_reference
+    from lipvq_tpu_torch.scripts import import_torch_ckpt
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as tmp:
+        src, dst = os.path.join(tmp, "model.pth"), os.path.join(tmp, "params.pt")
+        sd = _reference_lipvq_state_dict(rng)
+        torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                    "config": {"algo_name": "icl"}}, src)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            import_torch_ckpt.main(["--torch_ckpt", src, "--output", dst])
+        convert_s = time.perf_counter() - t0
+        tok = LipVQVAE(AC_DIM, 791, num_codes=1024).to(dev)
+        tok.load_state_dict(torch.load(dst, map_location=dev, weights_only=True)["params"])
+        codebook = tok.quantizer.codebook.detach()
+        assert torch.equal(codebook.cpu(), torch.from_numpy(sd["quantizer.codebook"]))
+
+        # the main path: the imported tokenizer's lookups, counted
+        gauss = torch.randn(SLICE_SHAPE[0], 791, generator=torch.Generator(dev).manual_seed(0),
+                            device=dev)
+        actions = torch.from_numpy(rng.uniform(-1, 1, (SLICE_SHAPE[0], AC_DIM))
+                                   .astype(np.float32)).to(dev)
+        zero_launch_counts()
+        with torch.no_grad():
+            ids_gauss = vq_nearest(gauss, codebook)
+            latents = tok.encode(actions)
+            ids_tok = tok.tokenize(actions)
+        launches = launch_counts()
+        assert launches == (2, 0, 0), launches
+        if not torch.equal(ids_gauss, vq_nearest_reference(gauss, codebook)):
+            raise AssertionError("the imported codebook's K1 ids differ from the plain version "
+                                 "on Gaussian inputs")
+        plain = vq_nearest_reference(latents, codebook)
+        gap, allowed = tie_gap(latents, codebook, ids_tok, plain, bf16=False)
+        if not bool((gap <= allowed).all()):
+            raise AssertionError("the imported tokenizer's ids differ beyond near-ties")
+        flips = int((ids_tok != plain).sum())
+
+        trunk = os.path.join(tmp, "r3m.pt")
+        converted = import_torch_ckpt.convert(
+            {k: np.asarray(v) for k, v in _reference_resnet18_state_dict(
+                rng, "module.convnet.").items()}, "resnet18")
+        import_torch_ckpt.save_converted(converted, trunk)
+        frames = torch.rand(8, 3, 128, 128, generator=torch.Generator().manual_seed(1))
+        # a trained trunk's running statistics match its activations: take
+        # them from one batch (momentum 0), so the outputs are O(1) as a
+        # pretrained trunk's are, and write the trunk again
+        core = obs_core.R3MConv()
+        obs_core.apply_pretrained(core, trunk)
+        for m in core.modules():
+            if isinstance(m, BatchNorm):
+                m.momentum = 0.0
+        with torch.no_grad():
+            core.backbone(frames, train=True)
+        params, stats = core.load_pretrained(trunk)
+        state = core.state_dict()
+        import_torch_ckpt.save_converted(
+            {"params": {k[len("backbone."):]: state[k] for k in params},
+             "batch_stats": {k[len("backbone."):]: state[k] for k in stats}}, trunk)
+        cores = {"cuda": obs_core.R3MConv().to(dev), "cpu": obs_core.R3MConv()}
+        for core in cores.values():
+            obs_core.apply_pretrained(core, trunk)
+        with torch.no_grad():
+            got = cores["cuda"](frames.to(dev)).cpu()
+            want = cores["cpu"](frames)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3, atol=1e-4)
+        trunk_err = float((got - want).abs().max())
+        trunk_max = float(want.abs().max())
+    print(f"import: LLFQVAE_V4 payload converted by the CLI in {convert_s:.2f} s and loaded "
+          f"on the card; K1 ids exactly the plain version's on {SLICE_SHAPE[0]} Gaussian rows, "
+          f"{flips} of {SLICE_SHAPE[0]} tokenizer ids differ on near-ties only; launches "
+          f"{launches}; R3M trunk card vs CPU max abs {trunk_err:.3g} of outputs up to "
+          f"{trunk_max:.3g} (rtol 1e-3 / atol 1e-4) [{card}]")
+    return {"launches": launches, "tokenizer_near_tie_flips": flips,
+            "trunk_max_abs_err": trunk_err, "convert_s": convert_s}
+
+
+EXPORT_RUNNER = r"""
+import statistics, sys, time
+import torch
+import lipvq_tpu_torch.ops.vq_lookup as V
+
+program, inputs, out = sys.argv[1:4]
+reps = int(sys.argv[4])
+args = torch.load(inputs, map_location="cuda", weights_only=True)
+run = torch.export.load(program).module()
+V.vq_nearest_cuda.launches = 0
+with torch.no_grad():
+    actions = run(*args)
+    torch.cuda.synchronize()
+    first = V.vq_nearest_cuda.launches
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+torch.save(actions.cpu(), out)
+loaded = sorted(m for m in sys.modules if m.startswith("lipvq_tpu_torch."))
+print(first, V.vq_nearest_cuda.launches, statistics.median(times), ",".join(loaded))
+"""
+
+
+def export_phase(card: str) -> dict:
+    """Part B on the card: the flagship at the serving width through a
+    checkpoint, ``export_policy`` at 16 envs and 1, each program reloaded
+    in a fresh process that imports only the op registration; its actions
+    against ``get_action``'s at the same draws."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.scripts import export_policy as EP
+    from lipvq_tpu_torch.utils import file_utils
+
+    algo = algo_factory("icl", icl_config(), OBS_SHAPES, ac_dim=AC_DIM)
+    rng = np.random.default_rng(14)
+    tok = algo.nets.net.encoder.action_network
+    with torch.no_grad():
+        tok.quantizer.codebook.copy_(tok.encode(torch.from_numpy(
+            rng.uniform(-1, 1, (1024, AC_DIM)).astype(np.float32)).cuda()))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        ckpt = os.path.join(tmp, "model.ckpt")
+        file_utils.save_checkpoint(ckpt, algo, algo.global_config,
+                                   env_meta={"env_name": "SyntheticKitchen", "type": 1,
+                                             "env_kwargs": {}},
+                                   shape_meta={"ac_dim": AC_DIM, "all_shapes": OBS_SHAPES,
+                                               "all_obs_keys": list(OBS_SHAPES),
+                                               "use_images": False},
+                                   obs_normalization_stats=None,
+                                   action_normalization_stats=None, lang_backend="hash")
+        model, _ = file_utils.policy_from_checkpoint(ckpt)
+        for batch in EXPORT_BATCHES:
+            path = os.path.join(tmp, f"policy{batch}.pt2")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                EP.export_policy(ckpt, path, batch=batch)
+            export_s = time.perf_counter() - t0
+            program = torch.export.load(path)
+            nodes = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+            assert nodes.count(EP.LOOKUP_OP) == 1, "the exported graph holds no K1 node"
+            t = model.context_length
+            obs = {k: v[:batch] for k, v in random_obs(rng, (N_ENVS, t)).items()}
+            context = {"obs": {k: v[:batch] for k, v in random_obs(rng, (N_ENVS, t)).items()},
+                       "actions": rng.uniform(-1, 1, (batch, t, AC_DIM)).astype(np.float32)}
+            state = model._generator.get_state()
+            want = model.get_action(obs, context)
+            model._generator.set_state(state)
+            *_, u_like, eps_like = EP.user_inputs(program)
+            args = [model._put_infer(x) for x in (obs, context["obs"], context["actions"])]
+            args += list(EP.draw_like(model, u_like, eps_like))
+            inputs, result = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "actions.pt")
+            torch.save(args, inputs)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", EXPORT_RUNNER, path, inputs, result,
+                                   str(EXPORT_REPS)], capture_output=True, text=True,
+                                  timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+            reload_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"the reloaded program failed:\n{proc.stderr[-4000:]}")
+            first, total, program_ms, loaded = proc.stdout.strip().splitlines()[-1].split(" ")
+            assert "lipvq_tpu_torch.algo" not in loaded and "lipvq_tpu_torch.models" not in loaded
+            got = torch.load(result, weights_only=True).numpy()
+            max_abs = float(np.abs(got - want).max())
+            assert got.shape == want.shape == (batch, AC_DIM) and np.isfinite(got).all()
+            assert int(first) == 1, f"the reloaded program launched K1 {first} times"
+
+            def eager():
+                with torch.inference_mode():
+                    model._get_action_impl(*args[:3], None, draws=tuple(args[3:]))
+                torch.cuda.synchronize()
+
+            eager_ms = host_ms(eager)
+            out[batch] = {"k1_launches": int(total), "k1_launches_first_call": int(first),
+                          "max_abs_diff": max_abs, "program_ms": float(program_ms),
+                          "eager_ms": eager_ms, "export_s": export_s, "reload_run_s": reload_s,
+                          "bytes": os.path.getsize(path)}
+            print(f"export batch {batch}: {os.path.getsize(path)} bytes in {export_s:.1f} s; "
+                  f"the graph holds {EP.LOOKUP_OP} once; reloaded in a fresh process "
+                  f"(modules {loaded}): K1 launched {first} time(s) on the checked call, "
+                  f"{total} over {1 + EXPORT_REPS} calls; actions' max abs difference from "
+                  f"get_action {max_abs:.3g}; {float(program_ms):.3f} ms per request "
+                  f"against eager {eager_ms:.3f} ms [{card}]")
+            if max_abs != 0.0:
+                raise AssertionError(f"the reloaded program's actions differ from "
+                                     f"get_action's by {max_abs}")
+    return out
+
+
+def profile_phase(card: str) -> dict:
+    """Part C on the card: ``profile_train_step`` at the template width,
+    low-dim at batches 100 and 1600 (the loss codebook), 100 with the EMA
+    codebook and the image protocol at 16; launches counted per run."""
+    from lipvq_tpu_torch.scripts import profile_train_step
+
+    rows = {}
+    for label, argv in (("lowdim", ["--mode", "lowdim", "--batches", "100", "1600"]),
+                        ("lowdim_ema", ["--mode", "lowdim", "--batches", "100",
+                                        "--ema_codebook"]),
+                        ("image", ["--mode", "image", "--batches", "16"])):
+        zero_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            got = profile_train_step.main(argv + ["--iters", "10"])
+        launches = launch_counts()
+        for row in got:
+            key = f"{label} {row['batch']}"
+            rows[key] = row
+            per = row["launches_per_step"]
+            want = (0, 0, 1) if row["ema_codebook"] else (1, 0, 0)
+            assert (per["k1"], per["k1f"], per["k2"]) == want, (key, per)
+            print(f"profile {key}: {json.dumps(row)}")
+        rows[f"{label} launches"] = list(launches)
+        gc_cuda()
+    print(f"profile: card {card}")
+    return rows
+
+
+def gc_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ddp_config(export: str, output_dir: str, num_devices) -> dict:
+    """The script phase's settings with the EMA codebook, one export, one
+    epoch of ``DDP_STEPS`` steps, no rollouts or validation."""
+    cfg = script_config([export], output_dir)
+    cfg["algo"]["vq"]["ema_codebook"] = True
+    cfg["train"]["num_epochs"] = 1
+    cfg["train"]["num_devices"] = num_devices
+    cfg["experiment"]["epoch_every_n_steps"] = DDP_STEPS
+    cfg["experiment"]["validate"] = False
+    cfg["experiment"]["rollout"]["enabled"] = False
+    return cfg
+
+
+def _gloo_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two ranks sharing the card over gloo with CUDA tensors: the
+    flagship's EMA step on this rank's pairs."""
+    import torch.distributed as dist
+
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
+                            rank=rank, world_size=world)
+    try:
+        spec = torch.load(os.path.join(tmp, "spec.pt"), weights_only=False)
+        algo = algo_factory("icl", spec["config"], OBS_SHAPES, ac_dim=AC_DIM)
+        algo.nets.load_state_dict(spec["state"])
+        algo.attach_mesh(make_mesh(world))
+        losses = [float(algo.train_on_batch(b, 0)["losses"]["action_loss"])
+                  for b in spec["batches"]]
+        torch.save(losses, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_phase(card: str) -> dict:
+    """Part D on the card: ``scripts/train.py`` with ``train.num_devices=1``
+    (a group of one over NCCL) against ``num_devices=None`` on one seeded
+    export, the EMA codebook, bit for bit; then two ranks sharing the card
+    over gloo with CUDA tensors against the single process (not a
+    criterion: an error is recorded)."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import file_utils
+    from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as tmp:
+        obs_shapes = {k: tuple(s) for k, s in OBS_SHAPES.items() if k != "lang_emb"}
+        export = make_synthetic_export(os.path.join(tmp, "export"), n_demos=20, demo_len=100,
+                                       action_dim=AC_DIM, obs_key_shapes=obs_shapes,
+                                       lang="synthetic task", seed=0)
+        for label, n in (("none", None), ("nccl1", 1)):
+            cfg_path = os.path.join(tmp, f"{label}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(_ddp_config(export, os.path.join(tmp, label), n), f)
+            # the main path: the script, counted
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            seconds = time.perf_counter() - t0
+            launches = launch_counts()
+            with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+                logs = json.load(f)
+            state = file_utils.load_checkpoint_dict(
+                os.path.join(ckpt_dir, "model_epoch_1.ckpt"))["model"]
+            runs[label] = {"launches": launches, "seconds": seconds, "state": state,
+                           "loss": logs["Train/Loss"]}
+            assert launches == (0, 0, DDP_STEPS), (label, launches)
+        a, b = runs["none"], runs["nccl1"]
+        assert a["loss"] == b["loss"], (a["loss"], b["loss"])
+        for k, v in a["state"].items():
+            if not torch.equal(v, b["state"][k]):
+                raise AssertionError(f"num_devices=1 differs from num_devices=None at {k}")
+        print(f"ddp: scripts/train.py num_devices=1 (NCCL, a group of one) equals "
+              f"num_devices=None bit for bit over {DDP_STEPS} EMA steps (loss {b['loss']}, "
+              f"{len(b['state'])} tensors); K2 launched {b['launches'][2]} times; "
+              f"{b['seconds']:.1f} s against {a['seconds']:.1f} s [{card}]")
+
+        gloo = {}
+        try:
+            cfg = icl_config(train={"ema": True, "dropout": 0.1, "warmup": None})
+            single = algo_factory("icl", cfg, OBS_SHAPES, ac_dim=AC_DIM)
+            items = SequenceItems(BATCH * 3, seed=21)
+            from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+
+            batches = [single.process_batch_for_training(stack_collate(
+                [items[i] for i in range(s * BATCH, (s + 1) * BATCH)])) for s in range(3)]
+            spec = {"config": cfg, "batches": batches,
+                    "state": {k: v.cpu().clone() for k, v in single.nets.state_dict().items()}}
+            torch.save(spec, os.path.join(tmp, "spec.pt"))
+            want = [float(single.train_on_batch(b, 0)["losses"]["action_loss"])
+                    for b in batches]
+            del single
+            gc_cuda()
+            t0 = time.perf_counter()
+            torch.multiprocessing.spawn(_gloo_rank, args=(2, tmp), nprocs=2, join=True)
+            got = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+            assert got[0] == got[1]
+            np.testing.assert_allclose(got[0], want, rtol=1e-4)
+            gloo = {"losses": got[0], "single": want, "seconds": time.perf_counter() - t0}
+            print(f"ddp: 2 gloo ranks sharing the card (CUDA tensors) equal the single "
+                  f"process within rtol 1e-4 over 3 steps with dropout 0.1: {got[0]} vs "
+                  f"{want} [{card}]")
+        except Exception as e:  # not a criterion: recorded
+            gloo = {"error": f"{type(e).__name__}: {str(e)[-2000:]}"}
+            print(f"ddp: 2 gloo ranks sharing the card failed: {gloo['error']}")
+    return {"nccl1": {k: v for k, v in runs["nccl1"].items() if k != "state"},
+            "none": {k: v for k, v in runs["none"].items() if k != "state"}, "gloo": gloo}
+
+
+def vector_phase(card: str) -> dict:
+    """Part E on the card: the flagship served over a ``SubprocVectorEnv``
+    of 16 synthetic envs in lock-step with the in-process ``VectorEnv``
+    (observations bit-equal), timed per rollout step beside the bare
+    request."""
+    import functools
+
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
+    from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
+    from lipvq_tpu_torch.envs.vector_env import SubprocVectorEnv, VectorEnv
+
+    algo = algo_factory("icl", icl_config(), OBS_SHAPES, ac_dim=AC_DIM)
+    rng = np.random.default_rng(15)
+    tok = algo.nets.net.encoder.action_network
+    with torch.no_grad():
+        tok.quantizer.codebook.copy_(tok.encode(torch.from_numpy(
+            rng.uniform(-1, 1, (1024, AC_DIM)).astype(np.float32)).cuda()))
+    t = algo.context_length
+    context = {"obs": {k: np.repeat(v, N_ENVS, 0) for k, v in random_obs(rng, (1, t)).items()},
+               "actions": np.repeat(rng.uniform(-1, 1, (1, t, AC_DIM)).astype(np.float32),
+                                    N_ENVS, 0)}
+    policy = ICLRolloutPolicy(algo)
+    fns = [functools.partial(SyntheticKitchenEnv, seed=1000 + i) for i in range(N_ENVS)]
+    keys = [k for k in OBS_SHAPES if k != "lang_emb"]
+    t0 = time.perf_counter()
+    sub = SubprocVectorEnv(fns, frame_stack=t, obs_keys=keys)
+    local = VectorEnv(fns, frame_stack=t, obs_keys=keys)
+    try:
+        obs = [sub.reset(), local.reset()]
+        start_s = time.perf_counter() - t0
+        lang = np.zeros((N_ENVS, t, 768), np.float32)
+        times = {"request": [], "subproc": [], "local": []}
+        zero_launch_counts()
+        for _ in range(VECTOR_STEPS):
+            for k in obs[0]:
+                np.testing.assert_array_equal(obs[0][k], obs[1][k])
+            t0 = time.perf_counter()
+            acts = policy.batched({**obs[0], "lang_emb": lang}, context)
+            times["request"].append((time.perf_counter() - t0) * 1e3)
+            steps = []
+            for name, env, i in (("subproc", sub, 0), ("local", local, 1)):
+                t0 = time.perf_counter()
+                obs[i], rews, dones, _ = env.step(acts)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                steps.append((rews, dones))
+            np.testing.assert_array_equal(steps[0][0], steps[1][0])
+            np.testing.assert_array_equal(steps[0][1], steps[1][1])
+        launches = launch_counts()
+    finally:
+        sub.close()
+    assert launches == (VECTOR_STEPS, 0, 0), launches
+    request_ms, env_sub, env_local = (statistics.median(times[k][1:])
+                                      for k in ("request", "subproc", "local"))
+    sub_ms, local_ms = request_ms + env_sub, request_ms + env_local
+    print(f"vector: {N_ENVS} synthetic envs, {VECTOR_STEPS} served steps in lock-step, "
+          f"observations, rewards and dones bit-equal across SubprocVectorEnv and VectorEnv; "
+          f"ms per rollout step (request + env step): subprocess {sub_ms:.3f} (env "
+          f"{env_sub:.3f}), in-process {local_ms:.3f} (env {env_local:.3f}), bare request "
+          f"{request_ms:.3f} (medians); subprocess start {start_s:.1f} s; K1 {launches} "
+          f"[{card}]")
+    return {"launches": launches, "subproc_step_ms": sub_ms, "local_step_ms": local_ms,
+            "subproc_env_ms": env_sub, "local_env_ms": env_local, "request_ms": request_ms,
+            "subproc_start_s": start_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4092,6 +4612,11 @@ def main() -> int:
     offline = timed("rl", rl_phase, card)
     mcr = timed("mcr", mcr_phase, card)
     loop = timed("closed_loop", closed_loop_phase, card)
+    imported = timed("import", import_phase, card)
+    exported = timed("export", export_phase, card)
+    profiled = timed("profile", profile_phase, card)
+    ddp = timed("ddp", ddp_phase, card)
+    vector = timed("vector", vector_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -4154,6 +4679,15 @@ def main() -> int:
     k1_paths["rollout_device_cache"] = dc["k1_rollout"]
     k1f_paths["device_cache_script"] = dc["k1f"]
     k2_paths["device_cache_script"] = dc["k2"]
+    for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
+        paths["import"] = imported["launches"][i]
+        for label in ("lowdim", "lowdim_ema", "image"):
+            paths[f"profile {label}"] = profiled[f"{label} launches"][i]
+        for label in ("none", "nccl1"):
+            paths[f"ddp train_script {label}"] = ddp[label]["launches"][i]
+        paths["vector subproc + local"] = vector["launches"][i]
+    for batch in EXPORT_BATCHES:  # counted in the reloading process
+        k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
         "name": "vq_nearest (K1)",
         "route": "cuda",
@@ -4171,6 +4705,9 @@ def main() -> int:
         "visual_train_shape": k1["visual_train"],
         "closed_loop_train_shape": loop["k1"]["train"],
         "closed_loop_request_shape": loop["k1"]["request"],
+        "profile_lowdim_1600_shape": k1["profile_1600"],
+        "profile_image_16_shape": k1["profile_image"],
+        "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
         "name": "vq_nearest_fast (K1f)",
@@ -4202,7 +4739,9 @@ def main() -> int:
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
-        "rl": offline, "mcr": mcr, "closed_loop": loop, "phase_s": phase_s}))
+        "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
+        "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
+        "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

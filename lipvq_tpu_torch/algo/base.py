@@ -139,7 +139,10 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None
 class ScheduledOptimizer:
     """A torch optimizer over ``params`` with an optional global-norm clip
     run first and a learning rate set from ``schedule`` at each step, as
-    the optax chain of the JAX package applies them."""
+    the optax chain of the JAX package applies them. With a ``mesh``
+    (``Algo.attach_mesh``) the gradients are averaged over the ranks, in one
+    flat buffer, before anything reads them: the clip sees the global
+    gradient, as under GSPMD."""
 
     def __init__(self, params, optimizer_cls, schedule: Callable[[int], float],
                  max_grad_norm: float | None = None, **optimizer_kwargs):
@@ -148,14 +151,21 @@ class ScheduledOptimizer:
         self.max_grad_norm = max_grad_norm
         self.optimizer = optimizer_cls(self.params, lr=schedule(0), **optimizer_kwargs)
         self.steps = 0
+        self.mesh = None
+        self._reduced = False
 
     def grads(self) -> list[torch.Tensor]:
         """Every param's grad; a param that got none gets zeros, so that
-        decay and the moments apply to it as they do in optax."""
+        decay and the moments apply to it as they do in optax. Under a mesh
+        the first call of a step averages them over the ranks."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        return [p.grad for p in self.params]
+        grads = [p.grad for p in self.params]
+        if self.mesh is not None and not self._reduced:
+            self.mesh.mean_(grads)
+            self._reduced = True
+        return grads
 
     def step(self) -> None:
         """Clip (if set), update with the current learning rate, then
@@ -165,11 +175,21 @@ class ScheduledOptimizer:
             clip_by_global_norm_(grads, float(self.max_grad_norm))
         self.optimizer.step()
         self.steps += 1
+        self._reduced = False
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.steps)
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+        self._reduced = False
+
+    def to(self, device: torch.device) -> None:
+        """Move the moments to ``device``; the step counts stay on the CPU,
+        where torch's Adam keeps them."""
+        for state in self.optimizer.state.values():
+            for k, v in state.items():
+                if isinstance(v, torch.Tensor) and k != "step":
+                    state[k] = v.to(device)
 
     def state_dict(self) -> dict:
         """The torch optimizer's state and the schedule's step counter."""
@@ -230,6 +250,35 @@ class Algo:
             if any(k in v for v in goal_group.values()):
                 self.goal_shapes[k] = shape
 
+    # composite algos (HBC, IRIS, the GL wrappers) hold sub-algos here
+    SUB_ALGOS = ("planner", "actor", "value_bcq", "_raw_planner")
+
+    def sub_algos(self) -> list[Algo]:
+        return [sub for sub in (getattr(self, a, None) for a in self.SUB_ALGOS)
+                if isinstance(sub, Algo)]
+
+    def set_inference_device(self, device) -> None:
+        """Move the algo to ``device``, the CPU included: this is an explicit
+        request (``lipvq_tpu/algo/base.py:206-221``, which the kitchen suite
+        calls to serve from the host). Its modules, tensors, optimizer
+        moments and ``_put_infer``'s target move; a generator on another
+        device is replaced by one there, seeded from its next draw (the two
+        devices' streams differ). Reaches the sub-algos."""
+        device = torch.device(device)
+        for sub in self.sub_algos():
+            sub.set_inference_device(device)
+        for name, value in list(vars(self).items()):
+            if isinstance(value, torch.nn.Module):
+                value.to(device)
+            elif isinstance(value, torch.Tensor):
+                setattr(self, name, value.to(device))
+            elif isinstance(value, torch.Generator) and value.device.type != device.type:
+                seed = int(torch.randint(2**62, (), generator=value, device=value.device))
+                setattr(self, name, torch.Generator(device=device).manual_seed(seed))
+        for o in self.optimizers().values():
+            o.to(device)
+        self.device = device
+
     def _put_infer(self, tree):
         """Host arrays (or tensors) -> float32 tensors on ``self.device``;
         tensors already there are not copied. uint8 leaves are camera frames
@@ -242,8 +291,76 @@ class Algo:
             return frames_to_float(torch.as_tensor(tree, device=self.device))
         return torch.as_tensor(tree, dtype=torch.float32, device=self.device)
 
+    # -- data-parallel execution -------------------------------------------
+    mesh = None  # parallel.mesh.Mesh when attached; None = one device
+
+    def attach_mesh(self, mesh) -> None:
+        """Data-parallel training over ``mesh`` (``parallel/mesh.py``): the
+        replicas are made equal by a broadcast from rank 0; every training
+        batch is cut to this rank's rows (``_put_batch``); the optimizers
+        average their gradients over the ranks; the EMA codebook sums its
+        cluster statistics and the BatchNorm layers their batch statistics
+        over the ranks; random draws take this rank's rows of the global
+        draw; ``train_on_batch`` returns metrics averaged over the ranks.
+        Reaches the sub-algos, as in the JAX package."""
+        from lipvq_tpu_torch.parallel import mesh as mesh_lib
+
+        self.mesh = mesh
+        for sub in self.sub_algos():
+            sub.attach_mesh(mesh)
+        modules = [v for v in vars(self).values() if isinstance(v, torch.nn.Module)]
+        mesh_lib.replicate(mesh, [t for m in modules for t in m.state_dict().values()])
+        for m in modules:
+            for child in m.modules():
+                if hasattr(child, "mesh"):
+                    child.mesh = mesh
+        for o in self.optimizers().values():
+            o.mesh = mesh
+        step = type(self).train_on_batch
+
+        def train_on_batch(batch, epoch, validate: bool = False, **kw):
+            with mesh_lib.row_shard_scope():
+                return mesh.mean_tree(step(self, batch, epoch, validate=validate, **kw))
+
+        self.train_on_batch = train_on_batch
+
+    def _shard_rows(self, rows: int) -> tuple[int, torch.Tensor]:
+        """(units, this rank's units) of a batch of ``rows``: the units whose
+        draws are per row, here the rows themselves, a contiguous block."""
+        from lipvq_tpu_torch.parallel.mesh import shard_rows
+
+        return rows, shard_rows(self.mesh, rows)
+
+    def _batch_rows(self, rows: int) -> torch.Tensor:
+        """This rank's rows of a batch of ``rows``."""
+        return self._shard_rows(rows)[1]
+
     def _put_batch(self, batch):
-        """Host batch -> float32 tensors on ``self.device`` (None stays)."""
+        """Host batch -> float32 tensors on ``self.device`` (None stays).
+        Under a mesh, this rank's rows only; every leading dim must divide
+        by the data axis, as in the JAX package."""
+        if self.mesh is not None:
+            from lipvq_tpu_torch.parallel import mesh as mesh_lib
+
+            n = self.mesh.shape["data"]
+            lead = set()
+
+            def walk(tree):
+                if isinstance(tree, Mapping):
+                    for v in tree.values():
+                        walk(v)
+                elif tree is not None and getattr(tree, "ndim", 0) > 0:
+                    lead.add(tree.shape[0])
+
+            walk(batch)
+            bad = [b for b in lead if b % n != 0]
+            if bad:
+                raise ValueError(
+                    f"batch leading dim(s) {sorted(bad)} not divisible by "
+                    f"data-parallel mesh size {n}; adjust train.batch_size")
+            batch = mesh_lib.shard_batch(self.mesh, batch, self._batch_rows)
+            self._shard = self._shard_rows(max(lead))
+            mesh_lib.set_row_shard(*self._shard)
         return {k: None if v is None else self._put_infer(v) for k, v in batch.items()}
 
     # -- to implement ------------------------------------------------------

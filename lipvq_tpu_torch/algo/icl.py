@@ -53,8 +53,13 @@ from lipvq_tpu_torch.algo.base import (
     optimizer_from_optim_params,
     register_algo_factory_func,
 )
-from lipvq_tpu_torch.models.base_nets import seeded_init
-from lipvq_tpu_torch.models.distributions import GMMParams, gmm_log_prob, gmm_sample
+from lipvq_tpu_torch.models.base_nets import batch_mean, seeded_init
+from lipvq_tpu_torch.models.distributions import (
+    GMMParams,
+    gmm_log_prob,
+    gmm_sample,
+    gmm_sample_from_draws,
+)
 from lipvq_tpu_torch.models.obs_nets import FAST_FEAT_DIM, obs_spec
 from lipvq_tpu_torch.models.policy_nets import ICLActorNetwork, ICLGMMActorNetwork
 from lipvq_tpu_torch.models.tokenizers.fast import FastActionTokenizer
@@ -268,11 +273,38 @@ class ICLTransformerGMM(PolicyAlgo):
 
     def _policy_loss(self, dists: GMMParams, target_act) -> torch.Tensor:
         """GMM NLL (reference icl.py:947-974)."""
-        return -torch.mean(gmm_log_prob(dists, target_act))
+        return -batch_mean(gmm_log_prob(dists, target_act))
 
-    def _action_from_head(self, dists: GMMParams) -> torch.Tensor:
-        """GMM: sample (reference policy_nets.py:2583-2599)."""
+    def _action_from_head(self, dists: GMMParams, draws=None) -> torch.Tensor:
+        """GMM: sample (reference policy_nets.py:2583-2599) from the sample
+        generator, or from ``draws`` = (u, eps) of ``gmm_draws``."""
+        if draws is not None:
+            return gmm_sample_from_draws(dists, *draws)
         return gmm_sample(dists, self._generator)
+
+    # -- data-parallel layout ------------------------------------------------
+    def _shard_rows(self, rows: int):
+        """The batch is context demos then query demos, and demo i of the two
+        halves is a pair: ranks split the pairs (as evenly as they go: B = 6
+        over 2 ranks gives 2 and 1, B = 2 one and none) and take the same
+        pairs of both halves, so context row i stays paired with query row
+        i, as GSPMD's slices of the global halves keep them."""
+        h = rows // 2
+        return h, torch.tensor_split(torch.arange(h), self.mesh.shape["data"])[
+            self.mesh.data_index]
+
+    def _batch_rows(self, rows: int) -> torch.Tensor:
+        h, mine = self._shard_rows(rows)
+        return torch.cat([mine, mine + h])
+
+    def _loss_share(self) -> float | None:
+        """Under a mesh, the factor that makes the ranks' averaged losses the
+        global batch's: (ranks x this rank's pairs / all pairs), this rank's
+        means being over its own pairs."""
+        if self.mesh is None:
+            return None
+        total, mine = self._shard
+        return self.mesh.shape["data"] * len(mine) / total
 
     # -- training ----------------------------------------------------------
     def train_on_batch(self, batch, epoch, validate: bool = False):
@@ -298,6 +330,9 @@ class ICLTransformerGMM(PolicyAlgo):
             if not self.supervise_all_steps:
                 dists, qry_act = self._slice_last_step(dists), qry_act[:, -1]
             action_loss = self._policy_loss(dists, qry_act)
+            share = self._loss_share()
+            if share is not None:
+                action_loss, aux = action_loss * share, aux * share
         if validate:
             grad_norm = torch.zeros((), device=self.device)
         else:
@@ -325,10 +360,12 @@ class ICLTransformerGMM(PolicyAlgo):
         return log
 
     # -- inference ---------------------------------------------------------
-    def _get_action_impl(self, obs, ctx_obs, ctx_act, goal):
+    def _get_action_impl(self, obs, ctx_obs, ctx_act, goal, draws=None):
+        """The served forward (``serve_fn`` of the JAX export); ``draws``
+        stand for the sample generator's (``scripts/export_policy.py``)."""
         dists, _ = self.nets.forward_train(obs, ctx_obs, ctx_act, goal=goal,
                                            low_noise_eval=True)
-        out = self._action_from_head(dists)
+        out = self._action_from_head(dists, draws)
         if self.supervise_all_steps and self.pred_future_acs:
             return out[:, 0]
         return out[:, -1]
@@ -416,15 +453,15 @@ class ICLTransformer(ICLTransformerGMM):
         (1 - cosine similarity of the first 3 dims) (loss_utils.py:11-23)."""
         lw = self.algo_config.loss
         diff = preds - target_act
-        l2 = torch.mean(diff ** 2)
+        l2 = batch_mean(diff ** 2)
         ad = diff.abs()
-        l1 = torch.mean(torch.where(ad < 1.0, 0.5 * diff ** 2, ad - 0.5))
+        l1 = batch_mean(torch.where(ad < 1.0, 0.5 * diff ** 2, ad - 0.5))
         p3, t3 = preds[..., :3], target_act[..., :3]
         sim = (p3 * t3).sum(-1) / (torch.linalg.vector_norm(p3, dim=-1)
                                    * torch.linalg.vector_norm(t3, dim=-1) + 1e-8)
-        cos = -torch.mean(sim - 1.0)
+        cos = -batch_mean(sim - 1.0)
         return (float(lw.l2_weight) * l2 + float(lw.l1_weight) * l1
                 + float(lw.cos_weight) * cos)
 
-    def _action_from_head(self, preds) -> torch.Tensor:
+    def _action_from_head(self, preds, draws=None) -> torch.Tensor:
         return preds

@@ -227,5 +227,23 @@ class Config(dict):
             object.__setattr__(new, "_value_locked", self._value_locked)
         return new
 
+    def __reduce__(self):
+        """Pickles (the spawned ranks of ``scripts/train.py`` get the config
+        so) as its items and its flags, node by node."""
+        return (_unpickle_config, (type(self), dict(self), self._key_locked,
+                                   self._value_locked, self._is_lock_exempt()))
+
     def __repr__(self):
         return f"Config({super().__repr__()})"
+
+
+def _unpickle_config(cls: type, items: dict, key_locked: bool, value_locked: bool,
+                     lock_exempt: bool) -> Config:
+    new = cls.__new__(cls)
+    for k, v in items.items():
+        dict.__setitem__(new, k, v)
+    object.__setattr__(new, "_key_locked", key_locked)
+    object.__setattr__(new, "_value_locked", value_locked)
+    if lock_exempt:
+        new.do_not_lock_keys()
+    return new

@@ -3,13 +3,15 @@
 ``VectorEnv`` steps N envs in lock-step in this process, and
 ``batched_icl_rollout`` runs them to completion with one policy request per
 step: the rollout policy's batched path takes obs [N, T, ...] to actions
-[N, A], so N envs share one forward on the card (and one K1 launch). The
-subprocess variant (``SubprocVectorEnv``, for MuJoCo-class simulators) is
-not ported yet (ROADMAP §1 item 7).
+[N, A], so N envs share one forward on the card (and one K1 launch).
+``SubprocVectorEnv`` steps each env in a spawned process of its own (for
+MuJoCo-class simulators), with the same interface; its env factories must
+pickle (``functools.partial``, not a lambda).
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
 from collections import OrderedDict
 
 import numpy as np
@@ -72,6 +74,74 @@ class VectorEnv:
             if obs_keys is None or k in obs_keys
         ]
         return {k: np.stack([o[k] for o in obs_list]) for k in keys}
+
+
+def _subproc_worker(pipe, env_fn, frame_stack):
+    env = env_fn()
+    if frame_stack:
+        env = FrameStackWrapper(env, frame_stack)
+    while True:
+        cmd, data = pipe.recv()
+        if cmd == "reset":
+            pipe.send(env.reset())
+        elif cmd == "step":
+            pipe.send(env.step(data))
+        elif cmd == "is_success":
+            pipe.send(env.is_success())
+        elif cmd == "ep_lang_str":
+            lang = getattr(env, "ep_lang_str", None)
+            if lang is None and hasattr(env, "unwrapped"):
+                lang = getattr(env.unwrapped, "_ep_lang_str", None)
+            pipe.send(lang)
+        elif cmd == "close":
+            pipe.close()
+            break
+
+
+class SubprocVectorEnv:
+    """One spawned subprocess per env (reference train.py:141-144 uses
+    tianshou's equivalent for MuJoCo envs)."""
+
+    def __init__(self, env_fns, frame_stack: int | None = None, obs_keys=None):
+        self.obs_keys = set(obs_keys) if obs_keys is not None else None
+        ctx = mp.get_context("spawn")
+        self.pipes, self.procs = [], []
+        for fn in env_fns:
+            parent, child = ctx.Pipe()
+            p = ctx.Process(target=_subproc_worker, args=(child, fn, frame_stack))
+            p.daemon = True
+            p.start()
+            self.pipes.append(parent)
+            self.procs.append(p)
+        self.num_envs = len(env_fns)
+
+    def _ask(self, cmd: str, data=None) -> list:
+        for p in self.pipes:
+            p.send((cmd, data))
+        return [p.recv() for p in self.pipes]
+
+    def reset(self):
+        return VectorEnv._stack(self._ask("reset"), self.obs_keys)
+
+    def step(self, actions):
+        for i, p in enumerate(self.pipes):
+            p.send(("step", actions[i]))
+        obs, rews, dones, infos = zip(*[p.recv() for p in self.pipes])
+        return (VectorEnv._stack(obs, self.obs_keys), np.asarray(rews),
+                np.asarray(dones), infos)
+
+    def is_success(self):
+        return self._ask("is_success")
+
+    @property
+    def ep_lang_strs(self):
+        return self._ask("ep_lang_str")
+
+    def close(self):
+        for p in self.pipes:
+            p.send(("close", None))
+        for proc in self.procs:
+            proc.join(timeout=5)
 
 
 def batched_icl_rollout(

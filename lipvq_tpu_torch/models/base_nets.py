@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from lipvq_tpu_torch.parallel.mesh import all_reduce_sum, draw_rows
+
 
 def seeded_init(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialize every parameter of ``module`` from ``generator``."""
@@ -290,7 +292,12 @@ class BatchNorm(nn.Module):
     normalize, and the buffers move to ``momentum * old + (1 - momentum) *
     batch`` with the biased variance, as flax does (torch's BatchNorm would
     store the unbiased one, n / (n - 1) larger); else the buffers
-    normalize."""
+    normalize. Under a data-parallel ``mesh`` of several ranks the batch is
+    the global one: the sums of x and x^2 and the counts are summed over
+    the ranks (differentiably), and ``var = E[x^2] - E[x]^2`` as flax
+    computes it."""
+
+    mesh = None
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -309,17 +316,36 @@ class BatchNorm(nn.Module):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.weight, self.bias, False, 0.0,
                                 self.eps)
+        if self.mesh is not None and self.mesh.world > 1:
+            return self._global_batch(x)
         with torch.no_grad():
             dims = [d for d in range(x.ndim) if d != 1]
             var, mean = torch.var_mean(x, dim=dims, correction=0)
-            m = self.momentum
-            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-            self.var.copy_(m * self.var + (1.0 - m) * var)
+            self._move_stats(mean, var)
         if x.numel() == x.shape[1]:
             # one value per channel: x - mean is 0 (flax's output is the bias,
             # where torch's batch_norm would raise)
             return self.bias.reshape((1, -1) + (1,) * (x.ndim - 2)) + 0.0 * x
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _move_stats(self, mean, var) -> None:
+        m = self.momentum
+        self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+        self.var.copy_(m * self.var + (1.0 - m) * var)
+
+    def _global_batch(self, x):
+        dims = [d for d in range(x.ndim) if d != 1]
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=x.dtype, device=x.device)
+        stats = all_reduce_sum(torch.cat([x.sum(dims), (x * x).sum(dims), count]))
+        c = x.shape[1]
+        n = stats[2 * c]
+        mean, mean2 = stats[:c] / n, stats[c:2 * c] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        with torch.no_grad():
+            self._move_stats(mean.detach(), var.detach())
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
 
 
 class FiLMLayer(nn.Module):
@@ -338,12 +364,19 @@ class FiLMLayer(nn.Module):
         return gamma.reshape(shape) * x + beta.reshape(shape)
 
 
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(x)``, and 0 for an empty ``x`` (a data-parallel rank that
+    holds no rows), where the mean would be NaN."""
+    return torch.mean(x) if x.numel() else x.sum()
+
+
 def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
             train: bool) -> torch.Tensor:
     """flax ``nn.Dropout``: ``where(u < 1 - p, x / (1 - p), 0)`` with u drawn
     from ``generator`` (on ``x``'s device); identity outside training or at
     p = 0. Keeps ``x``'s dtype. ``F.dropout`` takes no generator, so the
-    mask is drawn here."""
+    mask is drawn here, as the whole batch would draw it under a
+    data-parallel mesh (``parallel.mesh.draw_rows``)."""
     if not train or p == 0.0:
         return x
     if generator is None:
@@ -351,7 +384,7 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    u = draw_rows(lambda shape: torch.rand(shape, generator=generator, device=x.device), x.shape)
     return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

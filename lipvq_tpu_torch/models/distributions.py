@@ -42,19 +42,34 @@ def gmm_sample(p: GMMParams, generator: torch.Generator | None, noise=None) -> t
     """Ancestral sample: categorical mode (Gumbel-max), then diagonal
     Gaussian; ``noise`` = (mode ids [...], standard normals [..., A]) in
     place of the generator's draws."""
-    if noise is None:
-        u = torch.rand(p.logits.shape, generator=generator, device=p.logits.device)
-        u = u.clamp_min(torch.finfo(u.dtype).tiny)
-        mode = torch.argmax(p.logits.float() - torch.log(-torch.log(u)), dim=-1)
-        eps = None
-    else:
+    if noise is not None:
         mode, eps = noise
+        return _component_sample(p, mode, eps)
+    u, eps = gmm_draws(p, generator)
+    return gmm_sample_from_draws(p, u, eps)
+
+
+def gmm_draws(p: GMMParams, generator: torch.Generator | None):
+    """The draws ``gmm_sample`` takes from ``generator``, in its order: the
+    Gumbel uniforms [..., M], then the standard normals [..., A]."""
+    u = torch.rand(p.logits.shape, generator=generator, device=p.logits.device)
+    eps = torch.randn(p.means.shape[:-2] + p.means.shape[-1:], generator=generator,
+                      device=p.means.device, dtype=p.means.dtype)
+    return u, eps
+
+
+def gmm_sample_from_draws(p: GMMParams, u: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """``gmm_sample`` on given draws (``gmm_draws``): a function of tensors
+    only, so an exported program can take the draws as inputs."""
+    u = u.clamp_min(torch.finfo(u.dtype).tiny)
+    mode = torch.argmax(p.logits.float() - torch.log(-torch.log(u)), dim=-1)
+    return _component_sample(p, mode, eps)
+
+
+def _component_sample(p: GMMParams, mode, eps) -> torch.Tensor:
     idx = mode.long()[..., None, None].expand(*mode.shape, 1, p.means.shape[-1])
     mean = p.means.gather(-2, idx).squeeze(-2)
     scale = p.scales.gather(-2, idx).squeeze(-2)
-    if eps is None:
-        eps = torch.randn(mean.shape, generator=generator, device=mean.device,
-                          dtype=mean.dtype)
     return mean + scale * eps
 
 

@@ -11,7 +11,8 @@
   ``build_core`` picks it (``VisualCoreLanguageConditioned``: FiLM on the
   ``lang_emb`` key) or ``ScanCore``
 - ``PretrainedReprConv`` / ``R3MConv`` / ``MVPConv``: a frozen ResNet-18,
-  randomly initialized only
+  randomly initialized whatever ``ckpt_path`` says (as in the JAX package);
+  ``apply_pretrained`` loads a converted trunk
 
 Observations stay NHWC float in [0, 1] (the JAX package's contract).
 ``VisualCore`` takes them so and hands its trunk a contiguous [B, C, H, W]
@@ -39,6 +40,7 @@ from lipvq_tpu_torch.models.base_nets import (
     MultiHeadDotProductAttention,
     TorchLinear,
 )
+from lipvq_tpu_torch.parallel.mesh import draw_rows
 
 _PAD1 = ((1, 1), (1, 1))
 
@@ -264,8 +266,8 @@ class ColorRandomizer:
         if not train:
             return x
         generator = _need_generator(generator)
-        br, ct, st = (1.0 + (2.0 * torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                                              device=x.device) - 1.0) * m
+        br, ct, st = (1.0 + (2.0 * draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=x.device), (x.shape[0], 1, 1, 1)) - 1.0) * m
                       for m in (self.brightness, self.contrast, self.saturation))
         x = x * br
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
@@ -285,7 +287,9 @@ class GaussianNoiseRandomizer:
     def __call__(self, x, train: bool = False, generator=None):
         if not train:
             return x
-        noise = torch.randn(x.shape, generator=_need_generator(generator), device=x.device)
+        generator = _need_generator(generator)
+        noise = draw_rows(lambda shape: torch.randn(shape, generator=generator,
+                                                    device=x.device), x.shape)
         x = x + self.noise_mean + self.noise_std * noise
         return x if self.limits is None else x.clamp(*self.limits)
 
@@ -307,8 +311,9 @@ class CropRandomizer:
             return x[:, y0:y0 + ch, x0:x0 + cw]
         generator = _need_generator(generator)
         n = b * self.num_crops
-        ys = torch.randint(0, h - ch + 1, (n,), generator=generator, device=x.device)
-        xs = torch.randint(0, w - cw + 1, (n,), generator=generator, device=x.device)
+        ys, xs = (draw_rows(lambda shape, hi=hi: torch.randint(
+            0, hi, shape, generator=generator, device=x.device), (n,)) for hi in (h - ch + 1,
+                                                                                  w - cw + 1))
         img = torch.arange(b, device=x.device).repeat_interleave(self.num_crops)
         rows = ys[:, None] + torch.arange(ch, device=x.device)
         cols = xs[:, None] + torch.arange(cw, device=x.device)
@@ -399,17 +404,19 @@ class VisualCore(nn.Module):
 
 class PretrainedReprConv(nn.Module):
     """A frozen ResNet-18 trunk (``backbone``) standing for a pretrained
-    visual representation (the reference's R3M / MVP wrappers). Randomly
-    initialized only: the JAX package loads a converted flax checkpoint,
-    which the port cannot read yet."""
+    visual representation (the reference's R3M / MVP wrappers).
+
+    As in the JAX package, ``ckpt_path`` is kept but never read: the trunk is
+    randomly initialized whatever it says. ``load_pretrained(path)`` returns
+    the override from a file that ``scripts/import_torch_ckpt.convert(sd,
+    "resnet18")`` and ``save_converted`` write, and ``apply_pretrained``
+    loads it into a built core; no path of the port calls either, as nothing
+    in the JAX package calls its ``load_pretrained``."""
 
     def __init__(self, in_channels: int = 3, ckpt_path: str | None = None,
                  freeze: bool = True):
         super().__init__()
-        if ckpt_path is not None:
-            raise NotImplementedError(
-                "loading pretrained visual weights (ckpt_path) is not ported yet "
-                "(ROADMAP §1 item 14); the trunk runs with random init only")
+        self.ckpt_path = ckpt_path
         self.freeze = freeze
         self.backbone = ResNet18Conv(in_channels)
         self.out_channels = self.backbone.out_channels
@@ -417,6 +424,21 @@ class PretrainedReprConv(nn.Module):
     def forward(self, x, train: bool = False, film_cond=None):
         h = self.backbone(x, train and not self.freeze)
         return h.detach() if self.freeze else h
+
+    @staticmethod
+    def load_pretrained(path: str):
+        """A converted trunk file -> (parameters, BatchNorm buffers), keyed as
+        this module's state_dict (``backbone.*``)."""
+        restored = torch.load(path, map_location="cpu", weights_only=True)
+        return ({f"backbone.{k}": v for k, v in restored["params"].items()},
+                {f"backbone.{k}": v for k, v in restored.get("batch_stats", {}).items()})
+
+
+def apply_pretrained(core: PretrainedReprConv, path: str) -> None:
+    """Load ``PretrainedReprConv.load_pretrained(path)`` into ``core`` on its
+    device; every key must match."""
+    params, stats = core.load_pretrained(path)
+    core.load_state_dict({**params, **stats}, strict=True)
 
 
 class R3MConv(PretrainedReprConv):

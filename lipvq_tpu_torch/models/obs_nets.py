@@ -130,7 +130,7 @@ class ObservationEncoder(nn.Module):
             x = obs_dict[key]
             core = getattr(self, f"core_{key}", None)
             if core is None:
-                feats.append(x.reshape(x.shape[0], -1))
+                feats.append(x.flatten(1))
             else:
                 feats.append(core(x, train, generator, lang_emb=obs_dict.get(LANG_EMB_KEY)
                                   if key in self.conditioned else None))
@@ -397,12 +397,12 @@ class ICLMIMOTransformer(nn.Module):
         b, t = next(iter(obs.values())).shape[:2]
         obs_f, ctx_obs_f, ctx_act_f, aux = self.encoder(
             flatten_time(obs, b, t), flatten_time(prompt_obs, b, t),
-            prompt_actions.reshape(b * t, -1),
+            prompt_actions.flatten(0, 1),
             goal=flatten_time(goal, b, t) if goal is not None else None, train=train,
             generator=generator)
-        obs_emb = self.input_embedding(obs_f.reshape(b, t, -1), train, generator)
-        ctx_obs_emb = self.input_embedding(ctx_obs_f.reshape(b, t, -1), train, generator)
-        ctx_act_emb = self.input_embedding(ctx_act_f.reshape(b, t, -1), train, generator)
+        obs_emb = self.input_embedding(obs_f.unflatten(0, (b, t)), train, generator)
+        ctx_obs_emb = self.input_embedding(ctx_obs_f.unflatten(0, (b, t)), train, generator)
+        ctx_act_emb = self.input_embedding(ctx_act_f.unflatten(0, (b, t)), train, generator)
         # interleave [ctx_obs_0, ctx_act_0, ctx_obs_1, ...], then the T
         # query-obs tokens
         interleaved = torch.stack([ctx_obs_emb, ctx_act_emb], dim=2).reshape(

@@ -40,6 +40,8 @@ class AdaptiveBinActionEmbedding(nn.Module):
         with torch.no_grad():
             self.embedding_tables.normal_(0.0, 1.0, generator=generator)
 
+    mesh = None  # set by Algo.attach_mesh
+
     def discretize(self, actions, lo, hi):
         """Bin indices [B, A] int64 of actions [B, A] between lo and hi [A]."""
         width = (hi - lo) / self.num_bins
@@ -49,9 +51,13 @@ class AdaptiveBinActionEmbedding(nn.Module):
 
     def forward(self, actions, update_stats: bool = True):
         """actions [B, action_dim] -> embeddings [B, output_dim]; with
-        ``update_stats`` the running bounds take this batch first."""
-        batch_min = actions.detach().amin(0)
-        batch_max = actions.detach().amax(0)
+        ``update_stats`` the running bounds take this batch first. Under a
+        data-parallel ``mesh`` the batch's bounds are the global batch's."""
+        if self.mesh is not None:
+            batch_min, batch_max = self.mesh.extrema(actions.detach())
+        else:
+            batch_min = actions.detach().amin(0)
+            batch_max = actions.detach().amax(0)
         if update_stats:
             with torch.no_grad():
                 enabled = self.num_step < self.num_step_stop

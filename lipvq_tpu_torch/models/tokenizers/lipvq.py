@@ -18,7 +18,9 @@
   card) gives the ids, counts and sums, which update the buffers
   ``ema_cluster_size`` [N] and ``ema_embed_sum`` [N, D];
   ``apply_ema_codebook`` then writes the smoothed means into the codebook
-  after the optimizer step, as the JAX train step does.
+  after the optimizer step, as the JAX train step does. Under a
+  data-parallel ``mesh`` the counts and sums are summed over the ranks
+  first, as GSPMD sums the global batch's.
 
 The tokenizer always runs in fp32, whatever the backbone's compute dtype.
 """
@@ -31,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lipvq_tpu_torch.models.base_nets import TorchLinear, gelu_exact
+from lipvq_tpu_torch.models.base_nets import TorchLinear, batch_mean, gelu_exact
 from lipvq_tpu_torch.ops.vq_lookup import vq_nearest, vq_nearest_with_stats
 
 
@@ -94,6 +96,8 @@ class LFQQuantizer(nn.Module):
 class LipVQVAE(nn.Module):
     """The paper's LipVQ-VAE tokenizer (reference LLFQVAE_V4)."""
 
+    mesh = None  # set by Algo.attach_mesh
+
     def __init__(self, feature_dim: int, latent_dim: int, num_codes: int = 1024,
                  hidden_dim: int = 128, ema_codebook: bool = False,
                  ema_decay: float = 0.99, ema_eps: float = 1e-5):
@@ -130,6 +134,8 @@ class LipVQVAE(nn.Module):
         z_e = self.encode(x)
         if self.ema_codebook and train:
             z_q, ids, counts, sums = self.quantizer.forward_with_stats(z_e)
+            if self.mesh is not None:
+                self.mesh.sum_([counts, sums])
             with torch.no_grad():
                 d = self.ema_decay
                 self.ema_cluster_size.copy_(d * self.ema_cluster_size + (1 - d) * counts)
@@ -137,12 +143,12 @@ class LipVQVAE(nn.Module):
         else:
             z_q, ids = self.quantizer(z_e)
         x_recon = self.decode(z_q)
-        recon_loss = torch.mean((x_recon - x) ** 2)
-        commitment_loss = torch.mean((z_q.detach() - z_e) ** 2)
+        recon_loss = batch_mean((x_recon - x) ** 2)
+        commitment_loss = batch_mean((z_q.detach() - z_e) ** 2)
         if self.ema_codebook:
             loss = recon_loss + 0.25 * commitment_loss
         else:
-            codebook_loss = torch.mean((z_q - z_e.detach()) ** 2)
+            codebook_loss = batch_mean((z_q - z_e.detach()) ** 2)
             loss = recon_loss + 0.25 * commitment_loss + 0.25 * codebook_loss
         return z_q.detach(), loss, ids
 

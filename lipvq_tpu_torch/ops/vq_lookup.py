@@ -46,6 +46,7 @@ import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from lipvq_tpu_torch.ops import _build
 
@@ -332,28 +333,6 @@ vq_nearest_cuda.launches = 0
 vq_nearest_cuda.fast_launches = 0
 
 
-def vq_nearest(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """Dispatching lookup: K1 on a CUDA tensor, the plain reference on a CPU
-    tensor. Inputs are detached (the ids are not differentiable), as the JAX
-    dispatcher stop-gradients them."""
-    z_e = z_e.detach()
-    codebook = codebook.detach()
-    if z_e.is_cuda:
-        return vq_nearest_cuda(z_e.float().contiguous(), codebook.float().contiguous())
-    return vq_nearest_reference(z_e, codebook)
-
-
-def vq_nearest_fast(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
-    """The opt-in fast lookup: K1f on a CUDA tensor, its plain version on a
-    CPU tensor. Inputs are detached, as in ``vq_nearest``."""
-    z_e = z_e.detach()
-    codebook = codebook.detach()
-    if z_e.is_cuda:
-        return vq_nearest_cuda(z_e.float().contiguous(), codebook.float().contiguous(),
-                               precision="fast")
-    return vq_nearest_fast_reference(z_e, codebook)
-
-
 def vq_cluster_stats(z_e: torch.Tensor, ids: torch.Tensor, num_codes: int):
     """One-hot cluster stats of ``ids``: counts [N] fp32 and sums [N, D] =
     one_hot^T z in fp32, accumulated over row chunks so the one-hot
@@ -411,13 +390,91 @@ def vq_nearest_with_stats_cuda(z_e: torch.Tensor, codebook: torch.Tensor):
 vq_nearest_with_stats_cuda.launches = 0
 
 
+# The three kernels as torch.library ops under the lipvq_tpu_torch namespace:
+# the CUDA implementation is the ctypes launch above, on the current stream
+# and counted; the CPU implementation is the plain version; the fake one
+# gives shapes and dtypes, so torch.export and FlopCounterMode see each op
+# as one node. None has a gradient.
+def _ids_like(z_e: torch.Tensor) -> torch.Tensor:
+    return z_e.new_empty(z_e.shape[0], dtype=torch.int32)
+
+
+@torch.library.custom_op("lipvq_tpu_torch::vq_nearest", mutates_args=(), device_types="cuda")
+def vq_nearest_op(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """K1 (``vq_nearest_cuda``) on CUDA tensors, ``vq_nearest_reference``
+    on CPU tensors."""
+    return vq_nearest_cuda(z_e, codebook)
+
+
+@torch.library.custom_op("lipvq_tpu_torch::vq_nearest_fast", mutates_args=(),
+                         device_types="cuda")
+def vq_nearest_fast_op(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """K1f on CUDA tensors, ``vq_nearest_fast_reference`` on CPU tensors."""
+    return vq_nearest_cuda(z_e, codebook, precision="fast")
+
+
+@torch.library.custom_op("lipvq_tpu_torch::vq_nearest_with_stats", mutates_args=(),
+                         device_types="cuda")
+def vq_nearest_with_stats_op(z_e: torch.Tensor, codebook: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors, ``vq_nearest_with_stats_reference`` on CPU
+    tensors: (ids, counts, sums)."""
+    return vq_nearest_with_stats_cuda(z_e, codebook)
+
+
+vq_nearest_op.register_kernel("cpu")(vq_nearest_reference)
+vq_nearest_fast_op.register_kernel("cpu")(vq_nearest_fast_reference)
+vq_nearest_with_stats_op.register_kernel("cpu")(vq_nearest_with_stats_reference)
+vq_nearest_op.register_fake(lambda z_e, codebook: _ids_like(z_e))
+vq_nearest_fast_op.register_fake(lambda z_e, codebook: _ids_like(z_e))
+vq_nearest_with_stats_op.register_fake(lambda z_e, codebook: (
+    _ids_like(z_e), codebook.new_empty(codebook.shape[0]), codebook.new_empty(codebook.shape)))
+
+
+def lookup_flops(z_shape, codebook_shape, *args, **kwargs) -> int:
+    """K1's and K1f's products: 2 B N D."""
+    return 2 * z_shape[0] * codebook_shape[0] * codebook_shape[1]
+
+
+def stats_flops(z_shape, codebook_shape, *args, **kwargs) -> int:
+    """K2: the lookup's 2 B N D, plus B D adds for the sums."""
+    return lookup_flops(z_shape, codebook_shape) + z_shape[0] * z_shape[1]
+
+
+register_flop_formula(torch.ops.lipvq_tpu_torch.vq_nearest)(lookup_flops)
+register_flop_formula(torch.ops.lipvq_tpu_torch.vq_nearest_fast)(lookup_flops)
+register_flop_formula(torch.ops.lipvq_tpu_torch.vq_nearest_with_stats)(stats_flops)
+
+
+def vq_nearest(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """Dispatching lookup through ``lipvq_tpu_torch::vq_nearest``: K1 on a
+    CUDA tensor, the plain reference on a CPU tensor. Inputs are detached
+    (the ids are not differentiable), as the JAX dispatcher stop-gradients
+    them. No rows (a data-parallel rank that holds none) give no ids and
+    launch nothing."""
+    if z_e.shape[0] == 0:
+        return torch.zeros(0, dtype=torch.int32, device=z_e.device)
+    return vq_nearest_op(z_e.detach().float().contiguous(),
+                         codebook.detach().float().contiguous())
+
+
+def vq_nearest_fast(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
+    """The opt-in fast lookup through ``lipvq_tpu_torch::vq_nearest_fast``:
+    K1f on a CUDA tensor, its plain version on a CPU tensor. Inputs are
+    detached, as in ``vq_nearest``."""
+    return vq_nearest_fast_op(z_e.detach().float().contiguous(),
+                              codebook.detach().float().contiguous())
+
+
 def vq_nearest_with_stats(z_e: torch.Tensor, codebook: torch.Tensor):
-    """Dispatching lookup + cluster stats: K2 on a CUDA tensor, the plain
-    version on a CPU tensor. Inputs are detached (neither ids nor stats are
-    differentiated)."""
-    z_e = z_e.detach()
-    codebook = codebook.detach()
-    if z_e.is_cuda:
-        return vq_nearest_with_stats_cuda(z_e.float().contiguous(),
-                                          codebook.float().contiguous())
-    return vq_nearest_with_stats_reference(z_e, codebook)
+    """Dispatching lookup + cluster stats through
+    ``lipvq_tpu_torch::vq_nearest_with_stats``: K2 on a CUDA tensor, the
+    plain version on a CPU tensor. Inputs are detached (neither ids nor
+    stats are differentiated). No rows give zero stats and launch
+    nothing."""
+    if z_e.shape[0] == 0:
+        n, d = codebook.shape
+        return (torch.zeros(0, dtype=torch.int32, device=z_e.device),
+                torch.zeros(n, device=z_e.device), torch.zeros((n, d), device=z_e.device))
+    return vq_nearest_with_stats_op(z_e.detach().float().contiguous(),
+                                    codebook.detach().float().contiguous())

@@ -11,6 +11,13 @@ trains on.
 The run takes the CUDA device unless ``train.cuda`` is false or
 ``--device cpu`` is given, and raises where there is no GPU.
 
+``train.num_devices`` trains data-parallel (``parallel/mesh.py``): -1 means
+every card (``torch.cuda.device_count()``; one rank on the CPU), n > 1
+spawns n ranks with one card each (NCCL; gloo on the CPU), n = 1 runs in
+this process in a group of one through the same code. Every rank loads the
+same global batches and trains on its rows; only rank 0 writes checkpoints,
+logs and rollouts.
+
 Usage:
     python -m lipvq_tpu_torch.scripts.train --config cfg.json [--dataset D]
         [--name N] [--output_dir O] [--device cpu] [--debug] [--eval_only]
@@ -40,12 +47,51 @@ from lipvq_tpu_torch.utils.lang_utils import LangEncoder
 from lipvq_tpu_torch.utils.log_utils import DataLogger, PrintLogger
 
 
-def _check_ported(config) -> None:
-    """Raise for the switches whose code is not ported yet, before any work."""
-    if config.train.get("num_devices", None) is not None:
-        raise NotImplementedError(
-            "train.num_devices (data-parallel training over several devices) is not "
-            "ported yet (ROADMAP §1 item 14)")
+def _num_devices(config, device: torch.device) -> int | None:
+    """``train.num_devices`` as a rank count (None: no mesh)."""
+    n_dev = config.train.get("num_devices", None)
+    if n_dev is None:
+        return None
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    n = cards if int(n_dev) == -1 else int(n_dev)
+    if device.type == "cuda" and n > cards:
+        raise ValueError(f"train.num_devices={n} but {cards} CUDA device(s) are visible")
+    if config.train.batch_size % n != 0:
+        raise ValueError(f"train.batch_size={config.train.batch_size} not divisible "
+                         f"by num_devices={n}")
+    return n
+
+
+def _rank_main(rank: int, world: int, config, eval_only: bool, device_type: str,
+               tmp: str) -> None:
+    """One spawned rank: join the group, train on card ``rank`` (or the
+    CPU), and (rank 0) leave the checkpoint directory in ``tmp``."""
+    import torch.distributed as dist
+
+    from lipvq_tpu_torch.parallel.mesh import init_group
+
+    device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
+    init_group(rank, world, os.path.join(tmp, "store"), device)
+    try:
+        ckpt_dir = train(config, eval_only=eval_only, device=device)
+        if rank == 0:
+            with open(os.path.join(tmp, "ckpt_dir"), "w") as f:
+                f.write(ckpt_dir)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(config, eval_only: bool, device: torch.device, n: int) -> str:
+    """Train in ``n`` spawned ranks; returns rank 0's checkpoint directory."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="lipvq_train_") as tmp:
+        mp.spawn(_rank_main, args=(n, config, eval_only, device.type, tmp), nprocs=n,
+                 join=True)
+        with open(os.path.join(tmp, "ckpt_dir")) as f:
+            return f.read()
 
 
 def _load_full_state(model, ckpt_path: str) -> None:
@@ -116,30 +162,51 @@ def train(config, eval_only: bool = False, device=None):
     """Main train loop (reference train.py:47-485). ``device`` defaults to
     CUDA, or the CPU where ``train.cuda`` is false. Returns the checkpoint
     directory."""
+    import torch.distributed as dist
+
     device = resolve_device(device if device is not None
                             else (None if config.train.cuda else "cpu"))
-    _check_ported(config)
+    n = _num_devices(config, device)
+    if n is not None and n > 1 and not dist.is_initialized():
+        return _spawn(config, eval_only, device, n)
+    own_group = n is not None and not dist.is_initialized()
     np.random.seed(config.train.seed)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     print("\n============= New Training Run with Config =============")
     print(config.dump())
 
-    log_dir, ckpt_dir, video_dir = TrainUtils.get_exp_dir(config)
+    log_dir = ckpt_dir = video_dir = None
+    if lead:  # only rank 0 writes
+        log_dir, ckpt_dir, video_dir = TrainUtils.get_exp_dir(config)
     stdout, stderr = sys.stdout, sys.stderr
-    if config.experiment.logging.terminal_output_to_txt:
+    if lead and config.experiment.logging.terminal_output_to_txt:
         logger = PrintLogger(os.path.join(log_dir, "log.txt"))
         sys.stdout = logger
         sys.stderr = logger
     try:
         with contextlib.ExitStack() as on_exit:
-            _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit)
+            _train(config, eval_only, device, n, log_dir, ckpt_dir, video_dir, on_exit)
     finally:
         sys.stdout, sys.stderr = stdout, stderr
+        if own_group:
+            dist.destroy_process_group()
     return ckpt_dir
 
 
-def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
+class _NoLogger:
+    """The data logger of a rank that writes nothing."""
+
+    def record(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _train(config, eval_only, device, n_devices, log_dir, ckpt_dir, video_dir, on_exit):
     ObsUtils.initialize_obs_utils_with_config(config)
+    lead = ckpt_dir is not None
 
     data_spec = config.train.data
     if isinstance(data_spec, (list, tuple)):
@@ -162,7 +229,7 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
         log_dir, config,
         log_tb=config.experiment.logging.log_tb,
         log_wandb=config.experiment.logging.log_wandb,
-    )
+    ) if lead else _NoLogger()
 
     model = algo_factory(
         config.algo_name, config,
@@ -183,6 +250,16 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
         elif os.path.isfile(ckpt_path):
             print(f"Loading model weights from {ckpt_path}")
             model.deserialize(FileUtils.load_checkpoint_dict(ckpt_path)["model"])
+
+    # data-parallel mesh, attached after the checkpoint load so the loaded
+    # state is what rank 0 broadcasts
+    if n_devices is not None:
+        from lipvq_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n_devices, devices=[device])
+        model.attach_mesh(mesh)
+        print(f"Data-parallel training over {n_devices} devices (rank {mesh.rank}, "
+              f"{mesh.backend})")
 
     lang_encoder = LangEncoder(device=device)
     train_ds, valid_ds = TrainUtils.load_data_for_training(
@@ -206,7 +283,7 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
         on_exit.callback(train_loader.close)
 
     envs = None
-    if config.experiment.rollout.enabled:
+    if lead and config.experiment.rollout.enabled:
         envs = _make_rollout_envs(config, env_meta, model)
 
     best_valid_loss = None
@@ -222,6 +299,8 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
             if os.path.isfile(candidate):
                 print(f"follow-along: loading {candidate}")
                 model.deserialize(FileUtils.load_checkpoint_dict(candidate)["model"])
+                if model.mesh is not None:  # replicate the loaded state again
+                    model.attach_mesh(model.mesh)
         step_log = TrainUtils.run_epoch(
             model, train_loader, epoch,
             num_steps=config.experiment.epoch_every_n_steps,
@@ -271,7 +350,7 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
 
         # prediction-MSE observability (reference train.py:439-459)
         mse_cfg = config.experiment.mse
-        if mse_cfg.enabled and (
+        if lead and mse_cfg.enabled and (
             epoch % (mse_cfg.every_n_epochs or 50) == 0
             or (mse_cfg.on_save_ckpt and should_save_ckpt)
         ):
@@ -356,7 +435,7 @@ def _train(config, eval_only, device, log_dir, ckpt_dir, video_dir, on_exit):
             )
             should_save_ckpt = should_save_ckpt or should_save_by_rollout
 
-        if should_save_ckpt:
+        if lead and should_save_ckpt:
             path = os.path.join(ckpt_dir, epoch_ckpt_name + ".ckpt")
             FileUtils.save_checkpoint(
                 path, model, config,

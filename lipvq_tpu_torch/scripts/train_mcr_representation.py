@@ -7,8 +7,9 @@ A manifest-driven video buffer (``algo/mcr_data.py``), the 5-frame TCN loss
 the ``aligned`` ordering metric), the optional language-alignment loss
 against the ``LangEncoder``'s caption embeddings, the global-norm clip at 1
 then Adam (optax's chain), an evaluation on the validation buffer and
-snapshots. The step runs on one device: ``num_devices`` > 1 (the JAX
-package's data-parallel mesh) raises, naming ROADMAP §1 item 14.
+snapshots. ``num_devices`` > 1 builds the data-parallel mesh
+(``parallel/mesh.py``; the ranks must be started first) and, as in the JAX
+package, nothing uses it: every rank takes the whole single-device step.
 
     python -m lipvq_tpu_torch.scripts.train_mcr_representation \\
         --datapath corpus_dir --steps 2000 --snapshot mcr.pt
@@ -30,6 +31,7 @@ from lipvq_tpu_torch.algo.base import ScheduledOptimizer, resolve_device
 from lipvq_tpu_torch.algo.mcr import MCREncoder, load_tree_, nest
 from lipvq_tpu_torch.algo.mcr_data import MCRBuffer
 from lipvq_tpu_torch.models.base_nets import seeded_init
+from lipvq_tpu_torch.parallel.mesh import make_mesh
 
 EPS = 1e-8
 
@@ -50,10 +52,6 @@ class RepresentationWorkspace:
                  num_negatives: int = 3, batch_size: int = 16,
                  out_hw=(112, 112), alpha: float = 0.2, seed: int = 0,
                  num_devices: int | None = None, device=None):
-        if (num_devices or 1) > 1:
-            raise NotImplementedError(
-                f"num_devices={num_devices}: data-parallel pretraining is not ported yet "
-                f"(ROADMAP §1 item 14)")
         self.device = resolve_device(device)
         self.train_buffer = MCRBuffer(datapath, "train", alpha=alpha, out_hw=out_hw,
                                       seed=seed)
@@ -72,6 +70,10 @@ class RepresentationWorkspace:
         self.optimizer = ScheduledOptimizer(self.encoder.parameters(), torch.optim.Adam,
                                             lambda step: lr, max_grad_norm=1.0, eps=1e-8)
         self._lang = None
+        # the DP mesh (reference DataParallel); as in the JAX package it is
+        # built and held, and nothing uses it (ROADMAP queue 3, fault (s))
+        n_dev = num_devices or 1
+        self.mesh = make_mesh(n_dev, devices=[self.device]) if n_dev > 1 else None
 
     # ---- loss (reference trainer.py:44-117) --------------------------
     def _loss(self, frames, shuffles, lang_emb):

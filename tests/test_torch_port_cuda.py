@@ -534,3 +534,80 @@ def test_device_cached_loader_gathers_on_the_card(cuda):
     for k in ("x", "lang"):
         assert torch.equal(got["obs"][k].cpu(), torch.from_numpy(want["obs"][k]))
     assert torch.equal(got["actions"].cpu(), torch.from_numpy(want["actions"]))
+
+
+@pytest.mark.parametrize("name,counter", [("vq_nearest", "launches"),
+                                          ("vq_nearest_fast", "fast_launches"),
+                                          ("vq_nearest_with_stats", None)])
+def test_registered_ops_launch_their_kernels(cuda, name, counter):
+    """Each registered op launches its kernel once per call on the current
+    stream, and equals the kernel's own wrapper."""
+    rng = np.random.default_rng(3)
+    z = torch.from_numpy(rng.standard_normal((300, 208), dtype=np.float32)).to(cuda)
+    c = torch.from_numpy(rng.standard_normal((1024, 208), dtype=np.float32)).to(cuda)
+    counts = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+              vq_nearest_with_stats_cuda.launches)
+    got = getattr(torch.ops.lipvq_tpu_torch, name)(z, c)
+    after = (vq_nearest_cuda.launches, vq_nearest_cuda.fast_launches,
+             vq_nearest_with_stats_cuda.launches)
+    slot = {"launches": 0, "fast_launches": 1, None: 2}[counter]
+    assert [a - b for a, b in zip(after, counts)] == [int(i == slot) for i in range(3)]
+    if name == "vq_nearest_with_stats":
+        for g, w in zip(got, vq_nearest_with_stats_cuda(z, c)):
+            assert torch.equal(g, w)
+    else:
+        want = vq_nearest_cuda(z, c, precision="fast" if counter == "fast_launches" else
+                               "highest")
+        assert torch.equal(got, want)
+
+
+def test_inference_moved_from_the_card_to_the_cpu(cuda):
+    """An ICL policy trained on the card, then ``set_inference_device("cpu")``:
+    with the same draws the served actions equal the card's within the
+    card-vs-CPU tolerance, and the context ids agree but for near-ties."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.config import config_factory
+    from lipvq_tpu_torch.scripts.export_policy import serving_inputs
+
+    cfg = config_factory("icl", {"algo": {
+        "gmm": {"enabled": True},
+        "transformer": {"enabled": True, "embed_dim": 64, "num_layers": 2, "num_heads": 4,
+                        "vq_vae_enabled": True, "ln_act_enabled": False,
+                        "compute_dtype": "float32"},
+        "vq": {"num_codes": 64}}})
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = list(shapes)
+    algo = algo_factory("icl", cfg, shapes, ac_dim=12, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"obs": {k: rng.standard_normal((8, 10, *s), dtype=np.float32)
+                     for k, s in shapes.items()},
+             "actions": rng.uniform(-1, 1, (8, 10, 12)).astype(np.float32), "goal_obs": None}
+    algo.train_on_batch(batch, 0)
+    obs, ctx_obs, ctx_act = serving_inputs(algo, 4)
+    obs = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape), dtype=np.float32))
+           for k, v in obs.items()}
+    ctx_obs = {k: torch.from_numpy(rng.standard_normal(tuple(v.shape), dtype=np.float32))
+               for k, v in ctx_obs.items()}
+    ctx_act = torch.from_numpy(rng.uniform(-1, 1, tuple(ctx_act.shape)).astype(np.float32))
+    u, eps = torch.rand(4, 10, 5), torch.randn(4, 10, 12)
+
+    def serve(dev):
+        with torch.no_grad():
+            put = lambda t: {k: v.to(dev) for k, v in t.items()} if isinstance(t, dict) \
+                else t.to(dev)  # noqa: E731
+            tok = algo.nets.net.encoder.action_network
+            ids = tok.tokenize(ctx_act.reshape(-1, 12).to(dev))
+            act = algo._get_action_impl(put(obs), put(ctx_obs), put(ctx_act), None,
+                                        draws=(u.to(dev), eps.to(dev)))
+            return act.cpu(), ids.cpu(), tok.encode(ctx_act.reshape(-1, 12).to(dev)).cpu()
+
+    card = serve(cuda)
+    algo.set_inference_device("cpu")
+    assert all(p.device.type == "cpu" for p in algo.nets.parameters())
+    cpu = serve(torch.device("cpu"))
+    codebook = algo.nets.net.encoder.action_network.quantizer.codebook.detach()
+    gap, allowed = tie_gap(cpu[2], codebook, card[1], cpu[1], bf16=False)
+    assert bool((gap <= allowed).all())
+    if torch.equal(card[1], cpu[1]):
+        np.testing.assert_allclose(cpu[0].numpy(), card[0].numpy(), rtol=1e-4, atol=1e-5)

@@ -292,3 +292,32 @@ def test_mcr_and_closed_loop_entry_points_without_device_raise_without_gpu(monke
         RepresentationWorkspace(corpus, embed_dim=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convergence_demo.run(workdir=str(tmp_path), n_demos=1, log=lambda *_: None)
+
+
+def test_export_profile_and_mesh_entry_points_without_device_raise_without_gpu(monkeypatch,
+                                                                            tmp_path):
+    """``export_policy``, ``profile_train_step`` and ``make_mesh`` take CUDA
+    unless they are given a device; ``set_inference_device`` is an explicit
+    request and moves to the CPU."""
+    from lipvq_tpu_torch.parallel.mesh import make_mesh
+    from lipvq_tpu_torch.scripts import export_policy, profile_train_step
+    from lipvq_tpu_torch.utils.file_utils import save_checkpoint
+
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    algo = algo_factory("icl", _tiny_config(), shapes, ac_dim=12, device="cpu")
+    ckpt = str(tmp_path / "model.ckpt")
+    save_checkpoint(ckpt, algo, algo.global_config,
+                    env_meta={"env_name": "SyntheticKitchen", "type": 1, "env_kwargs": {}},
+                    shape_meta={"ac_dim": 12, "all_shapes": shapes,
+                                "all_obs_keys": list(shapes), "use_images": False},
+                    obs_normalization_stats=None, action_normalization_stats=None,
+                    lang_backend="hash")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    algo.set_inference_device("cpu")
+    assert algo.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_train_step.main(["--mode", "lowdim", "--batches", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_policy.export_policy(ckpt, str(tmp_path / "p.pt2"))

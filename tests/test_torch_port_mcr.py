@@ -316,7 +316,9 @@ def test_snapshot_round_trip_is_bit_equal(workspaces, corpora, tmp_path):
 
 
 def test_workspace_refuses_several_devices(corpora):
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Several devices need their ranks started first (the mesh's process
+    group); ``tests/test_torch_port_ddp.py`` runs the workspace in two."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         RepresentationWorkspace(corpora[2], num_devices=2, device="cpu")
 
 

@@ -214,9 +214,10 @@ def test_rollout_disabled_for_an_unported_env(runs, tmp_path, capsys):
     ({"train": {"hdf5_cache_mode": "device"}}, "item 7"),
 ])
 def test_unported_switches_raise(runs, tmp_path, override, item):
-    """``train.num_devices`` raises naming item 14; item 7's device cache,
-    which raised here until it was ported, now trains through the script
-    and writes its checkpoint."""
+    """Both switches raised here until they were ported; now each trains
+    through the script and writes its checkpoints: ``train.num_devices`` = 2
+    in two spawned gloo ranks (item 14), item 7's device cache in
+    process."""
     d = _config_dict(runs["export"], str(tmp_path))
     for section, values in override.items():
         for k, v in values.items():
@@ -224,9 +225,5 @@ def test_unported_switches_raise(runs, tmp_path, override, item):
                 d[section].setdefault(k, {}).update(v)
             else:
                 d[section][k] = v
-    if item == "item 7":
-        ckpt_dir = port_train.train(config_factory("icl", d), device="cpu")
-        assert "model_epoch_2.ckpt" in os.listdir(ckpt_dir)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        port_train.train(config_factory("icl", d), device="cpu")
+    ckpt_dir = port_train.train(config_factory("icl", d), device="cpu")
+    assert "model_epoch_2.ckpt" in os.listdir(ckpt_dir)

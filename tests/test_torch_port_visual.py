@@ -524,13 +524,31 @@ def test_build_core_parses_spec_strings():
 
 
 def test_pretrained_repr_conv():
-    """Random init only: a checkpoint path raises, naming its ROADMAP item;
-    frozen, the trunk passes no gradient and keeps its statistics."""
-    with pytest.raises(NotImplementedError, match="item 14"):
-        obs_core.R3MConv(ckpt_path="weights.msgpack")
-    core = seeded_init(obs_core.MVPConv(), torch.Generator().manual_seed(0))
-    x = torch.rand(2, 3, 32, 32, requires_grad=True)
-    out = core(x, train=True)
+    """Reference fault (q), mirrored: ``ckpt_path`` is never read. A path
+    builds, in both packages, the trunk the path-less build gives from the
+    same seed; the port's trunk on the JAX package's carried weights gives
+    its outputs; frozen, the trunk passes no gradient and keeps its
+    statistics."""
+    x = np.random.default_rng(0).random((2, 32, 32, 3), dtype=np.float32)
+    key = jax.random.PRNGKey(0)
+    with_path = jax_core.R3MConv(ckpt_path="weights.pt").init(key, jnp.asarray(x))
+    without = jax_core.R3MConv().init(key, jnp.asarray(x))
+    jax.tree.map(np.testing.assert_array_equal, _np(with_path), _np(without))
+
+    built = [seeded_init(cls(**kw), torch.Generator().manual_seed(0))
+             for cls, kw in ((obs_core.R3MConv, {"ckpt_path": "weights.pt"}),
+                             (obs_core.R3MConv, {}))]
+    for (k, a), b in zip(built[0].state_dict().items(), built[1].state_dict().values()):
+        assert torch.equal(a, b), k
+    core = built[0]
+    core.load_state_dict({**state_dict_from_jax_params(_np(with_path["params"]), core),
+                          **state_dict_from_jax_params(_np(with_path["batch_stats"]))})
+    want = np.asarray(jax_core.R3MConv(ckpt_path="weights.pt").apply(with_path, jnp.asarray(x)))
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
+    np.testing.assert_allclose(core(xt).detach().numpy().transpose(0, 2, 3, 1), want, **OUT_TOL)
+
+    core = seeded_init(obs_core.MVPConv(ckpt_path="weights.pt"), torch.Generator().manual_seed(0))
+    out = core(xt, train=True)
     assert out.shape == (2, 512, 1, 1) and not out.requires_grad
     assert torch.equal(core.backbone.stem_bn.mean, torch.zeros(64))
 

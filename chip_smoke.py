@@ -3,8 +3,9 @@
 tokenizer-ablation arms, the image protocol, the policy baselines, the
 offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
 checkpoint import, policy export, the train-step profiler, data-parallel
-training and the subprocess vector env on one NVIDIA GPU, and hold its CUDA
-kernels against their plain PyTorch versions.
+training, the subprocess vector env and the flagship on kitchen demonstrations
+on one NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch
+versions.
 
     python3 chip_smoke.py
 
@@ -239,7 +240,25 @@ all started together). Phases:
    in lock-step by ``SubprocVectorEnv`` and ``VectorEnv`` with the same
    actions, 20 steps: observations, rewards and dones bit-equal, K1 once per
    request; ms per rollout step of each beside the bare request.
-19. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+19. Kitchen (``kitchen_phase``): the card's machine has no ``mujoco``
+   (``import mujoco`` raises ModuleNotFoundError there), so the phase works
+   from the OpenDrawer corpus committed under
+   ``lipvq_tpu_torch/assets/kitchen/`` (8 scripted demos written by the
+   port's ``collect_kitchen_suite``). ``scripts/train.py`` trains the
+   flagship at the core-8 recipe's full width (6 x 384, 8 heads, 512 codes,
+   batch 64, the suite's obs keys, the device-resident corpus), 2 epochs x
+   20 steps with rollouts on: the script prints "Rollout disabled" naming
+   mujoco and trains on, K1 once per step, K1f and K2 never. The last
+   checkpoint reloads bit-equal; 8 requests of 16 envs on frame-stacked
+   windows of the corpus's recorded observations launch K1 once each; one
+   fp32 step is held against the CPU (``hold_step``); the learning floor of
+   tests/test_learning_floor.py (3 L / 128 d, 3 x 50 steps) must hold on the
+   card (final NLL < initial - 2 and < 5, K1 once per step). Printed: the
+   step and the 16-env request (host ms, device busy, idle share), and K1
+   at the kitchen's shapes (320 and 160 rows x 512 codes x 823, 120 x 128 x
+   807): exact ids on Gaussian fixtures, ``tie_gap`` on the corpus's
+   latents, timed beside its bound, the plain version and addmm + argmin.
+20. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -939,14 +958,50 @@ def set_codebook(tok, algos, rng, extra_actions=None) -> None:
     fp32 CPU tokenizer ``tok`` (the codebook of a random init sends every
     latent to one code); the latents of ``extra_actions`` [k, A] take k
     random slots."""
+    n = tok.quantizer.codebook.shape[0]
     with torch.no_grad():
         codebook = tok.encode(torch.from_numpy(
-            rng.uniform(-1, 1, (1024, AC_DIM)).astype(np.float32)))
+            rng.uniform(-1, 1, (n, AC_DIM)).astype(np.float32)))
         if extra_actions is not None:
-            slots = torch.from_numpy(rng.permutation(1024)[:len(extra_actions)])
+            slots = torch.from_numpy(rng.permutation(n)[:len(extra_actions)])
             codebook[slots] = tok.encode(torch.from_numpy(extra_actions))
         for a in algos:
             a.nets.net.encoder.action_network.quantizer.codebook.copy_(codebook)
+
+
+def set_separated_codebook(tok, algos, actions: np.ndarray, picks: int = 16,
+                           rel_gap: float = 1e-5) -> int:
+    """Set every algo's codebook so that the latent of each row of
+    ``actions`` under the fp32 CPU tokenizer ``tok`` has one nearest code by
+    a clear margin, and return the number of codes in use. Scripted actions
+    repeat and nearly repeat, so codes made from them (``set_codebook``)
+    leave latents whose two nearest codes differ by ~1e-6 in squared
+    distance, where fp32 rounding decides between them. Here: codes at the
+    latents of up to ``picks`` rows far apart (farthest-point order); while
+    some latent's two nearest codes lie within ``rel_gap`` * ||z||^2 of each
+    other (fp64), that latent's second-nearest code is dropped; the other
+    slots lie far from every latent."""
+    with torch.no_grad():
+        z = tok.encode(torch.from_numpy(actions)).double()
+    chosen, d = [0], ((z - z[0]) ** 2).sum(1)
+    while len(chosen) < picks and float(d.max()) > 0:
+        i = int(d.argmax())
+        chosen.append(i)
+        d = torch.minimum(d, ((z - z[i]) ** 2).sum(1))
+    norm = (z * z).sum(1)
+    while len(chosen) > 1:
+        dist, order = (torch.cdist(z, z[chosen]) ** 2).sort(1)
+        gap = (dist[:, 1] - dist[:, 0]) / norm
+        if float(gap.min()) >= rel_gap:
+            break
+        chosen.pop(int(order[int(gap.argmin()), 1]))
+    n = tok.quantizer.codebook.shape[0]
+    codebook = z.mean(0) + 100.0 + torch.arange(n, dtype=torch.float64)[:, None]
+    codebook[:len(chosen)] = z[chosen]
+    with torch.no_grad():
+        for a in algos:
+            a.nets.net.encoder.action_network.quantizer.codebook.copy_(codebook.float())
+    return len(chosen)
 
 
 def random_obs(rng, lead) -> dict:
@@ -4560,6 +4615,396 @@ def vector_phase(card: str) -> dict:
             "subproc_start_s": start_s}
 
 
+# phase 19, the kitchen: the card's machine has no mujoco (``python3 -c
+# "import mujoco"`` there raises ModuleNotFoundError), so the phase trains and
+# serves on the committed OpenDrawer corpus, written by the port's
+# collect_kitchen_suite (lipvq_tpu_torch/assets/kitchen/README.md)
+KITCHEN_CORPUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lipvq_tpu_torch",
+                              "assets", "kitchen", "OpenDrawer")
+# examples/kitchen_multitask_suite.py:83-97
+KITCHEN_OBS_KEYS = ("robot0_base_pos", "robot0_base_quat", "robot0_eef_pos", "robot0_eef_quat",
+                    "robot0_gripper_qpos", "robot0_base_to_eef_pos", "fixture_state",
+                    "obj_state", "lang_emb")
+KITCHEN_BATCH, KITCHEN_EPOCHS, KITCHEN_STEPS = 64, 2, 20
+KITCHEN_REQUESTS = 8  # 16-env requests on the corpus's recorded observations
+# K1 at the kitchen's shapes: a train step's 32 context demos x 10 steps, a
+# 16-env request's 16 x 10 context steps (512 codes, latent 823: 55 low-dim
+# + 768 lang), the learning floor's 12 x 10 (128 codes, latent 807)
+KITCHEN_TRAIN_SHAPE = (320, 512, 823)
+KITCHEN_REQUEST_SHAPE = (160, 512, 823)
+KITCHEN_FLOOR_SHAPE = (120, 128, 807)
+FLOOR_EPOCHS, FLOOR_STEPS = 3, 50  # tests/test_learning_floor.py
+
+
+def kitchen_config(data, output_dir: str | None = None, compute_dtype: str = "bfloat16",
+                   hold: bool = False) -> dict:
+    """The core-8 recipe of BASELINE.md:583-610 at full width
+    (examples/kitchen_multitask_suite.py's config: 6 layers x 384, 8 heads,
+    512 codes, batch 64, min_max actions, GMM min_std 0.03, lr 1e-3
+    constant, the device-resident corpus) on ``data``, 2 epochs x 20 steps,
+    a checkpoint every epoch and a wave of 16 batched rollouts per epoch.
+    ``hold``: fp32, no dropout (the card-vs-CPU step)."""
+    from lipvq_tpu_torch.utils.test_utils import icl_test_config_overrides
+
+    d = icl_test_config_overrides()
+    d["algo_name"] = "icl"
+    d["train"].update({"data": data, "output_dir": output_dir, "batch_size": KITCHEN_BATCH,
+                       "num_epochs": KITCHEN_EPOCHS, "seed": 1,
+                       "hdf5_cache_mode": "low_dim" if hold else "device",
+                       "action_config": {"actions": {"normalization": "min_max"}}})
+    d["experiment"].update({
+        "name": "chip_smoke_kitchen", "epoch_every_n_steps": KITCHEN_STEPS, "validate": False,
+        "render_video": False, "save": {"enabled": True, "every_n_epochs": 1},
+        "rollout": {"enabled": True, "batched": True, "num_batch_envs": N_ENVS, "n": N_ENVS,
+                    "horizon": ROLLOUT_HORIZON, "rate": 1}})
+    d["algo"]["transformer"].update({"embed_dim": 384, "num_layers": 6, "num_heads": 8,
+                                     "compute_dtype": compute_dtype})
+    if hold:
+        d["algo"]["transformer"].update(
+            {"emb_dropout": 0.0, "attn_dropout": 0.0, "block_output_dropout": 0.0})
+    d["algo"]["gmm"]["min_std"] = 0.03
+    d["algo"]["optim_params"] = {"policy": {"learning_rate": {
+        "initial": 1e-3, "scheduler_type": "none"}}}
+    d["algo"]["vq"] = {"num_codes": 512}
+    d["observation"]["modalities"]["obs"]["low_dim"] = list(KITCHEN_OBS_KEYS)
+    return d
+
+
+class RecordedKitchen:
+    """An env that replays one demo's recorded kitchen observations from
+    step ``start`` (the export's ``obs/<key>``); ``VectorEnv`` frame-stacks
+    it as it does a live kitchen."""
+
+    action_dimension = AC_DIM
+
+    def __init__(self, export, demo: str, start: int):
+        self.obs = {k: export.load(demo, f"obs/{k}") for k in KITCHEN_OBS_KEYS
+                    if k != "lang_emb"}
+        self.ep_lang_str = json.loads(export.demo_attrs(demo)["ep_meta"])["lang"]
+        self.start, self.t = start, start
+
+    def _obs(self):
+        return {k: v[self.t] for k, v in self.obs.items()}
+
+    def reset(self):
+        self.t = self.start
+        return self._obs()
+
+    def step(self, action):
+        self.t = min(self.t + 1, len(self.obs["robot0_eef_pos"]) - 1)
+        return self._obs(), 0.0, False, {"is_success": {"task": False}}
+
+    def is_success(self):
+        return {"task": False}
+
+
+def kitchen_loaders(cfg_dict: dict, lang):
+    """(config, train dataset, train loader, context loader) of the train
+    script's helpers on ``cfg_dict``."""
+    from lipvq_tpu_torch.config import config_factory
+    from lipvq_tpu_torch.utils import file_utils
+    from lipvq_tpu_torch.utils import obs_utils as ObsUtils
+    from lipvq_tpu_torch.utils import train_utils as TrainUtils
+
+    cfg = config_factory("icl", cfg_dict)
+    ObsUtils.initialize_obs_utils_with_config(cfg)
+    sm = file_utils.get_shape_metadata_from_dataset(KITCHEN_CORPUS, all_obs_keys=cfg.all_obs_keys)
+    ds, _ = TrainUtils.load_data_for_training(cfg, obs_keys=sm["all_obs_keys"], lang_encoder=lang)
+    loader, _, ctx_loader = TrainUtils.make_loaders(cfg, ds, None)
+    return cfg, sm, ds, loader, ctx_loader
+
+
+def kitchen_floor(card: str) -> dict:
+    """The learning floor on the card: tests/test_learning_floor.py's 3 L /
+    128 d flagship (batch 24, lr 1e-3, 128 codes, its obs keys) on the
+    committed corpus, 3 epochs x 50 run_epoch steps (K1 once per step): the
+    train NLL must end more than 2 nats below the first epoch's and below
+    5."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.utils import train_utils as TrainUtils
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+    from lipvq_tpu_torch.utils.test_utils import icl_test_config_overrides
+
+    d = icl_test_config_overrides()
+    d["train"].update({"data": KITCHEN_CORPUS, "num_epochs": FLOOR_EPOCHS, "batch_size": 24})
+    d["experiment"].update({"epoch_every_n_steps": FLOOR_STEPS, "rollout": {"enabled": False},
+                            "save": {"enabled": False}, "validate": False})
+    d["algo"]["transformer"].update({"embed_dim": 128, "num_layers": 3, "num_heads": 4})
+    d["algo"]["optim_params"] = {"policy": {"learning_rate": {
+        "initial": 1e-3, "scheduler_type": "none"}}}
+    d["algo"]["vq"] = {"num_codes": 128}
+    d["observation"]["modalities"]["obs"]["low_dim"] = [
+        "robot0_base_pos", "robot0_base_quat", "robot0_eef_pos", "robot0_eef_quat",
+        "robot0_gripper_qpos", "robot0_base_to_eef_pos", "object", "lang_emb"]
+    cfg, sm, _, loader, _ = kitchen_loaders(d, LangEncoder())
+    model = algo_factory("icl", cfg, sm["all_shapes"], ac_dim=sm["ac_dim"])  # CUDA
+    losses = []
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    for epoch in range(1, FLOOR_EPOCHS + 1):
+        log = TrainUtils.run_epoch(model, loader, epoch, num_steps=FLOOR_STEPS)
+        model.on_epoch_end(epoch)
+        losses.append(float(log["Loss"]))
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts != (FLOOR_EPOCHS * FLOOR_STEPS, 0, 0):
+        raise AssertionError(f"kitchen learning floor: launches (K1, K1f, K2) {counts}")
+    initial, final = losses[0], losses[-1]
+    if not (np.isfinite(losses).all() and final < initial - 2.0 and final < 5.0):
+        raise AssertionError(f"kitchen learning floor not met: losses {losses} (want final < "
+                             f"initial - 2.0 and < 5.0)")
+    batch = model.process_batch_for_training(next(iter(loader)))
+    tok = model.nets.net.encoder.action_network
+    with torch.no_grad():
+        half = len(batch["actions"]) // 2
+        z = tok.encode(torch.as_tensor(batch["actions"][:half], device=model.device)
+                       .reshape(-1, AC_DIM))
+    print(f"kitchen learning floor: {FLOOR_EPOCHS} x {FLOOR_STEPS} steps of the 3 L / 128 d "
+          f"flagship (batch 24, 128 codes) in {seconds:.1f} s, epoch losses {losses} "
+          f"(final < initial - 2.0 and < 5.0 hold); launches (K1, K1f, K2) {counts} [{card}]")
+    result = {"losses": losses, "seconds": seconds, "launches": counts,
+              "z": z, "codebook": tok.quantizer.codebook.detach().clone()}
+    del model, loader
+    return result
+
+
+def kitchen_phase(card: str) -> dict:
+    """Phase 19: the kitchen on the card. The card's machine has no mujoco
+    (asked: ``import mujoco`` raises ModuleNotFoundError), so the phase works
+    from the committed OpenDrawer corpus (8 scripted demos, 456 steps):
+
+    - ``scripts/train.py`` (``main``) trains the flagship at the core-8
+      recipe's full width (6 x 384, 8 heads, 512 codes, batch 64, the
+      suite's obs keys, the device-resident corpus), 2 epochs x 20 steps,
+      rollouts on: the script must print "Rollout disabled" naming
+      ``mujoco`` and train on; K1 exactly once per step, K1f and K2 never;
+    - the last checkpoint reloads (``policy_from_checkpoint``) with GMM
+      parameters bit-equal to the in-process algo's;
+    - 8 requests of 16 envs on frame-stacked windows of the corpus's
+      recorded observations (``VectorEnv`` over ``RecordedKitchen``), with a
+      context from the script's context loader: K1 once per request;
+    - one fp32 step at that width held on the card against the CPU
+      (``hold_step``), the context ids equal on both;
+    - the learning floor (``kitchen_floor``);
+    - the step and the 16-env request timed (host) and profiled (device busy,
+      idle share); K1 at the kitchen's shapes: exact ids on Gaussian
+      fixtures, ``tie_gap`` on the corpus's own latents, timed beside its
+      bound, the plain version and addmm + argmin."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
+    from lipvq_tpu_torch.data.export import Export
+    from lipvq_tpu_torch.envs.vector_env import VectorEnv
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_reference
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import file_utils, train_utils
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+
+    export = Export(KITCHEN_CORPUS)
+    results = {"corpus": {"demos": len(export.demos), "steps": export.data_attrs["total"]}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitchen_") as tmp:
+        cfg_path = os.path.join(tmp, "config.json")
+        data = [{"path": KITCHEN_CORPUS, "weight": 1.0}]
+        with open(cfg_path, "w") as f:
+            json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
+        seen = {"algo": None, "k1_steps": 0}
+        run_epoch = train_utils.run_epoch
+
+        def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+            seen["algo"] = model
+            before = launch_counts()[0]
+            log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+            seen["k1_steps"] += launch_counts()[0] - before
+            return log
+
+        out = io.StringIO()
+        train_utils.run_epoch = observed_run_epoch
+        try:
+            # the main path: the training script on the kitchen corpus, counted
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            script_s = time.perf_counter() - t0
+            counts = launch_counts()
+        except BaseException:
+            print(out.getvalue()[-8000:])
+            raise
+        finally:
+            train_utils.run_epoch = run_epoch
+        text = out.getvalue()
+        disabled = [line for line in text.splitlines() if line.startswith("Rollout disabled")]
+        for line in disabled:
+            print(f"  kitchen script: {line}")
+        if ckpt_dir is None or len(disabled) != 1 or "ModuleNotFoundError" not in disabled[0] \
+                or "'mujoco'" not in disabled[0]:
+            print(text[-8000:])
+            raise AssertionError("kitchen script: want one 'Rollout disabled' line naming "
+                                 "mujoco's ModuleNotFoundError and a finished run")
+        want_steps = KITCHEN_EPOCHS * KITCHEN_STEPS
+        if counts != (want_steps, 0, 0) or seen["k1_steps"] != want_steps:
+            raise AssertionError(f"kitchen script: launches (K1, K1f, K2) {counts}, K1 in the "
+                                 f"steps {seen['k1_steps']}; want ({want_steps}, 0, 0)")
+        with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+            logs = json.load(f)
+        bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
+        if bad or len(logs.get("Train/Loss", [])) != KITCHEN_EPOCHS:
+            raise AssertionError(f"kitchen script: non-finite or missing logs {bad or logs}")
+        print(f"kitchen script: {KITCHEN_EPOCHS} epochs x {KITCHEN_STEPS} steps of the 6 x 384 "
+              f"flagship (512 codes, batch {KITCHEN_BATCH}) on the OpenDrawer corpus "
+              f"({results['corpus']}) in {script_s:.1f} s; launches (K1, K1f, K2) {counts}; "
+              f"Train/Loss {logs['Train/Loss']}")
+
+        # reload: the last checkpoint on the card against the in-process algo
+        algo = seen["algo"]
+        last = os.path.join(ckpt_dir, f"model_epoch_{KITCHEN_EPOCHS}.ckpt")
+        reloaded, ckpt = file_utils.policy_from_checkpoint(last)  # CUDA by default
+        assert reloaded.device.type == "cuda" and algo.device.type == "cuda"
+        lang = LangEncoder(device=algo.device)
+        cfg_dict = kitchen_config(data)
+        cfg_dict["train"]["hdf5_cache_mode"] = "low_dim"
+        _, _, ds, loader, ctx_loader = kitchen_loaders(cfg_dict, lang)
+        batch = algo.process_batch_for_training(next(iter(loader)))
+        half = len(batch["actions"]) // 2
+        inputs = ({k: v[half:] for k, v in batch["obs"].items()},
+                  {k: v[:half] for k, v in batch["obs"].items()}, batch["actions"][:half])
+        dists = []
+        with torch.inference_mode():
+            for a in (algo, reloaded):
+                dists.append(a.nets.forward_train(*(a._put_infer(x) for x in inputs),
+                                                  low_noise_eval=True)[0])
+        if not all(torch.equal(x, y) for x, y in zip(*dists)):
+            raise AssertionError("kitchen: the reloaded checkpoint's GMM parameters differ from "
+                                 "the in-process algo's")
+        print("kitchen reload: policy_from_checkpoint on the card gives GMM parameters "
+              "bit-equal to the in-process algo's on a corpus batch")
+        del reloaded
+
+        # requests: 16 envs replaying the corpus's observations, frame-stacked
+        ctx = algo.process_batch_for_training(next(iter(ctx_loader)))
+        policy = ICLRolloutPolicy(
+            algo, action_normalization_stats=ds.get_action_normalization_stats(),
+            lang_encoder=lang)
+        vec = VectorEnv([lambda i=i: RecordedKitchen(export, export.demos[i % len(export.demos)],
+                                                     start=(i // len(export.demos)) * 20)
+                         for i in range(N_ENVS)], frame_stack=algo.context_length,
+                        obs_keys=[k for k in KITCHEN_OBS_KEYS if k != "lang_emb"])
+        obs = vec.reset()
+        policy.start_episode(lang=vec.ep_lang_strs)
+        zero_launch_counts()
+        actions = []
+        for _ in range(KITCHEN_REQUESTS):
+            acts = policy.batched(obs, ctx)
+            actions.append(acts)
+            obs = vec.step(acts)[0]
+        request_counts = launch_counts()
+        if request_counts != (KITCHEN_REQUESTS, 0, 0):
+            raise AssertionError(f"kitchen requests: launches (K1, K1f, K2) {request_counts}")
+        if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in actions):
+            raise AssertionError("kitchen requests: actions of the wrong shape or not finite")
+        print(f"kitchen requests: {KITCHEN_REQUESTS} requests of {N_ENVS} envs on frame-stacked "
+              f"windows of the corpus's observations; launches (K1, K1f, K2) {request_counts}")
+
+        # timing: the step and the 16-env request
+        def step():
+            algo.train_on_batch(batch, KITCHEN_EPOCHS + 1)
+            torch.cuda.synchronize()
+
+        step_ms = host_ms(step, reps=20)
+        step_busy, step_kernels = profile_device(
+            lambda: algo.train_on_batch(batch, KITCHEN_EPOCHS + 1), 5)
+        request_ms = host_ms(lambda: policy.batched(obs, ctx))
+        request_busy, request_kernels = profile_device(lambda: policy.batched(obs, ctx), 10)
+        results.update({
+            "script_s": script_s, "launches": counts, "request_launches": request_counts,
+            "losses": logs["Train/Loss"], "step_ms": step_ms, "step_busy_ms": step_busy,
+            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+            "request_ms": request_ms, "request_busy_ms": request_busy,
+            "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
+            "step_top_ops_ms": dict(sorted(step_kernels.items(), key=lambda kv: -kv[1])[:5]),
+            "request_top_ops_ms": dict(sorted(request_kernels.items(),
+                                              key=lambda kv: -kv[1])[:5])})
+        print(f"kitchen timing: step {step_ms:.3f} ms (device busy {step_busy} ms, idle share "
+              f"{results['step_idle_share']}), {N_ENVS}-env request {request_ms:.3f} ms (device "
+              f"busy {request_busy} ms, idle share {results['request_idle_share']}); top step "
+              f"ops {results['step_top_ops_ms']} [{card}]")
+        tok = algo.nets.net.encoder.action_network
+        codebook = tok.quantizer.codebook.detach().clone()
+        with torch.no_grad():
+            kitchen_z = {
+                "train": tok.encode(torch.as_tensor(batch["actions"][:half], device=algo.device)
+                                    .reshape(-1, AC_DIM)),
+                "request": tok.encode(torch.as_tensor(
+                    np.repeat(np.asarray(ctx["actions"]), N_ENVS, 0), device=algo.device)
+                    .reshape(-1, AC_DIM))}
+        del algo, policy, vec
+
+        # one fp32 step at the kitchen's width, card against CPU
+        hold_cfg = kitchen_config(KITCHEN_CORPUS, compute_dtype="float32", hold=True)
+        hcfg, sm, _, hold_loader, _ = kitchen_loaders(hold_cfg, lang)
+
+        def make(device=None):
+            return algo_factory("icl", hcfg, sm["all_shapes"], ac_dim=sm["ac_dim"], device=device)
+
+        card_algo, cpu_algo = make(), make("cpu")
+        hbatch = card_algo.process_batch_for_training(next(iter(hold_loader)))
+        ctx_act = np.asarray(hbatch["actions"][:half]).reshape(-1, AC_DIM)
+        with torch.no_grad():
+            for a in (card_algo, cpu_algo):
+                a.nets.net.encoder.action_network.to_latent.ci.fill_(30.0)
+        codes = set_separated_codebook(cpu_algo.nets.net.encoder.action_network,
+                                       (card_algo, cpu_algo), ctx_act)
+        ids = [a.nets.net.encoder.action_network.tokenize(
+            torch.from_numpy(ctx_act).to(a.device)).cpu() for a in (card_algo, cpu_algo)]
+        if not torch.equal(*ids):
+            raise AssertionError("kitchen train parity: context ids differ between the card and "
+                                 "the CPU")
+        losses, worst = hold_step(card_algo, cpu_algo, hbatch)
+        distinct = int(torch.unique(ids[1]).numel())
+        results["train_parity"] = {"losses": losses, "worst": worst, "codes": codes,
+                                   "distinct_ids": distinct}
+        print(f"kitchen train parity: one fp32 step of batch {KITCHEN_BATCH} on the card == the "
+              f"CPU step (hold_step), context ids equal on {distinct} codes of {codes} set "
+              f"apart; losses {losses}; worst {worst}")
+        del card_algo, cpu_algo
+    results["floor"] = kitchen_floor(card)
+    floor_z, floor_codebook = results["floor"].pop("z"), results["floor"].pop("codebook")
+
+    # K1 at the kitchen's shapes: Gaussian fixtures exact, the corpus's
+    # latents within the near-tie bound
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    rows = {}
+    for label, (b, n, d), zl, cl in (
+            ("train", KITCHEN_TRAIN_SHAPE, kitchen_z["train"], codebook),
+            ("request", KITCHEN_REQUEST_SHAPE, kitchen_z["request"], codebook),
+            ("floor_train", KITCHEN_FLOOR_SHAPE, floor_z, floor_codebook)):
+        assert tuple(zl.shape) == (b, d) and tuple(cl.shape) == (n, d), (zl.shape, cl.shape)
+        z = torch.randn(b, d, generator=gen, device="cuda")
+        c = torch.randn(n, d, generator=gen, device="cuda")
+        if not torch.equal(vq_nearest_cuda(z, c), vq_nearest_reference(z, c)):
+            raise AssertionError(f"K1 ids differ from the plain version at {b}x{n}x{d}")
+        got = vq_nearest_cuda(zl, cl)
+        mismatches, max_gap, _ = check_near_ties(zl, cl, got, vq_nearest_reference(zl, cl),
+                                                 bf16=False)
+        ms = cuda_ms(lambda: vq_nearest_cuda(z, c), 50)
+        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), 10)
+        library_ms = cuda_ms(
+            lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), 50)
+        device_ms, _ = profile_device(lambda: vq_nearest_cuda(z, c), 50)
+        bound_ms, bound_by = vq_bound(b, n, d)
+        rows[label] = {"shape": [b, n, d], "mismatches": mismatches, "max_abs_err": max_gap,
+                       "corpus_codes_used": int(torch.unique(got).numel()), "ms": ms,
+                       "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K1 kitchen {label} {b}x{n}x{d}: Gaussian ids exact; the corpus's latents "
+              f"{mismatches} ids off the plain lookup (near-ties, max fp64 gap {max_gap:.3g}) on "
+              f"{rows[label]['corpus_codes_used']} codes; K1 {ms:.4f} ms per call (device "
+              f"{device_ms} ms), plain {plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    results["k1"] = rows
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4617,6 +5062,7 @@ def main() -> int:
     profiled = timed("profile", profile_phase, card)
     ddp = timed("ddp", ddp_phase, card)
     vector = timed("vector", vector_phase, card)
+    kitchen = timed("kitchen", kitchen_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -4686,6 +5132,9 @@ def main() -> int:
         for label in ("none", "nccl1"):
             paths[f"ddp train_script {label}"] = ddp[label]["launches"][i]
         paths["vector subproc + local"] = vector["launches"][i]
+        paths["kitchen train_script"] = kitchen["launches"][i]
+        paths["kitchen requests"] = kitchen["request_launches"][i]
+        paths["kitchen learning_floor"] = kitchen["floor"]["launches"][i]
     for batch in EXPORT_BATCHES:  # counted in the reloading process
         k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
@@ -4707,6 +5156,9 @@ def main() -> int:
         "closed_loop_request_shape": loop["k1"]["request"],
         "profile_lowdim_1600_shape": k1["profile_1600"],
         "profile_image_16_shape": k1["profile_image"],
+        "kitchen_train_shape": kitchen["k1"]["train"],
+        "kitchen_request_shape": kitchen["k1"]["request"],
+        "kitchen_floor_train_shape": kitchen["k1"]["floor_train"],
         "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
@@ -4741,7 +5193,7 @@ def main() -> int:
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
-        "phase_s": phase_s}))
+        "kitchen": kitchen, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

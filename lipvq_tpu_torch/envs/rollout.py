@@ -109,7 +109,8 @@ def icl_rollout_with_stats(
     frame_stack: int | None = None,
 ):
     """N episodes over each env (reference train_utils.py:904-1110). Videos
-    are written when ``video_dir`` is given and ``imageio`` is installed."""
+    are written when ``video_dir`` is given and ``imageio`` can open an mp4
+    writer; otherwise the episodes run without one, as in the JAX package."""
     all_rollout_logs = OrderedDict()
     video_paths = OrderedDict()
 
@@ -118,14 +119,14 @@ def icl_rollout_with_stats(
             env = FrameStackWrapper(env, num_frames=frame_stack)
         video_writer = None
         if video_dir is not None:
-            try:
+            try:  # no imageio, or no mp4 backend (ffmpeg) for it
                 import imageio
-            except ImportError:
-                imageio = None
-            if imageio is not None:
+
                 video_path = os.path.join(video_dir, f"{env_name}_epoch_{epoch}.mp4")
                 video_writer = imageio.get_writer(video_path, fps=20)
                 video_paths[env_name] = video_path
+            except Exception:
+                video_writer = None
 
         rollout_logs = []
         t_start = time.time()

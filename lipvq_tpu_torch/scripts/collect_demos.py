@@ -1,22 +1,25 @@
-"""Scripted demonstration collection (counterpart of the synthetic part of
+"""Scripted demonstration collection (counterpart of
 ``lipvq_tpu/scripts/collect_demos.py``; reference
 robocasa/scripts/collect_demos.py).
 
 ``scripted_policy`` drives the synthetic env's effector to its goal with
-exploration noise; ``collect_demo`` records one episode, optionally with
-DART noise on the executed action and random dwells (holds); ``write_demos``
+exploration noise; a kitchen task takes its privileged scripted expert
+(``robocasa/sim/scripted.py``) through ``policy_factory``, rebuilt for each
+episode. ``collect_demo`` records one episode, optionally with DART noise
+on the executed action and random dwells (holds); ``write_demos``
 writes the episodes as a dataset **export** (``data/export.py``) with the
 arrays the JAX package writes into its HDF5 file: ``actions``, ``rewards``,
 ``dones``, ``states``, ``obs/<key>``, ``next_obs/<key>`` (obs shifted by
 one step, the last repeated), each demo's ``num_samples`` and ``ep_meta``
-(with ``lang``) and the file's ``env_args`` and ``total``. The same seeds
-give the same arrays as the JAX package, bit for bit.
+(with ``lang``), a kitchen demo's ``model_file`` (the scene's XML, for an
+exact ``reset_to``) and the file's ``env_args`` and ``total``. The same
+seeds give the same arrays as the JAX package, bit for bit.
 
     python -m lipvq_tpu_torch.scripts.collect_demos --env SyntheticKitchen \\
         --n_demos 20 --output demos_export
 
-Teleoperation and the kitchen tasks' scripted experts need the MuJoCo
-kitchen (ROADMAP §1 item 8) and raise.
+Teleoperation needs the terminal devices of ``sim/devices.py``, which are
+not ported yet (ROADMAP §1 item 8), and raises.
 """
 
 from __future__ import annotations
@@ -40,9 +43,14 @@ def scripted_policy(obs: dict, rng) -> np.ndarray:
     return np.clip(a, -1, 1)
 
 
-def collect_demo(env, policy_fn, max_steps: int, rng, action_noise: float = 0.0,
-                 dwell_prob: float = 0.0, dwell_max: int = 8):
+def collect_demo(env, policy_fn, max_steps: int, rng, policy_factory=None,
+                 action_noise: float = 0.0, dwell_prob: float = 0.0, dwell_max: int = 8):
     """One episode -> (trajectory dict, success).
+
+    ``policy_factory(env)``, where given, builds the episode's expert after
+    the reset (a kitchen expert plans from the episode's fixtures); its
+    ``get_action`` replaces ``policy_fn`` and the episode ends when it has
+    ``finished``.
 
     ``action_noise`` > 0 injects DART noise: the recorded label is the
     expert's clean action while the executed one is perturbed, so the corpus
@@ -52,6 +60,12 @@ def collect_demo(env, policy_fn, max_steps: int, rng, action_noise: float = 0.0,
     so progress is not tied to time. The discrete channels 6 and 11 (grip,
     base-mode flag) stay crisp under both."""
     obs = env.reset()
+    if policy_factory is not None:
+        expert = policy_factory(env)
+
+        def policy_fn(o, _rng):
+            return expert.get_action(o)
+
     traj = {"obs": [], "actions": [], "rewards": [], "dones": [],
             "states": [], "lang": getattr(env, "ep_lang_str", None)}
     dwell_left = 0
@@ -88,6 +102,8 @@ def collect_demo(env, policy_fn, max_steps: int, rng, action_noise: float = 0.0,
         traj["dones"].append(float(done or success))
         if done or success:
             break
+        if policy_factory is not None and expert.finished:
+            break
     return traj, bool(success)
 
 
@@ -123,8 +139,14 @@ def write_demos(path: str, env, trajs: list[dict], lang: str | None = None,
         ep_meta = dict(traj.get("ep_meta") or {})
         ep_meta["lang"] = (traj.get("lang") or lang or getattr(env, "ep_lang_str", None)
                            or "demo")
-        writer.add_demo(f"demo_{i}", {"num_samples": n, "ep_meta": json.dumps(ep_meta)},
-                        arrays)
+        attrs = {}
+        states = traj["states"]
+        if states and isinstance(states[0], dict) and "states" in states[0] \
+                and states[0].get("model"):
+            # the kitchen's model XML, the same within a demo
+            attrs["model_file"] = states[0]["model"]
+        attrs.update(num_samples=n, ep_meta=json.dumps(ep_meta))
+        writer.add_demo(f"demo_{i}", attrs, arrays)
         total += n
     return writer.finish({"env_args": json.dumps(env.serialize()), "total": total}, {})
 
@@ -144,14 +166,24 @@ def main(args=None):
 
     if ns.device != "scripted":
         raise NotImplementedError(
-            f"--device {ns.device}: teleoperation drives the MuJoCo kitchen, which is not "
+            f"--device {ns.device}: the teleoperation devices (sim/devices.py) are not "
             f"ported yet (ROADMAP §1 item 8)")
     env = create_env(ns.env, seed=ns.seed)
     rng = np.random.default_rng(ns.seed)
+    # kitchen tasks use the privileged scripted experts; the synthetic env
+    # keeps its go-to-goal controller
+    from lipvq_tpu_torch.robocasa.sim.scripted import TASK_POLICIES, make_scripted_policy
+
+    policy_factory = None
+    if ns.env in TASK_POLICIES:
+        def policy_factory(e):
+            return make_scripted_policy(ns.env, e)
+
     trajs, n_success, attempts = [], 0, 0
     while len(trajs) < ns.n_demos and attempts < ns.n_demos * 8:
         attempts += 1
-        traj, success = collect_demo(env, scripted_policy, ns.max_steps, rng)
+        traj, success = collect_demo(env, scripted_policy, ns.max_steps, rng,
+                                     policy_factory=policy_factory)
         if hasattr(env, "get_ep_meta"):
             traj["ep_meta"] = env.get_ep_meta()
         if ns.only_success and not success:

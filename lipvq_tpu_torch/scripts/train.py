@@ -4,9 +4,10 @@ config load/override -> obs-utils init -> dataset metadata -> algo factory
 -> data loading -> epoch loop (train / validate / rollout / checkpoint /
 log). Datasets are numpy exports of robomimic HDF5 files
 (``python -m lipvq_tpu_torch.data.export in.hdf5 out_dir``). Closed-loop
-rollouts run when an env adapter is ported for the dataset's env_meta (the
-synthetic env); for any other env the script prints "Rollout disabled" and
-trains on.
+rollouts run when the dataset's env_meta builds an env (the synthetic env,
+the single-stage MuJoCo kitchen where ``mujoco`` is installed); when it
+cannot (an adapter not ported, no ``mujoco``), the script prints "Rollout
+disabled" with the error and trains on, as the JAX script does.
 
 The run takes the CUDA device unless ``train.cuda`` is false or
 ``--device cpu`` is given, and raises where there is no GPU.
@@ -126,7 +127,7 @@ def _save_full_state(model, ckpt_dir: str, epoch: int) -> None:
 
 
 def _make_rollout_envs(config, env_meta, model):
-    """{env name: env or VectorEnv}, or None where no env adapter is ported."""
+    """{env name: env or VectorEnv}, or None where the env cannot be built."""
     from lipvq_tpu_torch.envs.env_factory import create_env_from_metadata
 
     rollout_env_meta = dict(env_meta)
@@ -153,7 +154,7 @@ def _make_rollout_envs(config, env_meta, model):
             return {rollout_env_meta["env_name"]: vec}
         env = create_env_from_metadata(rollout_env_meta)
         return {env.name: env}
-    except NotImplementedError as e:
+    except Exception as e:  # as lipvq_tpu/scripts/train.py:193-194
         print(f"Rollout disabled (no env adapter): {type(e).__name__}: {e}")
         return None
 

@@ -20,8 +20,21 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "msgpack", "lipvq_tpu")
 # them (the HF-backed PRISE algorithms, the pretrained CLIP loader)
 LAZY = ("tokenizers", "transformers")
 
+# the first-party MuJoCo kitchen and its collection tools
+KITCHEN_MODULES = (
+    "lipvq_tpu_torch.robocasa", "lipvq_tpu_torch.robocasa.sim",
+    *(f"lipvq_tpu_torch.robocasa.sim.{m}" for m in (
+        "textures", "fixtures", "objects", "placement", "layouts", "robot", "kitchen",
+        "single_stage", "scripted")),
+    "lipvq_tpu_torch.robocasa.dataset_registry", "lipvq_tpu_torch.robocasa.env_registry",
+    "lipvq_tpu_torch.robocasa.env_utils", "lipvq_tpu_torch.envs.env_kitchen",
+    "lipvq_tpu_torch.scripts.collect_kitchen_suite", "lipvq_tpu_torch.scripts.conversion",
+    "lipvq_tpu_torch.scripts.conversion.extract_action_dict",
+    "lipvq_tpu_torch.examples.kitchen_convergence_demo")
+
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
+KITCHEN_MODULES = {KITCHEN_MODULES!r}
 import lipvq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lipvq_tpu_torch.__path__, "lipvq_tpu_torch.")]
 for name in names:
@@ -52,7 +65,7 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.models.value_nets", "lipvq_tpu_torch.algo.mcr",
              "lipvq_tpu_torch.algo.mcr_data", "lipvq_tpu_torch.scripts.train_mcr_representation",
              "lipvq_tpu_torch.scripts.collect_demos",
-             "lipvq_tpu_torch.examples.convergence_demo"):
+             "lipvq_tpu_torch.examples.convergence_demo", *KITCHEN_MODULES):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -70,6 +83,32 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_WITHOUT_MUJOCO = f"""
+import importlib, sys
+sys.modules["mujoco"] = None  # import mujoco raises ModuleNotFoundError
+for name in {KITCHEN_MODULES!r}:
+    importlib.import_module(name)
+from lipvq_tpu_torch.envs.env_factory import create_env
+try:
+    create_env("OpenDrawer", seed=0)
+except ModuleNotFoundError as e:
+    assert e.name == "mujoco" and "'mujoco'" in str(e), e
+    print("raised:", e)
+else:
+    raise AssertionError("a kitchen was built without mujoco")
+"""
+
+
+def test_kitchen_modules_import_without_mujoco():
+    """Every kitchen module imports where ``mujoco`` is not installed (the
+    card's machine); building a kitchen there raises ``ModuleNotFoundError``
+    naming it."""
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_MUJOCO], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "raised: OpenDrawer: the kitchen sim needs the 'mujoco' package" in proc.stdout
 
 
 _IMPORT_LINE = re.compile(

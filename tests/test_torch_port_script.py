@@ -202,10 +202,12 @@ def test_eval_checkpoint_runs_a_port_checkpoint(runs, capsys):
 def test_rollout_disabled_for_an_unported_env(runs, tmp_path, capsys):
     d = _config_dict(runs["export"], str(tmp_path))
     d["train"]["num_epochs"] = 1
-    d["experiment"]["env"] = "PnPCounterToSink"
+    d["experiment"]["env"] = "PreSoakPan"  # a multi-stage kitchen task
     d["experiment"]["rollout"]["batched"] = False
     ckpt_dir = port_train.train(config_factory("icl", d), device="cpu")
-    assert "Rollout disabled (no env adapter): NotImplementedError" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "Rollout disabled (no env adapter): NotImplementedError" in out
+    assert "item 18" in out
     assert "model_epoch_1.ckpt" in os.listdir(ckpt_dir)
 
 

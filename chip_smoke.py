@@ -3,9 +3,9 @@
 tokenizer-ablation arms, the image protocol, the policy baselines, the
 offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
 checkpoint import, policy export, the train-step profiler, data-parallel
-training, the subprocess vector env and the flagship on kitchen demonstrations
-on one NVIDIA GPU, and hold its CUDA kernels against their plain PyTorch
-versions.
+training, the subprocess vector env and the flagship on single- and
+multi-stage kitchen demonstrations on one NVIDIA GPU, and hold its CUDA
+kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -258,7 +258,18 @@ all started together). Phases:
    at the kitchen's shapes (320 and 160 rows x 512 codes x 823, 120 x 128 x
    807): exact ids on Gaussian fixtures, ``tie_gap`` on the corpus's
    latents, timed beside its bound, the plain version and addmm + argmin.
-20. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+20. Multi-stage kitchen (``kitchen_multi_phase``): ``import mujoco`` must
+   raise ModuleNotFoundError; then the same recipe on the corpus committed
+   under ``lipvq_tpu_torch/assets/kitchen_multi/`` (3 scripted demos of each
+   of four of the paper's five multi-stage activities: MicrowaveThawing's
+   expert outlasts the collector's 500-step kitchen), the four exports as one
+   weighted ``train.data`` list (a MetaDataset): 2 x 20 steps with
+   "Rollout disabled" naming mujoco, K1 once per step, K1f and K2 never; the
+   reload bit-equal; 8 requests of 16 envs split across the tasks, each
+   env's context a demo of its own task (K1 once each); one fp32 step held
+   against the CPU; the step and the request timed and profiled; K1 at 320
+   and 160 rows x 512 codes x 823 on the corpus's latents.
+21. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4698,9 +4709,10 @@ class RecordedKitchen:
         return {"task": False}
 
 
-def kitchen_loaders(cfg_dict: dict, lang):
-    """(config, train dataset, train loader, context loader) of the train
-    script's helpers on ``cfg_dict``."""
+def kitchen_loaders(cfg_dict: dict, lang, corpus: str = KITCHEN_CORPUS):
+    """(config, shape metadata, train dataset, train loader, context loader)
+    of the train script's helpers on ``cfg_dict``; ``corpus`` (an export of
+    ``train.data``) gives the shapes."""
     from lipvq_tpu_torch.config import config_factory
     from lipvq_tpu_torch.utils import file_utils
     from lipvq_tpu_torch.utils import obs_utils as ObsUtils
@@ -4708,7 +4720,7 @@ def kitchen_loaders(cfg_dict: dict, lang):
 
     cfg = config_factory("icl", cfg_dict)
     ObsUtils.initialize_obs_utils_with_config(cfg)
-    sm = file_utils.get_shape_metadata_from_dataset(KITCHEN_CORPUS, all_obs_keys=cfg.all_obs_keys)
+    sm = file_utils.get_shape_metadata_from_dataset(corpus, all_obs_keys=cfg.all_obs_keys)
     ds, _ = TrainUtils.load_data_for_training(cfg, obs_keys=sm["all_obs_keys"], lang_encoder=lang)
     loader, _, ctx_loader = TrainUtils.make_loaders(cfg, ds, None)
     return cfg, sm, ds, loader, ctx_loader
@@ -4768,6 +4780,219 @@ def kitchen_floor(card: str) -> dict:
     return result
 
 
+def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
+    """``scripts/train.py`` (``main``) on ``data`` at ``kitchen_config``'s
+    recipe, counted as the main path: the script must print one "Rollout
+    disabled" line naming mujoco's ModuleNotFoundError and finish, K1 must
+    launch exactly once per step (K1f and K2 never) and every logged number
+    be finite. Returns the in-process algo, the checkpoint directory, the
+    launches, the logs and the seconds."""
+    from lipvq_tpu_torch.scripts import train as train_script
+    from lipvq_tpu_torch.utils import train_utils
+
+    cfg_path = os.path.join(tmp, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
+    seen = {"algo": None, "k1_steps": 0}
+    run_epoch = train_utils.run_epoch
+
+    def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
+        seen["algo"] = model
+        before = launch_counts()[0]
+        log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
+        seen["k1_steps"] += launch_counts()[0] - before
+        return log
+
+    out = io.StringIO()
+    train_utils.run_epoch = observed_run_epoch
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ckpt_dir = train_script.main(["--config", cfg_path])
+        script_s = time.perf_counter() - t0
+        counts = launch_counts()
+    except BaseException:
+        print(out.getvalue()[-8000:])
+        raise
+    finally:
+        train_utils.run_epoch = run_epoch
+    text = out.getvalue()
+    disabled = [line for line in text.splitlines() if line.startswith("Rollout disabled")]
+    for line in disabled:
+        print(f"  {label} script: {line}")
+    if ckpt_dir is None or len(disabled) != 1 or "ModuleNotFoundError" not in disabled[0] \
+            or "'mujoco'" not in disabled[0]:
+        print(text[-8000:])
+        raise AssertionError(f"{label} script: want one 'Rollout disabled' line naming "
+                             "mujoco's ModuleNotFoundError and a finished run")
+    want_steps = KITCHEN_EPOCHS * KITCHEN_STEPS
+    if counts != (want_steps, 0, 0) or seen["k1_steps"] != want_steps:
+        raise AssertionError(f"{label} script: launches (K1, K1f, K2) {counts}, K1 in the "
+                             f"steps {seen['k1_steps']}; want ({want_steps}, 0, 0)")
+    with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
+        logs = json.load(f)
+    bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
+    if bad or len(logs.get("Train/Loss", [])) != KITCHEN_EPOCHS:
+        raise AssertionError(f"{label} script: non-finite or missing logs {bad or logs}")
+    print(f"{label} script: {KITCHEN_EPOCHS} epochs x {KITCHEN_STEPS} steps of the 6 x 384 "
+          f"flagship (512 codes, batch {KITCHEN_BATCH}) on {what} in {script_s:.1f} s; "
+          f"launches (K1, K1f, K2) {counts}; Train/Loss {logs['Train/Loss']}")
+    return {"algo": seen["algo"], "ckpt_dir": ckpt_dir, "launches": counts, "logs": logs,
+            "script_s": script_s}
+
+
+def kitchen_reload(label: str, algo, ckpt_dir: str, batch) -> None:
+    """The last checkpoint, reloaded on the card (``policy_from_checkpoint``),
+    gives GMM parameters bit-equal to the in-process algo's on ``batch``."""
+    from lipvq_tpu_torch.utils import file_utils
+
+    last = os.path.join(ckpt_dir, f"model_epoch_{KITCHEN_EPOCHS}.ckpt")
+    reloaded, _ = file_utils.policy_from_checkpoint(last)  # CUDA by default
+    assert reloaded.device.type == "cuda" and algo.device.type == "cuda"
+    half = len(batch["actions"]) // 2
+    inputs = ({k: v[half:] for k, v in batch["obs"].items()},
+              {k: v[:half] for k, v in batch["obs"].items()}, batch["actions"][:half])
+    dists = []
+    with torch.inference_mode():
+        for a in (algo, reloaded):
+            dists.append(a.nets.forward_train(*(a._put_infer(x) for x in inputs),
+                                              low_noise_eval=True)[0])
+    if not all(torch.equal(x, y) for x, y in zip(*dists)):
+        raise AssertionError(f"{label}: the reloaded checkpoint's GMM parameters differ from "
+                             "the in-process algo's")
+    print(f"{label} reload: policy_from_checkpoint on the card gives GMM parameters "
+          "bit-equal to the in-process algo's on a corpus batch")
+
+
+def kitchen_requests(card: str, label: str, algo, batch, policy, vec, ctx) -> dict:
+    """``KITCHEN_REQUESTS`` requests of the 16 envs of ``vec`` with context
+    ``ctx`` (K1 once each, finite actions); then the train step on ``batch``
+    and the 16-env request timed (host) and profiled (device busy, idle
+    share)."""
+    obs = vec.reset()
+    policy.start_episode(lang=vec.ep_lang_strs)
+    zero_launch_counts()
+    actions = []
+    for _ in range(KITCHEN_REQUESTS):
+        acts = policy.batched(obs, ctx)
+        actions.append(acts)
+        obs = vec.step(acts)[0]
+    request_counts = launch_counts()
+    if request_counts != (KITCHEN_REQUESTS, 0, 0):
+        raise AssertionError(f"{label} requests: launches (K1, K1f, K2) {request_counts}")
+    if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in actions):
+        raise AssertionError(f"{label} requests: actions of the wrong shape or not finite")
+    print(f"{label} requests: {KITCHEN_REQUESTS} requests of {N_ENVS} envs on frame-stacked "
+          f"windows of the corpus's observations; launches (K1, K1f, K2) {request_counts}")
+
+    def step():
+        algo.train_on_batch(batch, KITCHEN_EPOCHS + 1)
+        torch.cuda.synchronize()
+
+    step_ms = host_ms(step, reps=20)
+    step_busy, step_kernels = profile_device(
+        lambda: algo.train_on_batch(batch, KITCHEN_EPOCHS + 1), 5)
+    request_ms = host_ms(lambda: policy.batched(obs, ctx))
+    request_busy, request_kernels = profile_device(lambda: policy.batched(obs, ctx), 10)
+    out = {
+        "request_launches": request_counts, "step_ms": step_ms, "step_busy_ms": step_busy,
+        "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
+        "request_ms": request_ms, "request_busy_ms": request_busy,
+        "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
+        "step_top_ops_ms": dict(sorted(step_kernels.items(), key=lambda kv: -kv[1])[:5]),
+        "request_top_ops_ms": dict(sorted(request_kernels.items(), key=lambda kv: -kv[1])[:5])}
+    print(f"{label} timing: step {step_ms:.3f} ms (device busy {step_busy} ms, idle share "
+          f"{out['step_idle_share']}), {N_ENVS}-env request {request_ms:.3f} ms (device "
+          f"busy {request_busy} ms, idle share {out['request_idle_share']}); top step "
+          f"ops {out['step_top_ops_ms']} [{card}]")
+    return out
+
+
+def kitchen_latents(algo, batch, ctx) -> tuple[dict, torch.Tensor]:
+    """The tokenizer's latents of a train step's context actions and of a
+    16-env request's context, and its codebook: K1's inputs on those paths."""
+    tok = algo.nets.net.encoder.action_network
+    half = len(batch["actions"]) // 2
+    ctx_actions = np.asarray(ctx["actions"])
+    ctx_actions = np.repeat(ctx_actions, N_ENVS // len(ctx_actions), 0)
+    with torch.no_grad():
+        z = {"train": tok.encode(torch.as_tensor(batch["actions"][:half], device=algo.device)
+                                 .reshape(-1, AC_DIM)),
+             "request": tok.encode(torch.as_tensor(ctx_actions, device=algo.device)
+                                   .reshape(-1, AC_DIM))}
+    return z, tok.quantizer.codebook.detach().clone()
+
+
+def kitchen_hold(label: str, data, lang, corpus: str) -> dict:
+    """One fp32 step at the kitchen's width on ``data``, card against CPU
+    (``hold_step``), with the context ids equal on both."""
+    from lipvq_tpu_torch.algo import algo_factory
+
+    hold_cfg = kitchen_config(data, compute_dtype="float32", hold=True)
+    hcfg, sm, _, hold_loader, _ = kitchen_loaders(hold_cfg, lang, corpus)
+
+    def make(device=None):
+        return algo_factory("icl", hcfg, sm["all_shapes"], ac_dim=sm["ac_dim"], device=device)
+
+    card_algo, cpu_algo = make(), make("cpu")
+    hbatch = card_algo.process_batch_for_training(next(iter(hold_loader)))
+    half = len(hbatch["actions"]) // 2
+    ctx_act = np.asarray(hbatch["actions"][:half]).reshape(-1, AC_DIM)
+    with torch.no_grad():
+        for a in (card_algo, cpu_algo):
+            a.nets.net.encoder.action_network.to_latent.ci.fill_(30.0)
+    codes = set_separated_codebook(cpu_algo.nets.net.encoder.action_network,
+                                   (card_algo, cpu_algo), ctx_act)
+    ids = [a.nets.net.encoder.action_network.tokenize(
+        torch.from_numpy(ctx_act).to(a.device)).cpu() for a in (card_algo, cpu_algo)]
+    if not torch.equal(*ids):
+        raise AssertionError(f"{label} train parity: context ids differ between the card and "
+                             "the CPU")
+    losses, worst = hold_step(card_algo, cpu_algo, hbatch)
+    distinct = int(torch.unique(ids[1]).numel())
+    print(f"{label} train parity: one fp32 step of batch {KITCHEN_BATCH} on the card == the "
+          f"CPU step (hold_step), context ids equal on {distinct} codes of {codes} set "
+          f"apart; losses {losses}; worst {worst}")
+    return {"losses": losses, "worst": worst, "codes": codes, "distinct_ids": distinct}
+
+
+def kitchen_k1(card: str, label: str, cases) -> dict:
+    """K1 at a kitchen phase's shapes, each case (name, (b, n, d), the path's
+    own latents, its codebook): exact ids on Gaussian fixtures, the path's
+    latents within the near-tie bound (``tie_gap``), timed beside its bound,
+    the plain version and addmm + argmin."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    rows = {}
+    for name, (b, n, d), zl, cl in cases:
+        assert tuple(zl.shape) == (b, d) and tuple(cl.shape) == (n, d), (zl.shape, cl.shape)
+        z = torch.randn(b, d, generator=gen, device="cuda")
+        c = torch.randn(n, d, generator=gen, device="cuda")
+        if not torch.equal(vq_nearest_cuda(z, c), vq_nearest_reference(z, c)):
+            raise AssertionError(f"K1 ids differ from the plain version at {b}x{n}x{d}")
+        got = vq_nearest_cuda(zl, cl)
+        mismatches, max_gap, _ = check_near_ties(zl, cl, got, vq_nearest_reference(zl, cl),
+                                                 bf16=False)
+        ms = cuda_ms(lambda: vq_nearest_cuda(z, c), 50)
+        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), 10)
+        library_ms = cuda_ms(
+            lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), 50)
+        device_ms, _ = profile_device(lambda: vq_nearest_cuda(z, c), 50)
+        bound_ms, bound_by = vq_bound(b, n, d)
+        rows[name] = {"shape": [b, n, d], "mismatches": mismatches, "max_abs_err": max_gap,
+                      "corpus_codes_used": int(torch.unique(got).numel()), "ms": ms,
+                      "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"K1 {label} {name} {b}x{n}x{d}: Gaussian ids exact; the corpus's latents "
+              f"{mismatches} ids off the plain lookup (near-ties, max fp64 gap {max_gap:.3g}) on "
+              f"{rows[name]['corpus_codes_used']} codes; K1 {ms:.4f} ms per call (device "
+              f"{device_ms} ms), plain {plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
+    return rows
+
+
 def kitchen_phase(card: str) -> dict:
     """Phase 19: the kitchen on the card. The card's machine has no mujoco
     (asked: ``import mujoco`` raises ModuleNotFoundError), so the phase works
@@ -4790,94 +5015,24 @@ def kitchen_phase(card: str) -> dict:
       idle share); K1 at the kitchen's shapes: exact ids on Gaussian
       fixtures, ``tie_gap`` on the corpus's own latents, timed beside its
       bound, the plain version and addmm + argmin."""
-    from lipvq_tpu_torch.algo import algo_factory
     from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
     from lipvq_tpu_torch.data.export import Export
     from lipvq_tpu_torch.envs.vector_env import VectorEnv
-    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_reference
-    from lipvq_tpu_torch.scripts import train as train_script
-    from lipvq_tpu_torch.utils import file_utils, train_utils
     from lipvq_tpu_torch.utils.lang_utils import LangEncoder
 
     export = Export(KITCHEN_CORPUS)
     results = {"corpus": {"demos": len(export.demos), "steps": export.data_attrs["total"]}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_kitchen_") as tmp:
-        cfg_path = os.path.join(tmp, "config.json")
         data = [{"path": KITCHEN_CORPUS, "weight": 1.0}]
-        with open(cfg_path, "w") as f:
-            json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
-        seen = {"algo": None, "k1_steps": 0}
-        run_epoch = train_utils.run_epoch
-
-        def observed_run_epoch(model, loader, epoch, validate=False, num_steps=None):
-            seen["algo"] = model
-            before = launch_counts()[0]
-            log = run_epoch(model, loader, epoch, validate=validate, num_steps=num_steps)
-            seen["k1_steps"] += launch_counts()[0] - before
-            return log
-
-        out = io.StringIO()
-        train_utils.run_epoch = observed_run_epoch
-        try:
-            # the main path: the training script on the kitchen corpus, counted
-            zero_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                ckpt_dir = train_script.main(["--config", cfg_path])
-            script_s = time.perf_counter() - t0
-            counts = launch_counts()
-        except BaseException:
-            print(out.getvalue()[-8000:])
-            raise
-        finally:
-            train_utils.run_epoch = run_epoch
-        text = out.getvalue()
-        disabled = [line for line in text.splitlines() if line.startswith("Rollout disabled")]
-        for line in disabled:
-            print(f"  kitchen script: {line}")
-        if ckpt_dir is None or len(disabled) != 1 or "ModuleNotFoundError" not in disabled[0] \
-                or "'mujoco'" not in disabled[0]:
-            print(text[-8000:])
-            raise AssertionError("kitchen script: want one 'Rollout disabled' line naming "
-                                 "mujoco's ModuleNotFoundError and a finished run")
-        want_steps = KITCHEN_EPOCHS * KITCHEN_STEPS
-        if counts != (want_steps, 0, 0) or seen["k1_steps"] != want_steps:
-            raise AssertionError(f"kitchen script: launches (K1, K1f, K2) {counts}, K1 in the "
-                                 f"steps {seen['k1_steps']}; want ({want_steps}, 0, 0)")
-        with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
-            logs = json.load(f)
-        bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
-        if bad or len(logs.get("Train/Loss", [])) != KITCHEN_EPOCHS:
-            raise AssertionError(f"kitchen script: non-finite or missing logs {bad or logs}")
-        print(f"kitchen script: {KITCHEN_EPOCHS} epochs x {KITCHEN_STEPS} steps of the 6 x 384 "
-              f"flagship (512 codes, batch {KITCHEN_BATCH}) on the OpenDrawer corpus "
-              f"({results['corpus']}) in {script_s:.1f} s; launches (K1, K1f, K2) {counts}; "
-              f"Train/Loss {logs['Train/Loss']}")
-
-        # reload: the last checkpoint on the card against the in-process algo
-        algo = seen["algo"]
-        last = os.path.join(ckpt_dir, f"model_epoch_{KITCHEN_EPOCHS}.ckpt")
-        reloaded, ckpt = file_utils.policy_from_checkpoint(last)  # CUDA by default
-        assert reloaded.device.type == "cuda" and algo.device.type == "cuda"
+        run = kitchen_script("kitchen", data, tmp,
+                             f"the OpenDrawer corpus ({results['corpus']})")
+        algo = run.pop("algo")
         lang = LangEncoder(device=algo.device)
         cfg_dict = kitchen_config(data)
         cfg_dict["train"]["hdf5_cache_mode"] = "low_dim"
         _, _, ds, loader, ctx_loader = kitchen_loaders(cfg_dict, lang)
         batch = algo.process_batch_for_training(next(iter(loader)))
-        half = len(batch["actions"]) // 2
-        inputs = ({k: v[half:] for k, v in batch["obs"].items()},
-                  {k: v[:half] for k, v in batch["obs"].items()}, batch["actions"][:half])
-        dists = []
-        with torch.inference_mode():
-            for a in (algo, reloaded):
-                dists.append(a.nets.forward_train(*(a._put_infer(x) for x in inputs),
-                                                  low_noise_eval=True)[0])
-        if not all(torch.equal(x, y) for x, y in zip(*dists)):
-            raise AssertionError("kitchen: the reloaded checkpoint's GMM parameters differ from "
-                                 "the in-process algo's")
-        print("kitchen reload: policy_from_checkpoint on the card gives GMM parameters "
-              "bit-equal to the in-process algo's on a corpus batch")
-        del reloaded
+        kitchen_reload("kitchen", algo, run["ckpt_dir"], batch)
 
         # requests: 16 envs replaying the corpus's observations, frame-stacked
         ctx = algo.process_batch_for_training(next(iter(ctx_loader)))
@@ -4888,119 +5043,105 @@ def kitchen_phase(card: str) -> dict:
                                                      start=(i // len(export.demos)) * 20)
                          for i in range(N_ENVS)], frame_stack=algo.context_length,
                         obs_keys=[k for k in KITCHEN_OBS_KEYS if k != "lang_emb"])
-        obs = vec.reset()
-        policy.start_episode(lang=vec.ep_lang_strs)
-        zero_launch_counts()
-        actions = []
-        for _ in range(KITCHEN_REQUESTS):
-            acts = policy.batched(obs, ctx)
-            actions.append(acts)
-            obs = vec.step(acts)[0]
-        request_counts = launch_counts()
-        if request_counts != (KITCHEN_REQUESTS, 0, 0):
-            raise AssertionError(f"kitchen requests: launches (K1, K1f, K2) {request_counts}")
-        if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in actions):
-            raise AssertionError("kitchen requests: actions of the wrong shape or not finite")
-        print(f"kitchen requests: {KITCHEN_REQUESTS} requests of {N_ENVS} envs on frame-stacked "
-              f"windows of the corpus's observations; launches (K1, K1f, K2) {request_counts}")
-
-        # timing: the step and the 16-env request
-        def step():
-            algo.train_on_batch(batch, KITCHEN_EPOCHS + 1)
-            torch.cuda.synchronize()
-
-        step_ms = host_ms(step, reps=20)
-        step_busy, step_kernels = profile_device(
-            lambda: algo.train_on_batch(batch, KITCHEN_EPOCHS + 1), 5)
-        request_ms = host_ms(lambda: policy.batched(obs, ctx))
-        request_busy, request_kernels = profile_device(lambda: policy.batched(obs, ctx), 10)
-        results.update({
-            "script_s": script_s, "launches": counts, "request_launches": request_counts,
-            "losses": logs["Train/Loss"], "step_ms": step_ms, "step_busy_ms": step_busy,
-            "step_idle_share": None if step_busy is None else 1 - step_busy / step_ms,
-            "request_ms": request_ms, "request_busy_ms": request_busy,
-            "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
-            "step_top_ops_ms": dict(sorted(step_kernels.items(), key=lambda kv: -kv[1])[:5]),
-            "request_top_ops_ms": dict(sorted(request_kernels.items(),
-                                              key=lambda kv: -kv[1])[:5])})
-        print(f"kitchen timing: step {step_ms:.3f} ms (device busy {step_busy} ms, idle share "
-              f"{results['step_idle_share']}), {N_ENVS}-env request {request_ms:.3f} ms (device "
-              f"busy {request_busy} ms, idle share {results['request_idle_share']}); top step "
-              f"ops {results['step_top_ops_ms']} [{card}]")
-        tok = algo.nets.net.encoder.action_network
-        codebook = tok.quantizer.codebook.detach().clone()
-        with torch.no_grad():
-            kitchen_z = {
-                "train": tok.encode(torch.as_tensor(batch["actions"][:half], device=algo.device)
-                                    .reshape(-1, AC_DIM)),
-                "request": tok.encode(torch.as_tensor(
-                    np.repeat(np.asarray(ctx["actions"]), N_ENVS, 0), device=algo.device)
-                    .reshape(-1, AC_DIM))}
+        results.update({"script_s": run["script_s"], "launches": run["launches"],
+                        "losses": run["logs"]["Train/Loss"]})
+        results.update(kitchen_requests(card, "kitchen", algo, batch, policy, vec, ctx))
+        kitchen_z, codebook = kitchen_latents(algo, batch, ctx)
         del algo, policy, vec
-
-        # one fp32 step at the kitchen's width, card against CPU
-        hold_cfg = kitchen_config(KITCHEN_CORPUS, compute_dtype="float32", hold=True)
-        hcfg, sm, _, hold_loader, _ = kitchen_loaders(hold_cfg, lang)
-
-        def make(device=None):
-            return algo_factory("icl", hcfg, sm["all_shapes"], ac_dim=sm["ac_dim"], device=device)
-
-        card_algo, cpu_algo = make(), make("cpu")
-        hbatch = card_algo.process_batch_for_training(next(iter(hold_loader)))
-        ctx_act = np.asarray(hbatch["actions"][:half]).reshape(-1, AC_DIM)
-        with torch.no_grad():
-            for a in (card_algo, cpu_algo):
-                a.nets.net.encoder.action_network.to_latent.ci.fill_(30.0)
-        codes = set_separated_codebook(cpu_algo.nets.net.encoder.action_network,
-                                       (card_algo, cpu_algo), ctx_act)
-        ids = [a.nets.net.encoder.action_network.tokenize(
-            torch.from_numpy(ctx_act).to(a.device)).cpu() for a in (card_algo, cpu_algo)]
-        if not torch.equal(*ids):
-            raise AssertionError("kitchen train parity: context ids differ between the card and "
-                                 "the CPU")
-        losses, worst = hold_step(card_algo, cpu_algo, hbatch)
-        distinct = int(torch.unique(ids[1]).numel())
-        results["train_parity"] = {"losses": losses, "worst": worst, "codes": codes,
-                                   "distinct_ids": distinct}
-        print(f"kitchen train parity: one fp32 step of batch {KITCHEN_BATCH} on the card == the "
-              f"CPU step (hold_step), context ids equal on {distinct} codes of {codes} set "
-              f"apart; losses {losses}; worst {worst}")
-        del card_algo, cpu_algo
+        results["train_parity"] = kitchen_hold("kitchen", KITCHEN_CORPUS, lang, KITCHEN_CORPUS)
     results["floor"] = kitchen_floor(card)
     floor_z, floor_codebook = results["floor"].pop("z"), results["floor"].pop("codebook")
+    results["k1"] = kitchen_k1(card, "kitchen", (
+        ("train", KITCHEN_TRAIN_SHAPE, kitchen_z["train"], codebook),
+        ("request", KITCHEN_REQUEST_SHAPE, kitchen_z["request"], codebook),
+        ("floor_train", KITCHEN_FLOOR_SHAPE, floor_z, floor_codebook)))
+    torch.cuda.empty_cache()
+    return results
 
-    # K1 at the kitchen's shapes: Gaussian fixtures exact, the corpus's
-    # latents within the near-tie bound
-    gen = torch.Generator(device="cuda").manual_seed(61)
-    rows = {}
-    for label, (b, n, d), zl, cl in (
-            ("train", KITCHEN_TRAIN_SHAPE, kitchen_z["train"], codebook),
-            ("request", KITCHEN_REQUEST_SHAPE, kitchen_z["request"], codebook),
-            ("floor_train", KITCHEN_FLOOR_SHAPE, floor_z, floor_codebook)):
-        assert tuple(zl.shape) == (b, d) and tuple(cl.shape) == (n, d), (zl.shape, cl.shape)
-        z = torch.randn(b, d, generator=gen, device="cuda")
-        c = torch.randn(n, d, generator=gen, device="cuda")
-        if not torch.equal(vq_nearest_cuda(z, c), vq_nearest_reference(z, c)):
-            raise AssertionError(f"K1 ids differ from the plain version at {b}x{n}x{d}")
-        got = vq_nearest_cuda(zl, cl)
-        mismatches, max_gap, _ = check_near_ties(zl, cl, got, vq_nearest_reference(zl, cl),
-                                                 bf16=False)
-        ms = cuda_ms(lambda: vq_nearest_cuda(z, c), 50)
-        plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), 10)
-        library_ms = cuda_ms(
-            lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), 50)
-        device_ms, _ = profile_device(lambda: vq_nearest_cuda(z, c), 50)
-        bound_ms, bound_by = vq_bound(b, n, d)
-        rows[label] = {"shape": [b, n, d], "mismatches": mismatches, "max_abs_err": max_gap,
-                       "corpus_codes_used": int(torch.unique(got).numel()), "ms": ms,
-                       "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"K1 kitchen {label} {b}x{n}x{d}: Gaussian ids exact; the corpus's latents "
-              f"{mismatches} ids off the plain lookup (near-ties, max fp64 gap {max_gap:.3g}) on "
-              f"{rows[label]['corpus_codes_used']} codes; K1 {ms:.4f} ms per call (device "
-              f"{device_ms} ms), plain {plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms, "
-              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
-    results["k1"] = rows
+
+# phase 20, the multi-stage kitchen: the paper's multi-stage activities
+# (lipvq_tpu_torch/robocasa/dataset_registry.py: MULTI_STAGE_TASK_DATASETS)
+# from the corpus the port's collect_kitchen_suite wrote
+# (lipvq_tpu_torch/assets/kitchen_multi/README.md); MicrowaveThawing is not
+# in it: its expert needs ~750 steps, the collector's kitchen ends at 500
+KITCHEN_MULTI_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "lipvq_tpu_torch",
+                                  "assets", "kitchen_multi")
+KITCHEN_MULTI_TASKS = ("ArrangeVegetables", "RestockPantry", "PreSoakPan", "PrepareCoffee")
+
+
+def kitchen_multi_phase(card: str) -> dict:
+    """Phase 20: the flagship trained multi-task on the multi-stage
+    activities of the committed corpus (``KITCHEN_MULTI_TASKS``, 3 scripted
+    demos each). It asks for ``mujoco`` first and expects the
+    ModuleNotFoundError; then:
+
+    - ``scripts/train.py`` (``main``) trains the flagship at the core-8
+      recipe's full width on the exports as one weighted ``train.data``
+      list (a MetaDataset), 2 epochs x 20 steps, rollouts on: "Rollout
+      disabled" naming mujoco, K1 exactly once per step, K1f and K2 never;
+    - the last checkpoint reloads bit-equal;
+    - 8 requests of 16 envs split across the tasks, each env on
+      frame-stacked windows of a recorded demo of its task and with a
+      context from another demo of the same task: K1 once per request;
+    - one fp32 step held on the card against the CPU (``hold_step``);
+    - the step and the 16-env request timed and profiled; K1 at the phase's
+      shapes on the corpus's own latents."""
+    from lipvq_tpu_torch.algo.rollout_policy import ICLRolloutPolicy
+    from lipvq_tpu_torch.data.export import Export
+    from lipvq_tpu_torch.envs.vector_env import VectorEnv
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+    from lipvq_tpu_torch.utils.tensor_utils import stack_collate
+
+    try:
+        import mujoco  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"kitchen_multi: import mujoco raises {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("kitchen_multi: mujoco imports here; the phase is written for the "
+                             "card's machine, which has no mujoco")
+    paths = [os.path.join(KITCHEN_MULTI_ROOT, t) for t in KITCHEN_MULTI_TASKS]
+    exports = [Export(p) for p in paths]
+    results = {"corpus": {t: {"demos": len(e.demos), "steps": e.data_attrs["total"]}
+                          for t, e in zip(KITCHEN_MULTI_TASKS, exports)}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitchen_multi_") as tmp:
+        data = [{"path": p, "weight": 1.0} for p in paths]
+        steps = sum(c["steps"] for c in results["corpus"].values())
+        run = kitchen_script("kitchen_multi", data, tmp,
+                             f"the {len(paths)} multi-stage exports ({steps} steps)")
+        algo = run.pop("algo")
+        lang = LangEncoder(device=algo.device)
+        cfg_dict = kitchen_config(data)
+        cfg_dict["train"]["hdf5_cache_mode"] = "low_dim"
+        _, _, ds, loader, _ = kitchen_loaders(cfg_dict, lang, paths[0])
+        batch = algo.process_batch_for_training(next(iter(loader)))
+        kitchen_reload("kitchen_multi", algo, run["ckpt_dir"], batch)
+
+        # env i replays demo j of task t; its context is demo j + 1 of task t
+        n_tasks = len(exports)
+        envs, items = [], []
+        for i in range(N_ENVS):
+            t = i % n_tasks
+            demos = exports[t].demos
+            j = (i // n_tasks) % len(demos)
+            envs.append(lambda t=t, j=j, i=i: RecordedKitchen(
+                exports[t], exports[t].demos[j], start=(i // (n_tasks * len(demos))) * 20))
+            first = ds.datasets[t]._demo_id_to_start_indices[demos[(j + 1) % len(demos)]]
+            items.append(ds[int(ds._boundaries[t]) + first])
+        ctx = algo.process_batch_for_training(stack_collate(items))
+        policy = ICLRolloutPolicy(
+            algo, action_normalization_stats=ds.get_action_normalization_stats(),
+            lang_encoder=lang)
+        vec = VectorEnv(envs, frame_stack=algo.context_length,
+                        obs_keys=[k for k in KITCHEN_OBS_KEYS if k != "lang_emb"])
+        results.update({"script_s": run["script_s"], "launches": run["launches"],
+                        "losses": run["logs"]["Train/Loss"]})
+        results.update(kitchen_requests(card, "kitchen_multi", algo, batch, policy, vec, ctx))
+        z, codebook = kitchen_latents(algo, batch, ctx)
+        del algo, policy, vec
+        results["train_parity"] = kitchen_hold("kitchen_multi", data, lang, paths[0])
+    results["k1"] = kitchen_k1(card, "kitchen_multi", (
+        ("train", KITCHEN_TRAIN_SHAPE, z["train"], codebook),
+        ("request", KITCHEN_REQUEST_SHAPE, z["request"], codebook)))
     torch.cuda.empty_cache()
     return results
 
@@ -5063,6 +5204,7 @@ def main() -> int:
     ddp = timed("ddp", ddp_phase, card)
     vector = timed("vector", vector_phase, card)
     kitchen = timed("kitchen", kitchen_phase, card)
+    kitchen_multi = timed("kitchen_multi", kitchen_multi_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -5135,6 +5277,8 @@ def main() -> int:
         paths["kitchen train_script"] = kitchen["launches"][i]
         paths["kitchen requests"] = kitchen["request_launches"][i]
         paths["kitchen learning_floor"] = kitchen["floor"]["launches"][i]
+        paths["kitchen_multi train_script"] = kitchen_multi["launches"][i]
+        paths["kitchen_multi requests"] = kitchen_multi["request_launches"][i]
     for batch in EXPORT_BATCHES:  # counted in the reloading process
         k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
@@ -5159,6 +5303,8 @@ def main() -> int:
         "kitchen_train_shape": kitchen["k1"]["train"],
         "kitchen_request_shape": kitchen["k1"]["request"],
         "kitchen_floor_train_shape": kitchen["k1"]["floor_train"],
+        "kitchen_multi_train_shape": kitchen_multi["k1"]["train"],
+        "kitchen_multi_request_shape": kitchen_multi["k1"]["request"],
         "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
@@ -5193,7 +5339,7 @@ def main() -> int:
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
-        "kitchen": kitchen, "phase_s": phase_s}))
+        "kitchen": kitchen, "kitchen_multi": kitchen_multi, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

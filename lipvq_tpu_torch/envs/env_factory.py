@@ -3,12 +3,11 @@
 EnvUtils.create_env_from_metadata, driven by the ``env_args`` JSON of the
 dataset).
 
-The synthetic env and the first-party MuJoCo kitchen's single-stage tasks
-are ported: a ``ROBOSUITE_TYPE`` env_meta whose name is in
-``REGISTERED_KITCHEN_ENVS`` builds an ``EnvKitchen``. A multi-stage kitchen
-task raises ``NotImplementedError`` naming ROADMAP §1 item 18; the
-robosuite, gym and iG-MoMart adapters raise it naming item 15. Without
-``mujoco`` a kitchen task raises ``ModuleNotFoundError``.
+The synthetic env and the first-party MuJoCo kitchen's tasks (single- and
+multi-stage) are ported: a ``ROBOSUITE_TYPE`` env_meta whose name is in
+``REGISTERED_KITCHEN_ENVS`` builds an ``EnvKitchen``. The robosuite, gym
+and iG-MoMart adapters raise ``NotImplementedError`` naming ROADMAP §1
+item 15. Without ``mujoco`` a kitchen task raises ``ModuleNotFoundError``.
 ``scripts/train.py`` prints "Rollout disabled" for any of these, as the
 JAX script does for an env it cannot build.
 
@@ -35,9 +34,8 @@ def create_env_from_metadata(env_meta: dict, render: bool = False,
         return SyntheticKitchenEnv(env_name=env_name, **env_kwargs)
 
     if env_type == EnvType.ROBOSUITE_TYPE:
-        from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS, check_ported
+        from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS
 
-        check_ported(env_name)
         if env_name in REGISTERED_KITCHEN_ENVS:
             from lipvq_tpu_torch.envs.env_kitchen import EnvKitchen
 

@@ -23,9 +23,8 @@ class EnvKitchen(EnvBase):
     def __init__(self, env_name: str, render: bool = False,
                  render_offscreen: bool = False, use_image_obs: bool = False,
                  **kwargs):
-        from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS, check_ported
+        from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS
 
-        check_ported(env_name)
         if env_name not in REGISTERED_KITCHEN_ENVS:
             raise ValueError(
                 f"unknown kitchen env {env_name!r}; registered: "

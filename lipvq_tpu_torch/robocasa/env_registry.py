@@ -6,8 +6,7 @@ robocasa/environments/kitchen/kitchen.py:46-74).
 §2.2) to a constructor of its ``EnvKitchen`` (the first-party MuJoCo
 kitchen), plus the hermetic ``SyntheticKitchen``;
 ``ALL_KITCHEN_ENVIRONMENTS`` is the sorted view the validity tests use
-(reference tests/test_tasks_validity.py:5). A multi-stage task's
-constructor raises ``NotImplementedError`` naming ROADMAP §1 item 18.
+(reference tests/test_tasks_validity.py:5).
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ and the same ``<export>.coverage.json`` beside each export.
         --output_dir datasets/kitchen --n_demos 20 \\
         --tasks OpenDrawer CloseDrawer TurnOnSinkFaucet
 
-Defaults to every task with a scripted expert (``TASK_POLICIES``; a
-multi-stage task raises, ROADMAP §1 item 18).
+Defaults to every task with a scripted expert (``TASK_POLICIES``, the
+multi-stage experts included).
 """
 
 from __future__ import annotations

@@ -28,8 +28,16 @@ KITCHEN_MODULES = (
         "single_stage", "scripted")),
     "lipvq_tpu_torch.robocasa.dataset_registry", "lipvq_tpu_torch.robocasa.env_registry",
     "lipvq_tpu_torch.robocasa.env_utils", "lipvq_tpu_torch.envs.env_kitchen",
+    "lipvq_tpu_torch.robocasa.sim.multi_stage",
+    *(f"lipvq_tpu_torch.robocasa.sim.multi_stage.{m}" for m in (
+        "baking", "boiling", "brewing", "chopping_food", "clearing_table", "defrosting_food",
+        "restocking_supplies", "washing_dishes", "frying", "making_toast", "meat_preparation",
+        "mixing_and_blending", "reheating_food", "sanitize_surface", "serving_food",
+        "setting_the_table", "snack_preparation", "steaming_food",
+        "tidying_cabinets_and_drawers", "washing_fruits_and_vegetables")),
     "lipvq_tpu_torch.scripts.collect_kitchen_suite", "lipvq_tpu_torch.scripts.conversion",
     "lipvq_tpu_torch.scripts.conversion.extract_action_dict",
+    "lipvq_tpu_torch.scripts.dataset_states_to_obs", "lipvq_tpu_torch.scripts.playback_dataset",
     "lipvq_tpu_torch.examples.kitchen_convergence_demo")
 
 _IMPORT_ALL = f"""
@@ -91,24 +99,29 @@ sys.modules["mujoco"] = None  # import mujoco raises ModuleNotFoundError
 for name in {KITCHEN_MODULES!r}:
     importlib.import_module(name)
 from lipvq_tpu_torch.envs.env_factory import create_env
-try:
-    create_env("OpenDrawer", seed=0)
-except ModuleNotFoundError as e:
-    assert e.name == "mujoco" and "'mujoco'" in str(e), e
-    print("raised:", e)
-else:
-    raise AssertionError("a kitchen was built without mujoco")
+from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS
+assert len(REGISTERED_KITCHEN_ENVS) == 121, len(REGISTERED_KITCHEN_ENVS)
+for task in ("OpenDrawer", "PreSoakPan"):
+    try:
+        create_env(task, seed=0)
+    except ModuleNotFoundError as e:
+        assert e.name == "mujoco" and "'mujoco'" in str(e), e
+        print("raised:", e)
+    else:
+        raise AssertionError("a kitchen was built without mujoco")
 """
 
 
 def test_kitchen_modules_import_without_mujoco():
-    """Every kitchen module imports where ``mujoco`` is not installed (the
-    card's machine); building a kitchen there raises ``ModuleNotFoundError``
-    naming it."""
+    """Every kitchen module, the multi-stage package included, imports where
+    ``mujoco`` is not installed (the card's machine) and registers every
+    task; building a single- or multi-stage kitchen there raises
+    ``ModuleNotFoundError`` naming it."""
     proc = subprocess.run([sys.executable, "-c", _WITHOUT_MUJOCO], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "raised: OpenDrawer: the kitchen sim needs the 'mujoco' package" in proc.stdout
+    for task in ("OpenDrawer", "PreSoakPan"):
+        assert f"raised: {task}: the kitchen sim needs the 'mujoco' package" in proc.stdout
 
 
 _IMPORT_LINE = re.compile(

@@ -4,9 +4,10 @@ and the env factory's routing.
 Collection is numpy + mujoco in both packages, so the corpora are held
 array for array, bit for bit, dtypes included: the JAX package's
 ``collect_task`` HDF5 file (after ``hdf5_to_export``) against the port's
-export, ``action_dict`` and the coverage JSON included. The corpus committed
-under ``lipvq_tpu_torch/assets/kitchen/`` must regenerate byte for byte
-from the command in its README.
+export, ``action_dict`` and the coverage JSON included. The corpora committed
+under ``lipvq_tpu_torch/assets/kitchen/`` and ``assets/kitchen_multi/`` must
+regenerate byte for byte from the commands in their READMEs (the whole
+multi-stage corpus under ``-m slow``).
 """
 
 import filecmp
@@ -38,6 +39,9 @@ from lipvq_tpu_torch.scripts.conversion.extract_action_dict import (  # noqa: E4
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSET = os.path.join(REPO, "lipvq_tpu_torch", "assets", "kitchen")
+MULTI_ASSET = os.path.join(REPO, "lipvq_tpu_torch", "assets", "kitchen_multi")
+# the commands of lipvq_tpu_torch/assets/kitchen_multi/README.md: (tasks, seed)
+MULTI_COMMANDS = ((("ArrangeVegetables", "PreSoakPan", "PrepareCoffee"), 0), (("RestockPantry",), 2))
 
 
 def assert_exports_equal(got_root: str, want_root: str) -> int:
@@ -68,6 +72,7 @@ def _jax_export(tmp_path, name: str, collect) -> str:
     ("OpenDrawer", {"seed": 3, "layout_ids": 0, "style_ids": 0}),
     ("CloseDrawer", {"seed": 1, "action_noise": 0.1, "dwell_prob": 0.1}),
     ("TurnOnSinkFaucet", {"seed": 0, "with_action_dict": False}),
+    ("PrepareCoffee", {"seed": 0}),  # a multi-stage activity
 ])
 def test_collect_task_matches_jax(tmp_path, task, kwargs):
     want = _jax_export(tmp_path, "jax", lambda p: jax_suite.collect_task(
@@ -110,6 +115,45 @@ def test_committed_corpus_matches_jax_collection(tmp_path):
     want = _jax_export(tmp_path, "jax", lambda p: jax_suite.collect_task(
         "OpenDrawer", p, n_demos=8, max_steps=300, seed=3, layout_ids=0, style_ids=0))
     assert assert_exports_equal(os.path.join(ASSET, "OpenDrawer"), want) == 8
+
+
+def _assert_multi_stage_tasks_regenerate(out, tasks_by_seed) -> None:
+    """Run the README's collection commands for ``tasks_by_seed`` into
+    ``out``; each task's export and coverage JSON equal the committed files
+    byte for byte."""
+    for tasks, seed in tasks_by_seed:
+        manifest = collect_kitchen_suite.main([
+            "--output_dir", str(out), "--tasks", *tasks, "--n_demos", "3", "--max_steps", "1000",
+            "--seed", str(seed)])
+        assert [(m["task"], m["demos"]) for m in manifest] == [(t, 3) for t in tasks]
+        for task in tasks:
+            names = [task + ".coverage.json"]
+            for root, _, files in os.walk(os.path.join(MULTI_ASSET, task)):
+                names += [os.path.relpath(os.path.join(root, n), MULTI_ASSET) for n in files]
+            got = [task + ".coverage.json"]
+            for root, _, files in os.walk(os.path.join(out, task)):
+                got += [os.path.relpath(os.path.join(root, n), out) for n in files]
+            assert sorted(got) == sorted(names), task
+            for rel in names:
+                assert filecmp.cmp(os.path.join(MULTI_ASSET, rel), os.path.join(out, rel),
+                                   shallow=False), rel
+
+
+def test_committed_multi_stage_corpus_holds_prepare_coffee(tmp_path):
+    """The README's first command, cut to PrepareCoffee (each task's collector
+    seeds its own env), writes the committed PrepareCoffee files."""
+    _assert_multi_stage_tasks_regenerate(tmp_path / "kitchen_multi", ((("PrepareCoffee",), 0),))
+
+
+@pytest.mark.slow
+def test_committed_multi_stage_corpus_regenerates_byte_equal(tmp_path):
+    """Every task of the committed multi-stage corpus from the README's
+    commands (slow: ~4 min on a CPU, PreSoakPan's and RestockPantry's
+    experts fail and retry)."""
+    out = tmp_path / "kitchen_multi"
+    _assert_multi_stage_tasks_regenerate(out, MULTI_COMMANDS)
+    committed = sorted(n for n in os.listdir(MULTI_ASSET) if n != "README.md")
+    assert sorted(n for n in os.listdir(out) if n != "manifest.json") == committed
 
 
 @pytest.mark.parametrize("ac_dim,with_abs", [(12, True), (7, True), (12, False)])
@@ -175,13 +219,20 @@ def test_run_random_rollouts_matches_jax():
 
 @pytest.mark.parametrize("name", ["PreSoakPan", "MicrowaveThawing", "ArrangeTea"])
 def test_multi_stage_task_raises_naming_its_item(name):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        create_env(name, seed=0)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        create_env_from_metadata({"env_name": name, "type": 1})
-    if name in REGISTRY:  # the dataset registry's five multi-stage tasks
-        with pytest.raises(NotImplementedError, match="item 18"):
-            REGISTRY[name](seed=0)
+    """A multi-stage task raised until the multi-stage kitchen was ported;
+    now ``create_env``, the factory and (for the dataset registry's five
+    multi-stage tasks) the env registry build it, equal to JAX's."""
+    want = jax_env_utils.create_env(name, seed=0)
+    w = want.reset()
+    envs = [create_env(name, seed=0),
+            create_env_from_metadata({"env_name": name, "type": 1, "env_kwargs": {"seed": 0}})]
+    if name in REGISTRY:
+        envs.append(REGISTRY[name](seed=0))
+    for env in envs:
+        g = env.reset()
+        assert type(env).__name__ == "EnvKitchen" and env.serialize() == want.serialize()
+        assert list(g) == list(w) and all(np.array_equal(g[k], w[k]) for k in w)
+        assert env.ep_lang_str == want.ep_lang_str
 
 
 @pytest.mark.parametrize("name", ["Lift", "PickPlaceCan"])

@@ -5,7 +5,7 @@ test_scripted_experts.py`` pins it to (``RELIABLE``), the port's expert in
 the port's kitchen and JAX's expert in JAX's kitchen run in lockstep: every
 action, observation and success flag is bit-equal, both finish at the same
 step, and the port's expert solves the task as JAX's does. The multi-stage
-experts are held in the multi-stage slice, with their envs.
+experts are held in ``test_torch_port_kitchen_multi_experts.py``.
 """
 
 import numpy as np
@@ -62,9 +62,10 @@ def test_policy_table_matches_jax():
         make_scripted_policy("PnP", None)
 
 
-@pytest.mark.parametrize("task,seed", [(t, s) for t, seeds in sorted(RELIABLE.items())
-                                       for s in seeds])
-def test_expert_bit_equal_to_jax(task, seed, max_steps=1700):
+def assert_expert_bit_equal_to_jax(task: str, seed: int, max_steps: int = 1700):
+    """Run the port's and JAX's experts for ``task`` at ``seed`` in
+    lockstep: every action, observation, reward, info and ``finished`` flag
+    equal; both succeed at the same step."""
     penv, jenv = REGISTERED_KITCHEN_ENVS[task](seed=seed), JAX_ENVS[task](seed=seed)
     po, jo = penv.reset(), jenv.reset()
     ppol, jpol = make_scripted_policy(task, penv), jax_policy(task, jenv)
@@ -89,3 +90,9 @@ def test_expert_bit_equal_to_jax(task, seed, max_steps=1700):
     assert success, f"{task} expert failed on seed {seed}"
     penv.close()
     jenv.close()
+
+
+@pytest.mark.parametrize("task,seed", [(t, s) for t, seeds in sorted(RELIABLE.items())
+                                       for s in seeds])
+def test_expert_bit_equal_to_jax(task, seed):
+    assert_expert_bit_equal_to_jax(task, seed)

@@ -25,14 +25,13 @@ from lipvq_tpu.robocasa.sim import REGISTERED_KITCHEN_ENVS as JAX_ENVS  # noqa: 
 
 from lipvq_tpu_torch.envs.env_factory import create_env_from_metadata  # noqa: E402
 from lipvq_tpu_torch.robocasa.dataset_registry import ALL_TASK_DATASETS  # noqa: E402
-from lipvq_tpu_torch.robocasa.sim import (  # noqa: E402
-    MULTI_STAGE_TASKS,
-    REGISTERED_KITCHEN_ENVS,
-)
+from lipvq_tpu_torch.robocasa.sim import REGISTERED_KITCHEN_ENVS  # noqa: E402
 from lipvq_tpu_torch.robocasa.sim.layouts import LAYOUT_GROUPS_TO_IDS, STYLES  # noqa: E402
 
-# every single-stage task class that builds (``_PnPFixtureBase`` is abstract)
-TASKS = sorted(n for n in REGISTERED_KITCHEN_ENVS if not n.startswith("_"))
+# every single-stage task class that builds (``_PnPFixtureBase`` is abstract);
+# the multi-stage ones are held in ``test_torch_port_kitchen_multi_sim_{a,b}.py``
+TASKS = sorted(n for n, c in REGISTERED_KITCHEN_ENVS.items()
+               if c.__module__.endswith("single_stage") and not n.startswith("_"))
 
 
 def assert_obs_equal(got: dict, want: dict):
@@ -51,16 +50,22 @@ def assert_state_equal(got: dict, want: dict):
 
 
 def test_registry_is_the_single_stage_part_of_jax():
+    """The registry equals the JAX package's, in its order: the 34
+    single-stage tasks, the abstract ``_PnPFixtureBase``, then the 86
+    multi-stage tasks, each class from the port's module of the same name."""
+    assert list(REGISTERED_KITCHEN_ENVS) == list(JAX_ENVS) and len(JAX_ENVS) == 121
+    for name, cls in REGISTERED_KITCHEN_ENVS.items():
+        assert cls.__module__ == JAX_ENVS[name].__module__.replace("lipvq_tpu.", "lipvq_tpu_torch.")
+        assert cls.__name__ == name
     jax_single = {n for n, c in JAX_ENVS.items() if c.__module__.endswith("single_stage")}
-    assert set(REGISTERED_KITCHEN_ENVS) == jax_single and len(TASKS) == 34
-    jax_multi = {n for n, c in JAX_ENVS.items() if "multi_stage" in c.__module__}
-    assert MULTI_STAGE_TASKS == jax_multi
-    assert set(ALL_TASK_DATASETS) <= set(REGISTERED_KITCHEN_ENVS) | MULTI_STAGE_TASKS
+    assert set(TASKS) | {"_PnPFixtureBase"} == jax_single and len(TASKS) == 34
+    assert set(ALL_TASK_DATASETS) <= set(REGISTERED_KITCHEN_ENVS)
 
 
-@pytest.mark.parametrize("task", TASKS)
-def test_task_bit_equal_to_jax(task):
-    seed = 7
+def assert_task_bit_equal_to_jax(task: str, seed: int = 7):
+    """Build ``task`` at ``seed`` in both packages: the same model, reset
+    observation, 30 seeded random steps, state and ep_meta; a JAX state
+    replays (``reset_to``) to the same observation in both."""
     jenv, penv = JAX_ENVS[task](seed=seed), REGISTERED_KITCHEN_ENVS[task](seed=seed)
     assert_obs_equal(penv.reset(), jenv.reset())
     for attr in ("nq", "nv", "nu", "nbody", "ngeom"):
@@ -87,6 +92,11 @@ def test_task_bit_equal_to_jax(task):
     assert np.array_equal(p2.get_state()["states"], want["states"])
     for e in (penv, jenv, p2, j2):
         e.close()
+
+
+@pytest.mark.parametrize("task", TASKS)
+def test_task_bit_equal_to_jax(task):
+    assert_task_bit_equal_to_jax(task)
 
 
 def test_abstract_base_raises_in_both():

@@ -109,7 +109,7 @@ def test_vector_env_matches_jax():
 
 
 @pytest.mark.parametrize("env_meta,item", [
-    ({"env_name": "PreSoakPan", "type": 1}, "item 18"),
+    ({"env_name": "NutAssemblySquare", "type": 1}, "item 15"),
     ({"env_name": "Lift", "type": 1}, "item 15"),
     ({"env_name": "Hopper-v4", "type": 2}, "item 15"),
     ({"env_name": "Momart", "type": 3}, "item 15"),

@@ -9,6 +9,7 @@ fp32 forward's tolerance (rtol 1e-3 / atol 1e-4); ``eval_checkpoint``
 evaluates a port checkpoint; the unported switches raise."""
 
 import functools
+import importlib.util
 import json
 import os
 
@@ -34,6 +35,13 @@ from lipvq_tpu_torch.utils.jax_weights import load_jax_params
 from lipvq_tpu_torch.utils.test_utils import icl_test_config_overrides
 
 torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PRESOAK_PAN = os.path.join(REPO, "lipvq_tpu_torch", "assets", "kitchen_multi", "PreSoakPan")
+# examples/kitchen_multitask_suite.py:83-97: fixed widths in every kitchen task
+KITCHEN_OBS_KEYS = ("robot0_base_pos", "robot0_base_quat", "robot0_eef_pos", "robot0_eef_quat",
+                    "robot0_gripper_qpos", "robot0_base_to_eef_pos", "fixture_state",
+                    "obj_state", "lang_emb")
 
 
 def _config_dict(data, output_dir):
@@ -199,16 +207,26 @@ def test_eval_checkpoint_runs_a_port_checkpoint(runs, capsys):
     assert capsys.readouterr().out.count("ep0 success=") == 2
 
 
-def test_rollout_disabled_for_an_unported_env(runs, tmp_path, capsys):
-    d = _config_dict(runs["export"], str(tmp_path))
-    d["train"]["num_epochs"] = 1
-    d["experiment"]["env"] = "PreSoakPan"  # a multi-stage kitchen task
-    d["experiment"]["rollout"]["batched"] = False
+def test_rollout_disabled_for_an_unported_env(tmp_path, capsys):
+    """A multi-stage kitchen dataset (the committed PreSoakPan corpus) gets
+    rollouts in its own env where ``mujoco`` is installed; without it the
+    script prints "Rollout disabled" naming mujoco and trains on. (Until the
+    multi-stage kitchen was ported, every multi-stage task was disabled.)"""
+    d = _config_dict(PRESOAK_PAN, str(tmp_path))
+    d["train"].update({"num_epochs": 1, "hdf5_filter_key": None,
+                       "hdf5_validation_filter_key": None})
+    d["experiment"]["validate"] = False
+    d["experiment"]["rollout"].update({"batched": False, "n": 1, "horizon": 3})
+    d["observation"]["modalities"]["obs"]["low_dim"] = list(KITCHEN_OBS_KEYS)
     ckpt_dir = port_train.train(config_factory("icl", d), device="cpu")
     out = capsys.readouterr().out
-    assert "Rollout disabled (no env adapter): NotImplementedError" in out
-    assert "item 18" in out
-    assert "model_epoch_1.ckpt" in os.listdir(ckpt_dir)
+    if importlib.util.find_spec("mujoco") is None:
+        assert "Rollout disabled (no env adapter): ModuleNotFoundError" in out
+        assert "'mujoco'" in out
+    else:
+        assert "Rollout disabled" not in out
+        assert "Rollout Epoch 1 [PreSoakPan]" in out
+    assert any(n.startswith("model_epoch_1") and n.endswith(".ckpt") for n in os.listdir(ckpt_dir))
 
 
 @pytest.mark.parametrize("override,item", [

@@ -3,9 +3,10 @@
 tokenizer-ablation arms, the image protocol, the policy baselines, the
 offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
 checkpoint import, policy export, the train-step profiler, data-parallel
-training, the subprocess vector env and the flagship on single- and
-multi-stage kitchen demonstrations on one NVIDIA GPU, and hold its CUDA
-kernels against their plain PyTorch versions.
+training, the subprocess vector env, the flagship on single- and
+multi-stage kitchen demonstrations and the multi-task kitchen suite's
+training and serving on one NVIDIA GPU, and hold its CUDA kernels against
+their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -269,7 +270,22 @@ all started together). Phases:
    env's context a demo of its own task (K1 once each); one fp32 step held
    against the CPU; the step and the request timed and profiled; K1 at 320
    and 160 rows x 512 codes x 823 on the corpus's latents.
-21. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+21. Kitchen suite (``kitchen_suite_phase``): ``import mujoco`` must raise
+   ModuleNotFoundError; a corpus directory of links to the committed
+   OpenDrawer and PrepareCoffee exports (two tasks of the suite's full set);
+   the suite twin's own entry point
+   (``lipvq_tpu_torch.examples.kitchen_multitask_suite.main``, in process)
+   with ``--train_only --balance_tasks`` at the core-8 recipe's full width
+   (6 x 384, 512 codes, batch 64), 2 epochs x 20 steps: no collection, K1
+   exactly once per step, K1f and K2 never; again with ``--resume --epochs
+   3``: "[resume] ... -> start_epoch 3", 20 more steps (K1 20),
+   ``model_epoch_3.ckpt``. The last checkpoint loads on the card; for each
+   task the suite's ``task_policy`` builds its policy and context, which
+   serves 8 requests of 16 envs on frame-stacked windows of that task's
+   recorded observations (K1 once each); the step and the 16-env request
+   timed and profiled; K1 at 320 and 160 rows x 512 codes x 823 on the
+   phase's latents.
+22. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -279,6 +295,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import math
@@ -4637,6 +4654,12 @@ KITCHEN_OBS_KEYS = ("robot0_base_pos", "robot0_base_quat", "robot0_eef_pos", "ro
                     "robot0_gripper_qpos", "robot0_base_to_eef_pos", "fixture_state",
                     "obj_state", "lang_emb")
 KITCHEN_BATCH, KITCHEN_EPOCHS, KITCHEN_STEPS = 64, 2, 20
+# the suite twin's flags for the core-8 recipe at full width, 2 epochs x 20
+# steps, a checkpoint every epoch (lipvq_tpu_torch/examples/
+# kitchen_multitask_suite.py)
+KITCHEN_SUITE_RECIPE = ("--embed_dim", "384", "--num_layers", "6", "--batch_size",
+                        str(KITCHEN_BATCH), "--epochs", str(KITCHEN_EPOCHS), "--steps_per_epoch",
+                        str(KITCHEN_STEPS), "--save_every", "1", "--train_seed", "1")
 KITCHEN_REQUESTS = 8  # 16-env requests on the corpus's recorded observations
 # K1 at the kitchen's shapes: a train step's 32 context demos x 10 steps, a
 # 16-env request's 16 x 10 context steps (512 codes, latent 823: 55 low-dim
@@ -4649,35 +4672,28 @@ FLOOR_EPOCHS, FLOOR_STEPS = 3, 50  # tests/test_learning_floor.py
 
 def kitchen_config(data, output_dir: str | None = None, compute_dtype: str = "bfloat16",
                    hold: bool = False) -> dict:
-    """The core-8 recipe of BASELINE.md:583-610 at full width
-    (examples/kitchen_multitask_suite.py's config: 6 layers x 384, 8 heads,
-    512 codes, batch 64, min_max actions, GMM min_std 0.03, lr 1e-3
-    constant, the device-resident corpus) on ``data``, 2 epochs x 20 steps,
-    a checkpoint every epoch and a wave of 16 batched rollouts per epoch.
-    ``hold``: fp32, no dropout (the card-vs-CPU step)."""
-    from lipvq_tpu_torch.utils.test_utils import icl_test_config_overrides
+    """The core-8 recipe of BASELINE.md:583-610 at full width, as the suite
+    twin's ``make_config`` builds it (``KITCHEN_SUITE_RECIPE``: 6 layers x
+    384, 8 heads, 512 codes, batch 64, min_max actions, GMM min_std 0.03, lr
+    1e-3 constant, the device-resident corpus, 2 epochs x 20 steps, a
+    checkpoint every epoch), on ``data`` under ``output_dir``; then only the
+    phase's overrides: the run's name, a wave of 16 batched rollouts per
+    epoch (no video), ``compute_dtype``, and with ``hold`` the card-vs-CPU
+    step's low_dim cache and no dropout."""
+    from lipvq_tpu_torch.examples import kitchen_multitask_suite as suite
 
-    d = icl_test_config_overrides()
-    d["algo_name"] = "icl"
-    d["train"].update({"data": data, "output_dir": output_dir, "batch_size": KITCHEN_BATCH,
-                       "num_epochs": KITCHEN_EPOCHS, "seed": 1,
-                       "hdf5_cache_mode": "low_dim" if hold else "device",
-                       "action_config": {"actions": {"normalization": "min_max"}}})
-    d["experiment"].update({
-        "name": "chip_smoke_kitchen", "epoch_every_n_steps": KITCHEN_STEPS, "validate": False,
-        "render_video": False, "save": {"enabled": True, "every_n_epochs": 1},
-        "rollout": {"enabled": True, "batched": True, "num_batch_envs": N_ENVS, "n": N_ENVS,
-                    "horizon": ROLLOUT_HORIZON, "rate": 1}})
-    d["algo"]["transformer"].update({"embed_dim": 384, "num_layers": 6, "num_heads": 8,
-                                     "compute_dtype": compute_dtype})
+    args = suite.build_parser().parse_args([*KITCHEN_SUITE_RECIPE, "--out", "unused"])
+    d = suite.make_config(args, {}).to_dict()
+    d["train"].update({"data": data, "output_dir": output_dir})
+    d["experiment"]["name"] = "chip_smoke_kitchen"
+    d["experiment"]["render_video"] = False
+    d["experiment"]["rollout"].update({"enabled": True, "batched": True, "num_batch_envs": N_ENVS,
+                                       "n": N_ENVS, "horizon": ROLLOUT_HORIZON, "rate": 1})
+    d["algo"]["transformer"]["compute_dtype"] = compute_dtype
     if hold:
+        d["train"]["hdf5_cache_mode"] = "low_dim"
         d["algo"]["transformer"].update(
             {"emb_dropout": 0.0, "attn_dropout": 0.0, "block_output_dropout": 0.0})
-    d["algo"]["gmm"]["min_std"] = 0.03
-    d["algo"]["optim_params"] = {"policy": {"learning_rate": {
-        "initial": 1e-3, "scheduler_type": "none"}}}
-    d["algo"]["vq"] = {"num_codes": 512}
-    d["observation"]["modalities"]["obs"]["low_dim"] = list(KITCHEN_OBS_KEYS)
     return d
 
 
@@ -4780,19 +4796,13 @@ def kitchen_floor(card: str) -> dict:
     return result
 
 
-def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
-    """``scripts/train.py`` (``main``) on ``data`` at ``kitchen_config``'s
-    recipe, counted as the main path: the script must print one "Rollout
-    disabled" line naming mujoco's ModuleNotFoundError and finish, K1 must
-    launch exactly once per step (K1f and K2 never) and every logged number
-    be finite. Returns the in-process algo, the checkpoint directory, the
-    launches, the logs and the seconds."""
-    from lipvq_tpu_torch.scripts import train as train_script
+@contextlib.contextmanager
+def counted_run_epoch():
+    """Inside: ``train_utils.run_epoch`` records the algo it trains
+    (``seen["algo"]``) and adds the K1 launches made inside it to
+    ``seen["k1_steps"]``; yields ``seen``."""
     from lipvq_tpu_torch.utils import train_utils
 
-    cfg_path = os.path.join(tmp, "config.json")
-    with open(cfg_path, "w") as f:
-        json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
     seen = {"algo": None, "k1_steps": 0}
     run_epoch = train_utils.run_epoch
 
@@ -4803,20 +4813,37 @@ def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
         seen["k1_steps"] += launch_counts()[0] - before
         return log
 
-    out = io.StringIO()
     train_utils.run_epoch = observed_run_epoch
     try:
-        zero_launch_counts()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            ckpt_dir = train_script.main(["--config", cfg_path])
-        script_s = time.perf_counter() - t0
-        counts = launch_counts()
+        yield seen
+    finally:
+        train_utils.run_epoch = run_epoch
+
+
+def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
+    """``scripts/train.py`` (``main``) on ``data`` at ``kitchen_config``'s
+    recipe, counted as the main path: the script must print one "Rollout
+    disabled" line naming mujoco's ModuleNotFoundError and finish, K1 must
+    launch exactly once per step (K1f and K2 never) and every logged number
+    be finite. Returns the in-process algo, the checkpoint directory, the
+    launches, the logs and the seconds."""
+    from lipvq_tpu_torch.scripts import train as train_script
+
+    cfg_path = os.path.join(tmp, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
+    out = io.StringIO()
+    try:
+        with counted_run_epoch() as seen:
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                ckpt_dir = train_script.main(["--config", cfg_path])
+            script_s = time.perf_counter() - t0
+            counts = launch_counts()
     except BaseException:
         print(out.getvalue()[-8000:])
         raise
-    finally:
-        train_utils.run_epoch = run_epoch
     text = out.getvalue()
     disabled = [line for line in text.splitlines() if line.startswith("Rollout disabled")]
     for line in disabled:
@@ -5146,6 +5173,146 @@ def kitchen_multi_phase(card: str) -> dict:
     return results
 
 
+# phase 21, the multi-task kitchen suite through its own entry point: a corpus
+# directory of links to two committed exports of the suite's full task set
+KITCHEN_SUITE_CORPORA = {"OpenDrawer": KITCHEN_CORPUS,
+                         "PrepareCoffee": os.path.join(KITCHEN_MULTI_ROOT, "PrepareCoffee")}
+
+
+def _suite_main(label: str, argv: list) -> tuple[str, tuple, int]:
+    """The suite twin's ``main(argv)`` in process, counted as the main path:
+    -> (its stdout, the launches (K1, K1f, K2), K1 launches inside
+    ``run_epoch``)."""
+    from lipvq_tpu_torch.examples import kitchen_multitask_suite as suite
+
+    out = io.StringIO()
+    try:
+        with counted_run_epoch() as seen:
+            zero_launch_counts()
+            with contextlib.redirect_stdout(out):
+                suite.main(argv)
+            counts = launch_counts()
+    except BaseException:
+        print(out.getvalue()[-8000:])
+        raise
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("[collect]", "[resume]", "[train]")):
+            print(f"  {label}: {line}")
+    return text, counts, seen["k1_steps"]
+
+
+def kitchen_suite_phase(card: str) -> dict:
+    """Phase 21: the multi-task kitchen suite twin
+    (``lipvq_tpu_torch.examples.kitchen_multitask_suite``) on the card. It
+    asks for ``mujoco`` first and expects the ModuleNotFoundError; then:
+
+    - ``main`` with ``--train_only --balance_tasks`` over a corpus directory
+      linking the committed OpenDrawer and PrepareCoffee exports, at the
+      core-8 recipe's full width, 2 epochs x 20 steps: no collection, K1
+      exactly once per step, K1f and K2 never;
+    - ``main`` again with ``--resume --epochs 3``: start epoch 3 from the
+      state's ``.epoch`` sidecar, 20 more steps (K1 20), ``model_epoch_3``;
+    - the last checkpoint loaded on the card (``policy_from_checkpoint``);
+      per task, ``task_policy`` builds the policy and context, which serve 8
+      requests of 16 envs on that task's recorded observations (K1 once
+      each); the step and the 16-env request timed and profiled;
+    - K1 at the phase's shapes on its own latents."""
+    from lipvq_tpu_torch.data.export import Export
+    from lipvq_tpu_torch.envs.vector_env import VectorEnv
+    from lipvq_tpu_torch.examples import kitchen_multitask_suite as suite
+    from lipvq_tpu_torch.utils import file_utils
+    from lipvq_tpu_torch.utils import train_utils as TrainUtils
+    from lipvq_tpu_torch.utils.lang_utils import LangEncoder
+
+    try:
+        import mujoco  # noqa: F401
+    except ModuleNotFoundError as e:
+        print(f"kitchen_suite: import mujoco raises {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("kitchen_suite: mujoco imports here; the phase is written for the "
+                             "card's machine, which has no mujoco")
+    tasks = list(KITCHEN_SUITE_CORPORA)
+    exports = {t: Export(p) for t, p in KITCHEN_SUITE_CORPORA.items()}
+    results = {"corpus": {t: {"demos": len(e.demos), "steps": e.data_attrs["total"]}
+                          for t, e in exports.items()}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kitchen_suite_") as tmp:
+        corpus_dir, out = os.path.join(tmp, "corpora"), os.path.join(tmp, "out")
+        os.makedirs(corpus_dir)
+        for t, p in KITCHEN_SUITE_CORPORA.items():
+            os.symlink(p, os.path.join(corpus_dir, t))
+        argv = ["--tasks", ",".join(tasks), "--corpus_dir", corpus_dir, "--out", out,
+                "--train_only", *KITCHEN_SUITE_RECIPE, "--balance_tasks"]
+        want = KITCHEN_EPOCHS * KITCHEN_STEPS
+        t0 = time.perf_counter()
+        text, counts, k1_steps = _suite_main("kitchen_suite", argv)
+        train_s = time.perf_counter() - t0
+        if "[collect]" in text or "[train] done" not in text:
+            raise AssertionError("kitchen_suite: want no collection and a finished training")
+        if counts != (want, 0, 0) or k1_steps != want:
+            raise AssertionError(f"kitchen_suite train: launches (K1, K1f, K2) {counts}, K1 in "
+                                 f"the steps {k1_steps}; want ({want}, 0, 0)")
+        resume_argv = argv + ["--resume", "--epochs", str(KITCHEN_EPOCHS + 1)]
+        t0 = time.perf_counter()
+        text, resume_counts, k1_steps = _suite_main("kitchen_suite resume", resume_argv)
+        resume_s = time.perf_counter() - t0
+        resumed = [line for line in text.splitlines() if line.startswith("[resume]")]
+        if len(resumed) != 1 or not resumed[0].endswith(f"-> start_epoch {KITCHEN_EPOCHS + 1}"):
+            raise AssertionError(f"kitchen_suite resume: want one '[resume] ... -> start_epoch "
+                                 f"{KITCHEN_EPOCHS + 1}' line, got {resumed}")
+        if resume_counts != (KITCHEN_STEPS, 0, 0) or k1_steps != KITCHEN_STEPS:
+            raise AssertionError(f"kitchen_suite resume: launches (K1, K1f, K2) {resume_counts}; "
+                                 f"want ({KITCHEN_STEPS}, 0, 0)")
+        last = glob.glob(os.path.join(out, "run", "**", f"model_epoch_{KITCHEN_EPOCHS + 1}.ckpt"),
+                         recursive=True)
+        if len(last) != 1:
+            raise AssertionError(f"kitchen_suite resume: model_epoch_{KITCHEN_EPOCHS + 1}.ckpt "
+                                 f"written {len(last)} times")
+        losses = []
+        for path in sorted(glob.glob(os.path.join(out, "run", "**", "scalars.json"),
+                                     recursive=True)):
+            with open(path) as f:
+                losses += json.load(f)["Train/Loss"]
+        if len(losses) != KITCHEN_EPOCHS + 1 or not np.isfinite(losses).all():
+            raise AssertionError(f"kitchen_suite: epoch losses {losses}")
+        print(f"kitchen_suite: the suite's main trained {KITCHEN_EPOCHS} x {KITCHEN_STEPS} steps "
+              f"of the 6 x 384 flagship (512 codes, batch {KITCHEN_BATCH}, balanced over "
+              f"{tasks}) in {train_s:.1f} s, resumed at epoch {KITCHEN_EPOCHS + 1} for "
+              f"{KITCHEN_STEPS} more in {resume_s:.1f} s; launches (K1, K1f, K2) {counts} + "
+              f"{resume_counts}; epoch losses {losses}")
+        results.update({"train_s": train_s, "resume_s": resume_s, "launches": counts,
+                        "resume_launches": resume_counts, "losses": losses})
+
+        model, ckpt = file_utils.policy_from_checkpoint(last[0])  # CUDA by default
+        args = suite.build_parser().parse_args(argv)
+        lang = LangEncoder(device=model.device)
+        cfg = suite.make_config(args, {t: os.path.join(corpus_dir, t) for t in tasks})
+        with cfg.unlocked():
+            cfg.train.hdf5_cache_mode = "low_dim"
+        ds, _ = TrainUtils.load_data_for_training(cfg, obs_keys=model.obs_shapes.keys(),
+                                                  lang_encoder=lang)
+        batch = model.process_batch_for_training(next(iter(TrainUtils.make_loaders(
+            cfg, ds, None)[0])))
+        results["tasks"] = {}
+        for t in tasks:
+            policy, ctx, tcfg = suite.task_policy(args, model, ckpt, t,
+                                                  os.path.join(corpus_dir, t), lang)
+            ex = exports[t]
+            vec = VectorEnv([lambda i=i, ex=ex: RecordedKitchen(
+                ex, ex.demos[i % len(ex.demos)], start=(i // len(ex.demos)) * 20)
+                for i in range(N_ENVS)], frame_stack=tcfg.train.frame_stack,
+                obs_keys=[k for k in model.obs_shapes if k != "lang_emb"])
+            results["tasks"][t] = kitchen_requests(card, f"kitchen_suite {t}", model, batch,
+                                                   policy, vec, ctx)
+            z, codebook = kitchen_latents(model, batch, ctx)
+        del model, policy, vec
+    results["k1"] = kitchen_k1(card, "kitchen_suite", (
+        ("train", KITCHEN_TRAIN_SHAPE, z["train"], codebook),
+        ("request", KITCHEN_REQUEST_SHAPE, z["request"], codebook)))
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5205,6 +5372,7 @@ def main() -> int:
     vector = timed("vector", vector_phase, card)
     kitchen = timed("kitchen", kitchen_phase, card)
     kitchen_multi = timed("kitchen_multi", kitchen_multi_phase, card)
+    kitchen_suite = timed("kitchen_suite", kitchen_suite_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -5279,6 +5447,10 @@ def main() -> int:
         paths["kitchen learning_floor"] = kitchen["floor"]["launches"][i]
         paths["kitchen_multi train_script"] = kitchen_multi["launches"][i]
         paths["kitchen_multi requests"] = kitchen_multi["request_launches"][i]
+        paths["kitchen_suite train"] = kitchen_suite["launches"][i]
+        paths["kitchen_suite resume"] = kitchen_suite["resume_launches"][i]
+        for t, r in kitchen_suite["tasks"].items():
+            paths[f"kitchen_suite requests {t}"] = r["request_launches"][i]
     for batch in EXPORT_BATCHES:  # counted in the reloading process
         k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
@@ -5305,6 +5477,8 @@ def main() -> int:
         "kitchen_floor_train_shape": kitchen["k1"]["floor_train"],
         "kitchen_multi_train_shape": kitchen_multi["k1"]["train"],
         "kitchen_multi_request_shape": kitchen_multi["k1"]["request"],
+        "kitchen_suite_train_shape": kitchen_suite["k1"]["train"],
+        "kitchen_suite_request_shape": kitchen_suite["k1"]["request"],
         "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
@@ -5339,7 +5513,8 @@ def main() -> int:
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
-        "kitchen": kitchen, "kitchen_multi": kitchen_multi, "phase_s": phase_s}))
+        "kitchen": kitchen, "kitchen_multi": kitchen_multi, "kitchen_suite": kitchen_suite,
+        "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

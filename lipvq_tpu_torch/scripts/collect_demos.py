@@ -18,8 +18,12 @@ seeds give the same arrays as the JAX package, bit for bit.
     python -m lipvq_tpu_torch.scripts.collect_demos --env SyntheticKitchen \\
         --n_demos 20 --output demos_export
 
-Teleoperation needs the terminal devices of ``sim/devices.py``, which are
-not ported yet (ROADMAP §1 item 8), and raises.
+``--device keyboard`` collects by teleoperation instead: the terminal
+keyboard of ``robocasa/sim/devices.py`` (raw stdin) drives each episode
+until the task succeeds, the env is done, or the device's controls end it
+(``q`` ends an episode, ``.`` marks it a success); ``--device spacemouse``
+needs the ``hid`` package and raises without it. The episodes go through
+the same export writer, as the JAX script's go into its HDF5 file.
 """
 
 from __future__ import annotations
@@ -164,11 +168,47 @@ def main(args=None):
     parser.add_argument("--seed", type=int, default=0)
     ns = parser.parse_args(args)
 
-    if ns.device != "scripted":
-        raise NotImplementedError(
-            f"--device {ns.device}: the teleoperation devices (sim/devices.py) are not "
-            f"ported yet (ROADMAP §1 item 8)")
     env = create_env(ns.env, seed=ns.seed)
+
+    if ns.device != "scripted":
+        # terminal teleop (reference collect_demos.py:481-491 uses robosuite's
+        # Keyboard / SpaceMouse; this one reads raw stdin)
+        from lipvq_tpu_torch.robocasa.sim.devices import make_device
+
+        device = make_device(ns.device)
+        trajs, n_success = [], 0
+        print("teleop: wasd/rf move arm, space grip, b base mode, "
+              "q end episode, . mark success")
+        while len(trajs) < ns.n_demos:
+            obs = env.reset()
+            print(f"episode {len(trajs)}: {env.ep_lang_str}")
+            device.start_control()
+            traj = {"obs": [], "actions": [], "rewards": [], "dones": [],
+                    "states": [], "lang": getattr(env, "ep_lang_str", None)}
+            try:
+                for _ in range(ns.max_steps):
+                    a, ctrl = device.get_action()
+                    traj["obs"].append(obs)
+                    traj["states"].append(env.get_state())
+                    obs, r, done, info = env.step(a)
+                    traj["actions"].append(a)
+                    traj["rewards"].append(r)
+                    success = info.get("is_success", {}).get("task", False) or ctrl["success"]
+                    traj["dones"].append(float(done or success))
+                    if done or success or ctrl["done"]:
+                        break
+            finally:
+                device.stop_control()
+            if hasattr(env, "get_ep_meta"):
+                traj["ep_meta"] = env.get_ep_meta()
+            if ns.only_success and not success:
+                continue
+            trajs.append(traj)
+            n_success += int(success)
+        write_demos(ns.output, env, trajs)
+        print(f"wrote {len(trajs)} demos ({n_success} successful) to {ns.output}")
+        return ns.output
+
     rng = np.random.default_rng(ns.seed)
     # kitchen tasks use the privileged scripted experts; the synthetic env
     # keeps its go-to-goal controller

@@ -83,8 +83,8 @@ def test_collected_corpus_matches_jax(tmp_path, action_noise, dwell_prob):
 
 def test_collect_main_matches_jax(tmp_path, monkeypatch):
     """The scripted CLI path: the JAX script's file equals the port's export;
-    teleoperation raises, naming ROADMAP item 8; a multi-stage kitchen task
-    builds, as JAX's does."""
+    a multi-stage kitchen task builds, as JAX's does. (Teleoperation is held
+    in ``test_torch_port_kitchen_tools.py``.)"""
     h5 = str(tmp_path / "demos.hdf5")
     monkeypatch.setattr(sys, "argv", ["collect_demos", "--n_demos", "4", "--max_steps", "60",
                                       "--output", h5, "--seed", "1", "--only_success"])
@@ -92,8 +92,6 @@ def test_collect_main_matches_jax(tmp_path, monkeypatch):
     out = collect_demos.main(["--n_demos", "4", "--max_steps", "60", "--output",
                               str(tmp_path / "export"), "--seed", "1", "--only_success"])
     assert _hold_corpus(h5, out) == 4
-    with pytest.raises(NotImplementedError, match="item 8"):
-        collect_demos.main(["--output", str(tmp_path / "x"), "--device", "keyboard"])
     env, jenv = create_env("PreSoakPan", seed=0), jax_create_env("PreSoakPan", seed=0)
     got, want = env.reset(), jenv.reset()
     assert list(got) == list(want) and all(np.array_equal(got[k], want[k]) for k in want)

@@ -20,6 +20,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "msgpack", "lipvq_tpu")
 # them (the HF-backed PRISE algorithms, the pretrained CLIP loader)
 LAZY = ("tokenizers", "transformers")
 
+# the teleop devices, the robocasa expert tools, the USD export and the
+# kitchen suite's example twins
+TOOL_MODULES = (
+    "lipvq_tpu_torch.robocasa.sim.devices", "lipvq_tpu_torch.scripts.collect_demos",
+    *(f"lipvq_tpu_torch.robocasa.{m}" for m in (
+        "bench_expert_success", "bench_speed", "diagnose_expert", "repin_experts",
+        "usd_export")),
+    *(f"lipvq_tpu_torch.examples.{m}" for m in (
+        "kitchen_multitask_suite", "pnp_probe", "aggregate_seed_tables")))
+
 # the first-party MuJoCo kitchen and its collection tools
 KITCHEN_MODULES = (
     "lipvq_tpu_torch.robocasa", "lipvq_tpu_torch.robocasa.sim",
@@ -38,7 +48,7 @@ KITCHEN_MODULES = (
     "lipvq_tpu_torch.scripts.collect_kitchen_suite", "lipvq_tpu_torch.scripts.conversion",
     "lipvq_tpu_torch.scripts.conversion.extract_action_dict",
     "lipvq_tpu_torch.scripts.dataset_states_to_obs", "lipvq_tpu_torch.scripts.playback_dataset",
-    "lipvq_tpu_torch.examples.kitchen_convergence_demo")
+    "lipvq_tpu_torch.examples.kitchen_convergence_demo", *TOOL_MODULES)
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -110,6 +120,35 @@ for task in ("OpenDrawer", "PreSoakPan"):
     else:
         raise AssertionError("a kitchen was built without mujoco")
 """
+
+
+_WITHOUT_OPTIONAL = f"""
+import importlib, sys
+for name in ("mujoco", "hid", "h5py"):
+    sys.modules[name] = None  # import raises ModuleNotFoundError
+assert not sys.stdin.isatty()
+for name in {TOOL_MODULES!r}:
+    importlib.import_module(name)
+from lipvq_tpu_torch.robocasa.sim.devices import make_device
+try:
+    make_device("spacemouse")
+except ImportError as e:
+    print("raised:", e)
+print("keyboard:", type(make_device("keyboard")).__name__)
+"""
+
+
+def test_tool_modules_import_without_mujoco_hid_h5py_or_a_terminal():
+    """The teleop devices, the expert tools and the suite's twins import where
+    ``mujoco``, ``hid`` and ``h5py`` are not installed, with no terminal on
+    stdin; the SpaceMouse then raises naming ``hid``, and the keyboard
+    builds."""
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_OPTIONAL], cwd=REPO,
+                          stdin=subprocess.DEVNULL, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "raised: SpaceMouse teleop requires the `hid` package" in proc.stdout
+    assert "keyboard: Keyboard" in proc.stdout
 
 
 def test_kitchen_modules_import_without_mujoco():

@@ -187,7 +187,9 @@ def test_extract_action_dict_skips_an_export_without_actions(tmp_path):
 
 
 def test_collect_demos_main_kitchen_matches_jax(tmp_path, monkeypatch):
-    """The scripted CLI on a kitchen task takes the task's expert in both."""
+    """The scripted CLI on a kitchen task takes the task's expert in both;
+    ``--device spacemouse`` raises ImportError naming ``hid`` in both (it is
+    not installed here)."""
     args = ["--env", "CloseDrawer", "--n_demos", "2", "--max_steps", "200", "--seed", "2"]
     h5 = str(tmp_path / "demos.hdf5")
     monkeypatch.setattr(sys, "argv", ["collect_demos"] + args + ["--output", h5])
@@ -195,8 +197,16 @@ def test_collect_demos_main_kitchen_matches_jax(tmp_path, monkeypatch):
     out = collect_demos.main(args + ["--output", str(tmp_path / "port")])
     assert assert_exports_equal(out, hdf5_to_export(h5, str(tmp_path / "want"))) == 2
     assert Export(out).demo_attrs("demo_0")["model_file"]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        collect_demos.main(["--output", str(tmp_path / "x"), "--device", "spacemouse"])
+    errors = []
+    monkeypatch.setattr(sys, "argv", ["collect_demos", "--output", str(tmp_path / "y.hdf5"),
+                                      "--device", "spacemouse"])
+    for run in (jax_collect_demos.main,
+                lambda: collect_demos.main(["--output", str(tmp_path / "x"), "--device",
+                                            "spacemouse"])):
+        with pytest.raises(ImportError, match="`hid` package") as e:
+            run()
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
 
 
 def test_create_env_matches_jax():

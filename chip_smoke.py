@@ -4,9 +4,10 @@ tokenizer-ablation arms, the image protocol, the policy baselines, the
 offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
 checkpoint import, policy export, the train-step profiler, data-parallel
 training, the subprocess vector env, the flagship on single- and
-multi-stage kitchen demonstrations and the multi-task kitchen suite's
-training and serving on one NVIDIA GPU, and hold its CUDA kernels against
-their plain PyTorch versions.
+multi-stage kitchen demonstrations, the multi-task kitchen suite's
+training and serving, and the dataset tools and conversion scripts feeding
+training on one NVIDIA GPU, and hold its CUDA kernels against their plain
+PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -285,7 +286,26 @@ all started together). Phases:
    recorded observations (K1 once each); the step and the 16-env request
    timed and profiled; K1 at 320 and 160 rows x 512 codes x 823 on the
    phase's latents.
-22. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+22. Dataset tools (``data_tools_phase``): ``import mujoco``, ``import
+   gymnasium`` and ``import h5py`` must raise ModuleNotFoundError; a copy of
+   the committed OpenDrawer corpus gets ``split_train_val`` (ratio 0.25,
+   seed 0: 6 train, 2 valid demos) and ``filter_dataset_size`` (4 demos),
+   then ``set_dataset_attr`` (an ``MG_`` env name), ``remove_mg_env_label``,
+   ``copy_ds_key`` and ``get_dataset_info``, each through its ``main``, each
+   report checked. ``scripts/train.py`` trains the kitchen flagship at the
+   core-8 recipe's full width on ``hdf5_filter_key="train"`` with validation
+   on ``"valid"``, 2 epochs x 10 steps and 5 validation steps each: the train
+   and valid datasets hold exactly their masks' demos and steps, the
+   device-resident corpus (``DeviceCachedLoader``) one item per train-mask
+   step; "Rollout disabled" names mujoco; K1 exactly 20 + 10, K1f and K2
+   never. ``convert_d4rl`` turns a seeded .npz buffer at Hopper's widths
+   (obs 11, act 3, 200 episodes x 1000 steps cut by timeouts) into an export
+   for ``Hopper-v4``; ``scripts/train.py`` trains the flagship (1024 codes)
+   on its ``flat`` observation for 20 steps from the low-dim cache: "Rollout
+   disabled" names gymnasium, K1 exactly 20. A train step of each run and a
+   validation step timed and profiled (device busy, idle share); K1 at the
+   phase's shapes on its own latents.
+23. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -4820,21 +4840,47 @@ def counted_run_epoch():
         train_utils.run_epoch = run_epoch
 
 
-def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
-    """``scripts/train.py`` (``main``) on ``data`` at ``kitchen_config``'s
-    recipe, counted as the main path: the script must print one "Rollout
-    disabled" line naming mujoco's ModuleNotFoundError and finish, K1 must
-    launch exactly once per step (K1f and K2 never) and every logged number
-    be finite. Returns the in-process algo, the checkpoint directory, the
+@contextlib.contextmanager
+def captured_data():
+    """Inside: ``train_utils.load_data_for_training`` and ``make_loaders``
+    record what they return (``seen["datasets"]``, ``seen["loaders"]``)."""
+    from lipvq_tpu_torch.utils import train_utils
+
+    seen = {}
+    load, make = train_utils.load_data_for_training, train_utils.make_loaders
+
+    def observed_load(*args, **kwargs):
+        seen["datasets"] = load(*args, **kwargs)
+        return seen["datasets"]
+
+    def observed_make(*args, **kwargs):
+        seen["loaders"] = make(*args, **kwargs)
+        return seen["loaders"]
+
+    train_utils.load_data_for_training, train_utils.make_loaders = observed_load, observed_make
+    try:
+        yield seen
+    finally:
+        train_utils.load_data_for_training, train_utils.make_loaders = load, make
+
+
+def counted_script(label: str, cfg_dict: dict, tmp: str, want: int, package: str,
+                   epochs: int) -> dict:
+    """``scripts/train.py`` (``main``) on ``cfg_dict``, counted as the main
+    path: the script must print one "Rollout disabled" line naming
+    ``package``'s ModuleNotFoundError and finish, K1 must launch exactly
+    ``want`` times, all inside run_epoch (K1f and K2 never), and every logged
+    number be finite over ``epochs`` epochs. Returns the in-process algo,
+    the datasets and loaders the script built, the checkpoint directory, the
     launches, the logs and the seconds."""
     from lipvq_tpu_torch.scripts import train as train_script
 
-    cfg_path = os.path.join(tmp, "config.json")
+    cfg_path = os.path.join(tmp, f"{label.replace(' ', '_')}.json")
     with open(cfg_path, "w") as f:
-        json.dump(kitchen_config(data, os.path.join(tmp, "out")), f)
+        json.dump(cfg_dict, f)
     out = io.StringIO()
     try:
-        with counted_run_epoch() as seen:
+        with counted_run_epoch() as seen, captured_data() as data:
             zero_launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -4849,24 +4895,32 @@ def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
     for line in disabled:
         print(f"  {label} script: {line}")
     if ckpt_dir is None or len(disabled) != 1 or "ModuleNotFoundError" not in disabled[0] \
-            or "'mujoco'" not in disabled[0]:
+            or f"'{package}'" not in disabled[0]:
         print(text[-8000:])
         raise AssertionError(f"{label} script: want one 'Rollout disabled' line naming "
-                             "mujoco's ModuleNotFoundError and a finished run")
-    want_steps = KITCHEN_EPOCHS * KITCHEN_STEPS
-    if counts != (want_steps, 0, 0) or seen["k1_steps"] != want_steps:
+                             f"{package}'s ModuleNotFoundError and a finished run")
+    if counts != (want, 0, 0) or seen["k1_steps"] != want:
         raise AssertionError(f"{label} script: launches (K1, K1f, K2) {counts}, K1 in the "
-                             f"steps {seen['k1_steps']}; want ({want_steps}, 0, 0)")
+                             f"epochs {seen['k1_steps']}; want ({want}, 0, 0)")
     with open(os.path.join(os.path.dirname(ckpt_dir), "logs", "scalars.json")) as f:
         logs = json.load(f)
     bad = {k: v for k, v in logs.items() if not np.isfinite(v).all()}
-    if bad or len(logs.get("Train/Loss", [])) != KITCHEN_EPOCHS:
+    if bad or len(logs.get("Train/Loss", [])) != epochs:
         raise AssertionError(f"{label} script: non-finite or missing logs {bad or logs}")
+    return {"algo": seen["algo"], "datasets": data["datasets"], "loaders": data["loaders"],
+            "ckpt_dir": ckpt_dir, "launches": counts, "logs": logs, "script_s": script_s}
+
+
+def kitchen_script(label: str, data: list, tmp: str, what: str) -> dict:
+    """``scripts/train.py`` (``main``) on ``data`` at ``kitchen_config``'s
+    recipe, counted as the main path (``counted_script``): "Rollout
+    disabled" naming mujoco, K1 exactly once per step."""
+    run = counted_script(label, kitchen_config(data, os.path.join(tmp, "out")), tmp,
+                         KITCHEN_EPOCHS * KITCHEN_STEPS, "mujoco", KITCHEN_EPOCHS)
     print(f"{label} script: {KITCHEN_EPOCHS} epochs x {KITCHEN_STEPS} steps of the 6 x 384 "
-          f"flagship (512 codes, batch {KITCHEN_BATCH}) on {what} in {script_s:.1f} s; "
-          f"launches (K1, K1f, K2) {counts}; Train/Loss {logs['Train/Loss']}")
-    return {"algo": seen["algo"], "ckpt_dir": ckpt_dir, "launches": counts, "logs": logs,
-            "script_s": script_s}
+          f"flagship (512 codes, batch {KITCHEN_BATCH}) on {what} in {run['script_s']:.1f} s; "
+          f"launches (K1, K1f, K2) {run['launches']}; Train/Loss {run['logs']['Train/Loss']}")
+    return run
 
 
 def kitchen_reload(label: str, algo, ckpt_dir: str, batch) -> None:
@@ -4936,19 +4990,27 @@ def kitchen_requests(card: str, label: str, algo, batch, policy, vec, ctx) -> di
     return out
 
 
+def context_latents(algo, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tokenizer's latents of a train step's context actions (K1's input
+    on that path) and its codebook."""
+    tok = algo.nets.net.encoder.action_network
+    actions = torch.as_tensor(batch["actions"], device=algo.device)
+    with torch.no_grad():
+        z = tok.encode(actions[:len(actions) // 2].reshape(-1, actions.shape[-1]))
+    return z, tok.quantizer.codebook.detach().clone()
+
+
 def kitchen_latents(algo, batch, ctx) -> tuple[dict, torch.Tensor]:
     """The tokenizer's latents of a train step's context actions and of a
     16-env request's context, and its codebook: K1's inputs on those paths."""
+    z_train, codebook = context_latents(algo, batch)
     tok = algo.nets.net.encoder.action_network
-    half = len(batch["actions"]) // 2
     ctx_actions = np.asarray(ctx["actions"])
     ctx_actions = np.repeat(ctx_actions, N_ENVS // len(ctx_actions), 0)
     with torch.no_grad():
-        z = {"train": tok.encode(torch.as_tensor(batch["actions"][:half], device=algo.device)
-                                 .reshape(-1, AC_DIM)),
-             "request": tok.encode(torch.as_tensor(ctx_actions, device=algo.device)
-                                   .reshape(-1, AC_DIM))}
-    return z, tok.quantizer.codebook.detach().clone()
+        z_request = tok.encode(torch.as_tensor(ctx_actions, device=algo.device)
+                               .reshape(-1, AC_DIM))
+    return {"train": z_train, "request": z_request}, codebook
 
 
 def kitchen_hold(label: str, data, lang, corpus: str) -> dict:
@@ -5313,6 +5375,245 @@ def kitchen_suite_phase(card: str) -> dict:
     return results
 
 
+# phase 22, the dataset tools: the committed OpenDrawer corpus split and cut
+# into subsets by the port's tools, the flagship trained on the filter keys,
+# and a D4RL buffer at Hopper's widths converted and trained on. The card's
+# machine has no mujoco, gymnasium or h5py: the tools that run there work over
+# exports, and the D4RL buffer is an .npz
+DATA_TOOLS_RATIO, DATA_TOOLS_SIZES = 0.25, (4,)
+DATA_TOOLS_STEPS, DATA_TOOLS_VALID_STEPS = 10, 5  # per epoch, KITCHEN_EPOCHS epochs
+# hopper-medium-v2's widths (obs 11, act 3) and 1000-step timeouts; 200
+# episodes, a fifth of its ~1M transitions
+D4RL_EPISODES, D4RL_EPISODE_LEN, D4RL_OBS, D4RL_ACT = 200, 1000, 11, 3
+D4RL_STEPS, D4RL_CODES = 20, 1024  # the flagship template's codebook
+
+
+def _tool_main(main, argv: list, echo: bool = True) -> str:
+    """A dataset tool's ``main(argv)``; returns what it reported and, with
+    ``echo``, prints it."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    text = out.getvalue()
+    for line in text.strip().splitlines() if echo else ():
+        print(f"  data_tools: {line}")
+    return text
+
+
+def assert_mask_honoured(label: str, ds, export, mask: str) -> int:
+    """``ds`` holds exactly the demos of ``mask`` and one item per step of
+    them (the windows are padded); returns that step count."""
+    demos = sorted(export.mask(mask), key=lambda d: int(d[5:]))
+    steps = sum(int(export.demo_attrs(d)["num_samples"]) for d in demos)
+    if list(ds.demos) != demos or len(ds) != steps:
+        raise AssertionError(f"{label}: the {mask!r} dataset holds {ds.demos} ({len(ds)} items); "
+                             f"want the mask's {demos} ({steps} steps)")
+    return steps
+
+
+def step_timing(card: str, label: str, algo, batch, validate: bool = False) -> dict:
+    """One train (or validation) step on ``batch``, timed (host) and profiled
+    (device busy, idle share)."""
+    def step():
+        algo.train_on_batch(batch, KITCHEN_EPOCHS + 1, validate=validate)
+        torch.cuda.synchronize()
+
+    step_ms = host_ms(step, reps=10)
+    busy, kernels = profile_device(
+        lambda: algo.train_on_batch(batch, KITCHEN_EPOCHS + 1, validate=validate), 5)
+    out = {"step_ms": step_ms, "step_busy_ms": busy,
+           "step_idle_share": None if busy is None else 1 - busy / step_ms,
+           "step_top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])}
+    print(f"{label} timing: {'validation' if validate else 'train'} step {step_ms:.3f} ms "
+          f"(device busy {busy} ms, idle share {out['step_idle_share']}) [{card}]")
+    return out
+
+
+def write_d4rl_buffer(path: str) -> str:
+    """A seeded D4RL-style flat buffer at Hopper's widths: 200 episodes of
+    1000 steps, each cut by a timeout, no terminal."""
+    rng = np.random.default_rng(22)
+    n = D4RL_EPISODES * D4RL_EPISODE_LEN
+    timeouts = np.zeros(n, np.float32)
+    timeouts[D4RL_EPISODE_LEN - 1::D4RL_EPISODE_LEN] = 1
+    np.savez(path, observations=rng.standard_normal((n, D4RL_OBS), np.float32),
+             actions=rng.uniform(-1, 1, (n, D4RL_ACT)).astype(np.float32),
+             rewards=rng.standard_normal(n, np.float32), terminals=np.zeros(n, np.float32),
+             timeouts=timeouts)
+    return path
+
+
+def data_tools_phase(card: str) -> dict:
+    """Phase 22: the dataset tools and conversion scripts over exports, and
+    the flagship trained through them. ``import mujoco``, ``import gymnasium``
+    and ``import h5py`` must raise; then:
+
+    - a copy of the committed OpenDrawer corpus (8 demos, 456 steps) gets
+      ``split_train_val`` (ratio 0.25, seed 0) and ``filter_dataset_size``
+      (sizes 4); ``get_dataset_info``, ``set_dataset_attr`` (an ``MG_`` env
+      name), ``remove_mg_env_label`` and ``copy_ds_key`` (from the committed
+      corpus) run over it, each through its ``main``;
+    - ``scripts/train.py`` trains the kitchen flagship at the core-8
+      recipe's full width (6 x 384, 8 heads, 512 codes, batch 64, the
+      device-resident corpus) on ``hdf5_filter_key="train"`` with validation
+      on ``"valid"``, 2 epochs x 10 steps and 5 validation steps each: the
+      train and valid datasets hold exactly their masks' demos and steps,
+      the ``DeviceCachedLoader`` one item per train-mask step; "Rollout
+      disabled" names mujoco; K1 exactly 20 + 10, K1f and K2 never;
+    - ``convert_d4rl`` turns a seeded .npz buffer at Hopper's widths (200
+      episodes x 1000 steps, timeouts) into an export for ``Hopper-v4``, and
+      ``scripts/train.py`` trains the flagship (1024 codes) on its ``flat``
+      observation for 20 steps from the low-dim cache (the device-resident
+      corpus would materialize all 200 000 windows first): "Rollout
+      disabled" names gymnasium; K1 exactly 20;
+    - a train step of each run and a validation step timed and profiled; K1
+      at the phase's shapes on its own latents."""
+    import shutil
+
+    from lipvq_tpu_torch.data.export import Export
+    from lipvq_tpu_torch.scripts import filter_dataset_size, get_dataset_info, split_train_val
+    from lipvq_tpu_torch.scripts.conversion import (
+        convert_d4rl,
+        copy_ds_key,
+        remove_mg_env_label,
+        set_dataset_attr,
+    )
+
+    for package in ("mujoco", "gymnasium", "h5py"):
+        try:
+            __import__(package)
+        except ModuleNotFoundError as e:
+            print(f"data_tools: import {package} raises {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"data_tools: {package} imports here; the phase is written for "
+                                 f"the card's machine, which has no {package}")
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_tools_") as tmp:
+        t0 = time.perf_counter()
+        root = shutil.copytree(KITCHEN_CORPUS, os.path.join(tmp, "OpenDrawer"))
+        text = _tool_main(split_train_val.main, ["--dataset", root, "--ratio",
+                                                 str(DATA_TOOLS_RATIO)])
+        if text.strip() != "train: 6 demos, valid: 2 demos":
+            raise AssertionError(f"data_tools: split_train_val reported {text!r}")
+        _tool_main(filter_dataset_size.main,
+                   ["--dataset", root, "--sizes", *map(str, DATA_TOOLS_SIZES)])
+        _tool_main(set_dataset_attr.main, ["--dataset", root, "--attr", "env_args.env_name",
+                                           "--value", "MG_OpenDrawer"])
+        text = _tool_main(remove_mg_env_label.main, ["--dataset", root])
+        if text.strip() != "env_name is now 'OpenDrawer'":
+            raise AssertionError(f"data_tools: remove_mg_env_label reported {text!r}")
+        text = _tool_main(copy_ds_key.main, ["--src", KITCHEN_CORPUS, "--target", root,
+                                             "--keys", "action_dict", "actions"])
+        if not text.startswith("copied 16 key instances"):
+            raise AssertionError(f"data_tools: copy_ds_key reported {text!r}")
+        info = json.loads(_tool_main(get_dataset_info.main, ["--dataset", root], echo=False))
+        print(f"  data_tools: {json.dumps(info)}")
+        want = {"n_demos": 8, "total_samples": 456, "env_name": "OpenDrawer",
+                "filter_keys": ["4_demos", "train", "valid"]}
+        if {k: info[k] for k in want} != want:
+            raise AssertionError(f"data_tools: get_dataset_info reported {info}")
+        export = Export(root)
+        source = Export(KITCHEN_CORPUS)
+        for demo in export.demos:
+            if not np.array_equal(export.load(demo, "actions"), source.load(demo, "actions")):
+                raise AssertionError(f"data_tools: copy_ds_key changed {demo}/actions")
+        results["tools_s"] = time.perf_counter() - t0
+        results["masks"] = {k: export.mask(k) for k in export.masks}
+        print(f"data_tools: the tools over a copy of the OpenDrawer corpus in "
+              f"{results['tools_s']:.2f} s; masks {results['masks']}")
+
+        # the kitchen flagship on the filter keys
+        cfg = kitchen_config(root, os.path.join(tmp, "out_filter"))
+        cfg["train"].update({"hdf5_filter_key": "train", "hdf5_validation_filter_key": "valid"})
+        cfg["experiment"].update({"validate": True, "epoch_every_n_steps": DATA_TOOLS_STEPS,
+                                  "validation_epoch_every_n_steps": DATA_TOOLS_VALID_STEPS})
+        want_k1 = KITCHEN_EPOCHS * (DATA_TOOLS_STEPS + DATA_TOOLS_VALID_STEPS)
+        run = counted_script("data_tools filter_key", cfg, tmp, want_k1, "mujoco",
+                             KITCHEN_EPOCHS)
+        train_ds, valid_ds = run["datasets"]
+        train_loader, valid_loader, _ = run["loaders"]
+        train_steps = assert_mask_honoured("data_tools train", train_ds, export, "train")
+        valid_steps = assert_mask_honoured("data_tools valid", valid_ds, export, "valid")
+        if type(train_loader).__name__ != "DeviceCachedLoader" or train_loader._n != train_steps:
+            raise AssertionError(f"data_tools: the train loader is {type(train_loader).__name__} "
+                                 f"over {getattr(train_loader, '_n', None)} items; want the "
+                                 f"DeviceCachedLoader over the {train_steps} train-mask steps")
+        if len(run["logs"].get("Valid/Loss", [])) != KITCHEN_EPOCHS:
+            raise AssertionError(f"data_tools: validation losses {run['logs'].get('Valid/Loss')}")
+        algo = run["algo"]
+        steps = KITCHEN_EPOCHS * DATA_TOOLS_STEPS
+        print(f"data_tools filter_key script: {KITCHEN_EPOCHS} epochs x {DATA_TOOLS_STEPS} steps "
+              f"+ {DATA_TOOLS_VALID_STEPS} validation steps of the 6 x 384 flagship (512 codes, "
+              f"batch {KITCHEN_BATCH}) in {run['script_s']:.1f} s; the 'train' mask "
+              f"({len(train_ds.demos)} demos, {train_steps} steps) through the "
+              f"DeviceCachedLoader ({train_loader._n} items on the card), the 'valid' mask "
+              f"({len(valid_ds.demos)} demos, {valid_steps} steps) through the host "
+              f"{type(valid_loader).__name__}; launches (K1, K1f, K2) {run['launches']}; "
+              f"Train/Loss {run['logs']['Train/Loss']}, Valid/Loss {run['logs']['Valid/Loss']}")
+        timing = {k: per_step_ms(run["logs"], f"Timing_Stats/Train_{k}", DATA_TOOLS_STEPS)
+                  for k in ("Data_Loading", "Process_Batch", "Train_Batch")}
+        batch = next(iter(train_loader))  # preprocessed, on the card
+        valid_batch = algo.process_batch_for_training(next(iter(valid_loader)))
+        results["filter_key"] = {
+            "script_s": run["script_s"], "launches": run["launches"],
+            "train_mask": {"demos": len(train_ds.demos), "steps": train_steps},
+            "valid_mask": {"demos": len(valid_ds.demos), "steps": valid_steps},
+            "train_loader": type(train_loader).__name__, "train_loader_items": train_loader._n,
+            "valid_loader": type(valid_loader).__name__, "losses": run["logs"]["Train/Loss"],
+            "valid_losses": run["logs"]["Valid/Loss"], "script_step_ms": timing,
+            "train": step_timing(card, "data_tools filter_key", algo, batch),
+            "valid": step_timing(card, "data_tools filter_key", algo, valid_batch,
+                                 validate=True)}
+        z_train, codebook = context_latents(algo, batch)
+        z_valid, _ = context_latents(algo, valid_batch)
+        del algo, run, batch, valid_batch, train_loader, valid_loader
+
+        # a D4RL buffer converted, and the flagship trained on it
+        t0 = time.perf_counter()
+        buf = write_d4rl_buffer(os.path.join(tmp, "hopper.npz"))
+        d4rl_root = os.path.join(tmp, "hopper_export")
+        text = _tool_main(convert_d4rl.main, ["--buffer", buf, "--env_name", "Hopper-v4",
+                                              "--output", d4rl_root])
+        convert_s = time.perf_counter() - t0
+        d4rl = Export(d4rl_root)
+        if len(d4rl.demos) != D4RL_EPISODES or \
+                d4rl.data_attrs["total"] != D4RL_EPISODES * D4RL_EPISODE_LEN:
+            raise AssertionError(f"data_tools: convert_d4rl reported {text!r}")
+        cfg = kitchen_config(d4rl_root, os.path.join(tmp, "out_d4rl"))
+        cfg["train"].update({"num_epochs": 1, "hdf5_cache_mode": "low_dim"})
+        cfg["experiment"]["epoch_every_n_steps"] = D4RL_STEPS
+        cfg["algo"]["vq"]["num_codes"] = D4RL_CODES
+        cfg["observation"]["modalities"]["obs"]["low_dim"] = ["flat"]
+        run = counted_script("data_tools d4rl", cfg, tmp, D4RL_STEPS, "gymnasium", 1)
+        train_ds = run["datasets"][0]
+        if len(train_ds) != D4RL_EPISODES * D4RL_EPISODE_LEN:
+            raise AssertionError(f"data_tools d4rl: {len(train_ds)} items")
+        algo = run["algo"]
+        print(f"data_tools d4rl: convert_d4rl wrote {len(d4rl.demos)} demos "
+              f"({d4rl.data_attrs['total']} transitions) in {convert_s:.1f} s; scripts/train.py "
+              f"trained {D4RL_STEPS} steps of the 6 x 384 flagship ({D4RL_CODES} codes, batch "
+              f"{KITCHEN_BATCH}, obs 'flat' {D4RL_OBS}, actions {D4RL_ACT}) in "
+              f"{run['script_s']:.1f} s; launches (K1, K1f, K2) {run['launches']}; Train/Loss "
+              f"{run['logs']['Train/Loss']}")
+        d4rl_batch = algo.process_batch_for_training(next(iter(run["loaders"][0])))
+        results["d4rl"] = {
+            "demos": len(d4rl.demos), "transitions": d4rl.data_attrs["total"],
+            "convert_s": convert_s, "script_s": run["script_s"], "launches": run["launches"],
+            "losses": run["logs"]["Train/Loss"],
+            "script_step_ms": {k: per_step_ms(run["logs"], f"Timing_Stats/Train_{k}", D4RL_STEPS)
+                               for k in ("Data_Loading", "Process_Batch", "Train_Batch")},
+            "train": step_timing(card, "data_tools d4rl", algo, d4rl_batch)}
+        z_d4rl, d4rl_codebook = context_latents(algo, d4rl_batch)
+        del algo, run, d4rl_batch, train_ds
+    results["k1"] = kitchen_k1(card, "data_tools", (
+        ("train", (len(z_train), len(codebook), z_train.shape[1]), z_train, codebook),
+        ("valid", (len(z_valid), len(codebook), z_valid.shape[1]), z_valid, codebook),
+        ("d4rl_train", (len(z_d4rl), len(d4rl_codebook), z_d4rl.shape[1]), z_d4rl,
+         d4rl_codebook)))
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5373,6 +5674,7 @@ def main() -> int:
     kitchen = timed("kitchen", kitchen_phase, card)
     kitchen_multi = timed("kitchen_multi", kitchen_multi_phase, card)
     kitchen_suite = timed("kitchen_suite", kitchen_suite_phase, card)
+    data_tools = timed("data_tools", data_tools_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -5451,6 +5753,8 @@ def main() -> int:
         paths["kitchen_suite resume"] = kitchen_suite["resume_launches"][i]
         for t, r in kitchen_suite["tasks"].items():
             paths[f"kitchen_suite requests {t}"] = r["request_launches"][i]
+        paths["data_tools filter_key train_script"] = data_tools["filter_key"]["launches"][i]
+        paths["data_tools d4rl train_script"] = data_tools["d4rl"]["launches"][i]
     for batch in EXPORT_BATCHES:  # counted in the reloading process
         k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
@@ -5479,6 +5783,9 @@ def main() -> int:
         "kitchen_multi_request_shape": kitchen_multi["k1"]["request"],
         "kitchen_suite_train_shape": kitchen_suite["k1"]["train"],
         "kitchen_suite_request_shape": kitchen_suite["k1"]["request"],
+        "data_tools_train_shape": data_tools["k1"]["train"],
+        "data_tools_valid_shape": data_tools["k1"]["valid"],
+        "data_tools_d4rl_train_shape": data_tools["k1"]["d4rl_train"],
         "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
@@ -5514,7 +5821,7 @@ def main() -> int:
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
         "kitchen": kitchen, "kitchen_multi": kitchen_multi, "kitchen_suite": kitchen_suite,
-        "phase_s": phase_s}))
+        "data_tools": data_tools, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,8 @@ demo list as strings). Arrays keep their HDF5 shape and dtype: 1-D
 copies a row range and keeps no file open, so a reader over thousands of
 demos holds no handle between reads. ``add_arrays`` adds arrays to the demos
 of an existing export (corpus tokens, ``tokens/<key>``) and rewrites
-``meta.json`` atomically.
+``meta.json`` atomically; ``update_meta`` sets filter masks and attributes
+(the dataset tools' splits, subsets and stamps) the same way.
 """
 
 from __future__ import annotations
@@ -116,6 +117,26 @@ def add_arrays(root: str, arrays: dict[str, dict[str, np.ndarray]]) -> None:
     _write_meta(root, meta)
 
 
+def update_meta(root: str, masks: dict[str, list[str]] | None = None,
+                data_attrs: dict | None = None,
+                demo_attrs: dict[str, dict] | None = None) -> None:
+    """Set entries of the export's ``meta.json`` at ``root``: each filter
+    mask of ``masks`` (a list of demo names), each attribute of
+    ``data_attrs`` and, per demo, each attribute of ``demo_attrs`` is added
+    or replaced; the others stay. ``meta.json`` is rewritten once,
+    atomically."""
+    with open(os.path.join(root, META)) as f:
+        meta = json.load(f)
+    for name, demos in (masks or {}).items():
+        meta["mask"][name] = [_jsonable(d) for d in demos]
+    meta["data_attrs"].update({k: _jsonable(v) for k, v in (data_attrs or {}).items()})
+    for demo, attrs in (demo_attrs or {}).items():
+        if demo not in meta["demos"]:
+            raise KeyError(f"{root}: no demo {demo!r}")
+        meta["demos"][demo]["attrs"].update({k: _jsonable(v) for k, v in attrs.items()})
+    _write_meta(root, meta)
+
+
 class Export:
     """Reader of an export directory."""
 
@@ -145,6 +166,11 @@ class Export:
 
     def mask(self, name: str) -> list[str]:
         return list(self._masks[name])
+
+    @property
+    def masks(self) -> list[str]:
+        """Filter mask names, in the order they were written."""
+        return list(self._masks)
 
     def has(self, demo: str, key: str) -> bool:
         return key in self._demos[demo]["arrays"]

@@ -3,13 +3,15 @@
 EnvUtils.create_env_from_metadata, driven by the ``env_args`` JSON of the
 dataset).
 
-The synthetic env and the first-party MuJoCo kitchen's tasks (single- and
-multi-stage) are ported: a ``ROBOSUITE_TYPE`` env_meta whose name is in
-``REGISTERED_KITCHEN_ENVS`` builds an ``EnvKitchen``. The robosuite, gym
-and iG-MoMart adapters raise ``NotImplementedError`` naming ROADMAP §1
-item 15. Without ``mujoco`` a kitchen task raises ``ModuleNotFoundError``.
-``scripts/train.py`` prints "Rollout disabled" for any of these, as the
-JAX script does for an env it cannot build.
+It dispatches as the JAX factory does: the synthetic env by name or type
+99; a ``ROBOSUITE_TYPE`` env_meta whose name is in
+``REGISTERED_KITCHEN_ENVS`` builds the first-party MuJoCo kitchen's
+``EnvKitchen``, any other robosuite name ``EnvRobosuite``; type 2 builds
+``EnvGym``, type 3 ``EnvIGMomart``. Each adapter imports its simulator
+(``mujoco``, ``robosuite``, ``gymnasium``, ``igibson``) when it is built,
+so a missing package raises there, with the JAX package's exception type;
+``scripts/train.py`` then prints "Rollout disabled", as the JAX script
+does for an env it cannot build.
 
 ``create_env`` builds an env by name with its seed, layout and style, as
 ``lipvq_tpu/robocasa/env_utils.py::create_env`` does;
@@ -41,16 +43,19 @@ def create_env_from_metadata(env_meta: dict, render: bool = False,
 
             return EnvKitchen(env_name, render=render, render_offscreen=render_offscreen,
                               **env_kwargs)
-        raise NotImplementedError(
-            f"env {env_name!r}: the robosuite adapter is not ported yet "
-            f"(ROADMAP §1 item 15)")
+        from lipvq_tpu_torch.envs.env_robosuite import EnvRobosuite
+
+        return EnvRobosuite(env_name, render=render, render_offscreen=render_offscreen,
+                            **env_kwargs)
     if env_type == EnvType.GYM_TYPE:
-        raise NotImplementedError(
-            f"env {env_name!r}: the gym adapter is not ported yet (ROADMAP §1 item 15)")
+        from lipvq_tpu_torch.envs.env_gym import EnvGym
+
+        return EnvGym(env_name, **env_kwargs)
     if env_type == EnvType.IG_MOMART_TYPE:
-        raise NotImplementedError(
-            f"env {env_name!r}: the iG-MoMart adapter is not ported yet "
-            f"(ROADMAP §1 item 15)")
+        from lipvq_tpu_torch.envs.env_ig_momart import EnvIGMomart
+
+        return EnvIGMomart(env_name, render=render, render_offscreen=render_offscreen,
+                           **env_kwargs)
     raise ValueError(
         f"No environment adapter for env_meta type={env_type!r} "
         f"name={env_name!r}"

@@ -4,10 +4,11 @@ config load/override -> obs-utils init -> dataset metadata -> algo factory
 -> data loading -> epoch loop (train / validate / rollout / checkpoint /
 log). Datasets are numpy exports of robomimic HDF5 files
 (``python -m lipvq_tpu_torch.data.export in.hdf5 out_dir``). Closed-loop
-rollouts run when the dataset's env_meta builds an env (the synthetic env,
-the single-stage MuJoCo kitchen where ``mujoco`` is installed); when it
-cannot (an adapter not ported, no ``mujoco``), the script prints "Rollout
-disabled" with the error and trains on, as the JAX script does.
+rollouts run when the dataset's env_meta builds an env (the synthetic env;
+the MuJoCo kitchen, a gym, robosuite or iG-MoMart env where its simulator
+package is installed); when it cannot (no ``mujoco``, ``gymnasium``,
+``robosuite`` or ``igibson``), the script prints "Rollout disabled" with the
+error and trains on, as the JAX script does.
 
 The run takes the CUDA device unless ``train.cuda`` is false or
 ``--device cpu`` is given, and raises where there is no GPU.

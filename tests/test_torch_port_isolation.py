@@ -17,8 +17,12 @@ from lipvq_tpu_torch.config import config_factory
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "msgpack", "lipvq_tpu")
 # optional packages that modules import only inside the functions that need
-# them (the HF-backed PRISE algorithms, the pretrained CLIP loader)
-LAZY = ("tokenizers", "transformers")
+# them (the HF-backed PRISE algorithms, the pretrained CLIP loader, the gym,
+# robosuite and iG-MoMart env adapters)
+LAZY = ("tokenizers", "transformers", "gymnasium", "robosuite", "igibson")
+# the simulators and h5py, which the env adapters and the dataset tools
+# import only inside the functions that build an env or read an HDF5 file
+SIMULATORS = ("gymnasium", "robosuite", "igibson", "mujoco", "h5py")
 
 # the teleop devices, the robocasa expert tools, the USD export and the
 # kitchen suite's example twins
@@ -50,9 +54,20 @@ KITCHEN_MODULES = (
     "lipvq_tpu_torch.scripts.dataset_states_to_obs", "lipvq_tpu_torch.scripts.playback_dataset",
     "lipvq_tpu_torch.examples.kitchen_convergence_demo", *TOOL_MODULES)
 
+# the gym, robosuite and iG-MoMart adapters, the dataset tools and the
+# conversion scripts over exports
+DATA_TOOL_MODULES = (
+    *(f"lipvq_tpu_torch.envs.{m}" for m in ("env_gym", "env_robosuite", "env_ig_momart")),
+    *(f"lipvq_tpu_torch.scripts.{m}" for m in (
+        "split_train_val", "filter_dataset_size", "get_dataset_info")),
+    *(f"lipvq_tpu_torch.scripts.conversion.{m}" for m in (
+        "convert_d4rl", "convert_r2d2", "convert_robosuite", "copy_ds_key",
+        "remove_mg_env_label", "set_dataset_attr", "robosuite_add_absolute_actions")))
+
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
 KITCHEN_MODULES = {KITCHEN_MODULES!r}
+DATA_TOOL_MODULES = {DATA_TOOL_MODULES!r}
 import lipvq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lipvq_tpu_torch.__path__, "lipvq_tpu_torch.")]
 for name in names:
@@ -83,7 +98,8 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.models.value_nets", "lipvq_tpu_torch.algo.mcr",
              "lipvq_tpu_torch.algo.mcr_data", "lipvq_tpu_torch.scripts.train_mcr_representation",
              "lipvq_tpu_torch.scripts.collect_demos",
-             "lipvq_tpu_torch.examples.convergence_demo", *KITCHEN_MODULES):
+             "lipvq_tpu_torch.examples.convergence_demo", *KITCHEN_MODULES,
+             *DATA_TOOL_MODULES):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -169,6 +185,8 @@ _IMPORT_LINE = re.compile(
 # msgpack file import h5py or msgpack inside themselves, so they run only
 # where that package is installed
 ALLOWED = {"lipvq_tpu_torch/data/export.py": {"hdf5_to_export": "h5py"},
+           "lipvq_tpu_torch/scripts/conversion/convert_d4rl.py": {"_load_buffer": "h5py"},
+           "lipvq_tpu_torch/scripts/conversion/convert_r2d2.py": {"convert_r2d2": "h5py"},
            "lipvq_tpu_torch/algo/mcr_data.py": {"_open_hdf5": "h5py",
                                                 "_write_hdf5_clips": "h5py"},
            "lipvq_tpu_torch/utils/jax_weights.py": {"_flax_msgpack_ext": "msgpack",
@@ -200,6 +218,78 @@ def test_source_imports_nothing_of_jax(path):
             assert _forbidden_imports_in(ast.parse(text), function) == [module]
     else:
         assert not found, f"{path} imports {found}"
+
+
+@pytest.mark.parametrize("module", DATA_TOOL_MODULES)
+def test_data_tools_import_simulators_only_inside_functions(module):
+    """The env adapters and the dataset tools import ``gymnasium``,
+    ``robosuite``, ``igibson``, ``mujoco`` and ``h5py`` only inside a function
+    (the one that builds the env or reads the file), never at module
+    level."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    tree = ast.parse(path.read_text())
+    inside = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(id(n) for n in ast.walk(fn))
+    top = []
+    for node in ast.walk(tree):
+        if id(node) in inside:
+            continue
+        if isinstance(node, ast.Import):
+            top += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            top.append(node.module.split(".")[0])
+    assert not set(top) & set(SIMULATORS), f"{module} imports {top} at module level"
+
+
+_WITHOUT_SIMULATORS = f"""
+import importlib, json, sys, tempfile
+import numpy as np
+for name in {SIMULATORS!r}:
+    sys.modules[name] = None  # import raises ModuleNotFoundError
+for name in {DATA_TOOL_MODULES!r}:
+    importlib.import_module(name)
+from lipvq_tpu_torch.envs.env_factory import create_env_from_metadata
+for meta in ({{"env_name": "Lift", "type": 1}}, {{"env_name": "Hopper-v4", "type": 2}},
+             {{"env_name": "table_setup_from_dresser", "type": 3}}):
+    try:
+        create_env_from_metadata(meta)
+    except ImportError as e:
+        print("raised:", meta["env_name"], type(e).__name__, getattr(e, "name", None) or e)
+    else:
+        raise AssertionError(meta)
+from lipvq_tpu_torch.scripts.conversion.convert_d4rl import convert_d4rl
+from lipvq_tpu_torch.scripts.filter_dataset_size import filter_dataset_size
+from lipvq_tpu_torch.scripts.get_dataset_info import dataset_info
+from lipvq_tpu_torch.scripts.split_train_val import split_train_val_from_export
+from lipvq_tpu_torch.utils.test_utils import make_synthetic_export
+tmp = tempfile.mkdtemp()
+root = make_synthetic_export(tmp + "/e", n_demos=6, demo_len=5)
+print("split:", split_train_val_from_export(root, 0.3))
+filter_dataset_size(root, [2])
+print("filter keys:", dataset_info(root)["filter_keys"])
+n = 20
+np.savez(tmp + "/b.npz", observations=np.zeros((n, 11)), actions=np.zeros((n, 3)),
+         rewards=np.zeros(n), terminals=np.eye(1, n, 9).ravel())
+print("d4rl demos:", convert_d4rl(tmp + "/b.npz", "Hopper-v4", tmp + "/d4rl"))
+"""
+
+
+def test_data_tools_run_without_simulators_or_h5py():
+    """With none of ``gymnasium``, ``robosuite``, ``igibson``, ``mujoco`` and
+    ``h5py`` installed (the card's machine has none of them): every new module
+    imports; the factory raises the adapters' import errors; the split, the
+    subset, the info and the ``.npz`` D4RL conversion run over exports."""
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_SIMULATORS], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for line in ("raised: Lift ModuleNotFoundError robosuite",
+                 "raised: Hopper-v4 ModuleNotFoundError gymnasium",
+                 "raised: table_setup_from_dresser ImportError EnvIGMomart requires",
+                 "split: (4, 2)", "filter keys: ['2_demos', 'train', 'valid']",
+                 "d4rl demos: 2"):
+        assert line in proc.stdout, proc.stdout
 
 
 def test_algo_factory_without_device_raises_without_gpu(monkeypatch):

@@ -246,9 +246,21 @@ def test_multi_stage_task_raises_naming_its_item(name):
 
 
 @pytest.mark.parametrize("name", ["Lift", "PickPlaceCan"])
-def test_unknown_robosuite_name_raises_naming_item_15(name):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        create_env_from_metadata({"env_name": name, "type": 1})
+def test_unknown_robosuite_name_raises_naming_item_15(monkeypatch, name):
+    """A robosuite name that is no kitchen task raised NotImplementedError
+    naming ROADMAP item 15 until the robosuite adapter was ported. Now it
+    goes to ``EnvRobosuite`` in both packages: with ``robosuite`` missing,
+    both raise ModuleNotFoundError naming it."""
+    from lipvq_tpu.envs.env_factory import create_env_from_metadata as jax_create_env
+
+    monkeypatch.setitem(sys.modules, "robosuite", None)  # import raises ModuleNotFoundError
+    errors = []
+    for factory in (jax_create_env, create_env_from_metadata):
+        with pytest.raises(ModuleNotFoundError) as info:
+            factory({"env_name": name, "type": 1})
+        errors.append(info.value)
+    assert errors[0].name == errors[1].name == "robosuite"
+    assert str(errors[0]) == str(errors[1])
 
 
 def test_env_registry_builds_single_stage_kitchens():

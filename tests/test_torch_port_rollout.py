@@ -1,6 +1,6 @@
 """Port parity of the closed loop: the synthetic env, the frame stack and the
 vector env give identical observations for one seed and action sequence;
-the env factory raises for the unported adapters; the rollout engines give
+the env factory dispatches as the JAX factory does; the rollout engines give
 the JAX package's results with a deterministic policy; and teacher-forced
 rollout actions of the ICL policy match JAX's on the same observation
 stream.
@@ -11,6 +11,8 @@ draw their random samples from other generators), so the action is a
 function of the forward alone. The forward runs in fp32 from bridged
 weights, within the forward's tolerance (rtol 1e-3 / atol 1e-4 as in the
 JAX-to-port bridge)."""
+
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -108,15 +110,38 @@ def test_vector_env_matches_jax():
     assert got.is_success() == want.is_success()
 
 
-@pytest.mark.parametrize("env_meta,item", [
-    ({"env_name": "NutAssemblySquare", "type": 1}, "item 15"),
-    ({"env_name": "Lift", "type": 1}, "item 15"),
-    ({"env_name": "Hopper-v4", "type": 2}, "item 15"),
-    ({"env_name": "Momart", "type": 3}, "item 15"),
+@pytest.mark.parametrize("env_meta,outcome", [
+    ({"env_name": "NutAssemblySquare", "type": 1}, ModuleNotFoundError),
+    ({"env_name": "Lift", "type": 1}, ModuleNotFoundError),
+    ({"env_name": "Hopper-v4", "type": 2}, "EnvGym"),
+    ({"env_name": "Momart", "type": 3}, ImportError),
 ])
-def test_unported_envs_raise(env_meta, item):
-    with pytest.raises(NotImplementedError, match=item):
-        create_env_from_metadata(env_meta)
+def test_unported_envs_raise(monkeypatch, env_meta, outcome):
+    """These env_metas raised NotImplementedError naming ROADMAP item 15
+    until the robosuite, gym and iG-MoMart adapters were ported. Now both
+    packages' factories give the same outcome on each: with ``robosuite``
+    and ``igibson`` missing, a robosuite name that is no kitchen task raises
+    ModuleNotFoundError naming robosuite and a MoMart env the adapter's
+    ImportError; Hopper-v4 builds ``EnvGym``."""
+    from lipvq_tpu.envs.env_factory import create_env_from_metadata as jax_create_env
+
+    monkeypatch.setitem(sys.modules, "robosuite", None)  # import raises ModuleNotFoundError
+    monkeypatch.setitem(sys.modules, "igibson", None)
+    if isinstance(outcome, str):
+        pytest.importorskip("gymnasium")
+        envs = [jax_create_env(env_meta), create_env_from_metadata(env_meta)]
+        assert [type(e).__name__ for e in envs] == [outcome, outcome]
+        assert envs[0].serialize() == envs[1].serialize()
+        return
+    errors = []
+    for factory in (jax_create_env, create_env_from_metadata):
+        with pytest.raises(ImportError) as info:
+            factory(env_meta)
+        errors.append(info.value)
+    assert type(errors[0]) is type(errors[1]) is outcome
+    assert str(errors[0]) == str(errors[1])
+    if outcome is ModuleNotFoundError:
+        assert errors[0].name == errors[1].name == "robosuite"
 
 
 def test_env_factory_synthetic_and_unknown():

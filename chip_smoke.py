@@ -5,9 +5,10 @@ offline-RL and hierarchical algorithms, MCR, the synthetic closed loop,
 checkpoint import, policy export, the train-step profiler, data-parallel
 training, the subprocess vector env, the flagship on single- and
 multi-stage kitchen demonstrations, the multi-task kitchen suite's
-training and serving, and the dataset tools and conversion scripts feeding
-training on one NVIDIA GPU, and hold its CUDA kernels against their plain
-PyTorch versions.
+training and serving, the dataset tools and conversion scripts feeding
+training, and the config, sweep, profiling and loader tools, the
+model-prediction plots and the simple examples on one NVIDIA GPU, and hold
+its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py
 
@@ -305,7 +306,25 @@ all started together). Phases:
    disabled" names gymnasium, K1 exactly 20. A train step of each run and a
    validation step timed and profiled (device busy, idle share); K1 at the
    phase's shapes on its own latents.
-23. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
+23. Tools (``tools_phase``): ``import h5py`` must raise ModuleNotFoundError;
+   ``scripts/train.py`` writes a checkpoint of the kitchen flagship at the
+   core-8 recipe's full width (6 x 384, 512 codes) on the committed
+   OpenDrawer corpus, 1 epoch x 5 steps (K1 5); then
+   ``scripts/plot_model_predictions.plot_predictions`` over the corpus's
+   first 2 demos on the card, counted as the main path: K1 exactly once per
+   prediction (one ``get_action`` per 10-step window), K1f and K2 never, one
+   PNG per demo (drawn by PIL where matplotlib is absent); the checkpoint in
+   fp32 with codes kept apart, plotted on the card and the CPU with the same
+   GMM draws, every predicted action within 1e-4; one prediction request
+   timed and profiled (host ms, device busy, idle share) and K1 at its shape
+   (10 x 512 x 823) on its own latents; ``examples/tokenize_actions`` (K1 1)
+   and ``examples/simple_train_loop`` (K1 15, K2 0) through their ``main``;
+   ``utils/profile_utils.timeit`` (both modes) and ``trace`` around 20 K1
+   calls, the kernel named in the trace file; ``scripts/bench_loader.main``
+   at its defaults (its JSON printed); ``config_gen/icl_xfmr_gen`` and
+   ``hyperparam_helper`` into a temporary directory, one generated ICL
+   config loaded by ``config_factory``.
+24. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
    every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -5614,6 +5633,313 @@ def data_tools_phase(card: str) -> dict:
     return results
 
 
+# phase 23, the config, sweep, profiling and loader tools, the
+# model-prediction plots and the simple examples; the plots load a kitchen
+# flagship checkpoint written by a short train run on the committed corpus
+TOOLS_DEMOS = 2  # plot_predictions over the corpus's first two demos
+TOOLS_STEPS = 5  # train steps of the checkpoint the plots load
+# the predicted actions of the fp32 checkpoint, card against CPU, on the
+# same GMM draws (actions within [-1, 1])
+PLOT_ATOL = 1e-4
+TOOLS_REQUEST_REPS = 20
+# K1 calls inside profile_utils.trace: a window of one ~0.05 ms launch can
+# miss the kernel's device record late in a long process
+TOOLS_TRACED_CALLS = 20
+
+
+@contextlib.contextmanager
+def recorded_policies(log: list, draws: bool = False):
+    """Inside: the policy that ``file_utils.policy_from_checkpoint`` returns
+    appends each ``get_action`` result to ``log``; with ``draws`` its GMM
+    sample takes the draws of a CPU generator seeded by the call's index, so
+    two devices sample alike. Yields the loaded models."""
+    from lipvq_tpu_torch.models.distributions import gmm_sample_from_draws
+    from lipvq_tpu_torch.utils import file_utils
+
+    load, models = file_utils.policy_from_checkpoint, []
+
+    def recorded(*args, **kwargs):
+        model, ckpt = load(*args, **kwargs)
+        get_action, start = model.get_action, len(log)
+
+        def get(obs, ctx, goal=None):
+            out = get_action(obs, ctx, goal)
+            log.append(np.array(out))
+            return out
+
+        def head(dists, draws_=None):
+            gen = torch.Generator().manual_seed(1000 + len(log) - start)
+            means = dists.means.shape
+            u = torch.rand(dists.logits.shape, generator=gen)
+            eps = torch.randn(means[:-2] + means[-1:], generator=gen)
+            return gmm_sample_from_draws(dists, u.to(dists.means.device),
+                                         eps.to(dists.means.device))
+        model.get_action = get
+        if draws:
+            model._action_from_head = head
+        models.append(model)
+        return model, ckpt
+    file_utils.policy_from_checkpoint = recorded
+    try:
+        yield models
+    finally:
+        file_utils.policy_from_checkpoint = load
+
+
+def hold_checkpoint(ckpt: str, out: str, actions: np.ndarray) -> int:
+    """``ckpt`` rewritten for a card-against-CPU comparison as ``out``: fp32
+    compute, the tokenizer's ``to_latent.ci`` raised to 30 and the codebook
+    set so that each row of ``actions`` has one nearest code by a clear
+    margin (``set_separated_codebook``); returns the codes in use."""
+    from lipvq_tpu_torch.utils import file_utils
+
+    payload = file_utils.load_checkpoint_dict(ckpt)
+    cfg = json.loads(payload["config"])
+    cfg["algo"]["transformer"]["compute_dtype"] = "float32"
+    payload["config"] = json.dumps(cfg, indent=4)
+    torch.save(payload, out)
+    model, _ = file_utils.policy_from_checkpoint(out, device="cpu")
+    tok = model.nets.net.encoder.action_network
+    with torch.no_grad():
+        tok.to_latent.ci.fill_(30.0)
+    codes = set_separated_codebook(tok, (model,), actions)
+    payload["model"] = model.serialize()
+    torch.save(payload, out)
+    return codes
+
+
+def _example_main(main, argv: list) -> tuple[list, tuple]:
+    """An example's ``main(argv)`` counted as the main path: (its printed
+    lines, the launches (K1, K1f, K2))."""
+    out = io.StringIO()
+    zero_launch_counts()
+    with contextlib.redirect_stdout(out):
+        main(argv)
+    return out.getvalue().splitlines(), launch_counts()
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 23: the tools, the plots and the examples on the card. ``import
+    h5py`` must raise (the card's machine has none); then:
+
+    - ``scripts/train.py`` writes a checkpoint of the kitchen flagship at the
+      core-8 recipe's full width (6 x 384, 8 heads, 512 codes, batch 64) on
+      the committed OpenDrawer corpus, 1 epoch x 5 steps (K1 5);
+    - ``scripts/plot_model_predictions.plot_predictions`` over the corpus's
+      first 2 demos on the card, counted as the main path: K1 exactly once
+      per prediction (one ``get_action`` per 10-step window), K1f and K2
+      never; one PNG per demo written (by PIL where matplotlib is absent);
+    - the same checkpoint in fp32 with codes kept apart, plotted on the card
+      and on the CPU with the same GMM draws: every predicted action within
+      ``PLOT_ATOL``;
+    - one prediction request timed (host) and profiled (device busy, idle
+      share); K1 at the request's shape (10 x 512 x 823) on its own latents;
+    - ``examples/tokenize_actions`` (K1 1) and ``examples/simple_train_loop``
+      (K1 15, loss codebook; K2 0) through their ``main`` on the card;
+    - ``utils/profile_utils``: ``timeit`` in both modes and ``trace`` around
+      20 K1 calls, the kernel's name found in the trace file;
+    - ``scripts/bench_loader.main`` at its defaults, its JSON printed;
+    - ``config_gen/icl_xfmr_gen`` and ``hyperparam_helper`` into a temporary
+      directory; one generated ICL config loaded by ``config_factory``."""
+    from lipvq_tpu_torch.config import config_factory
+    from lipvq_tpu_torch.data.export import Export
+    from lipvq_tpu_torch.examples import simple_train_loop, tokenize_actions
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda
+    from lipvq_tpu_torch.scripts import bench_loader, hyperparam_helper
+    from lipvq_tpu_torch.scripts.config_gen import icl_xfmr_gen
+    from lipvq_tpu_torch.scripts.plot_model_predictions import plot_predictions
+    from lipvq_tpu_torch.utils import profile_utils
+
+    try:
+        __import__("h5py")
+    except ModuleNotFoundError as e:
+        print(f"tools: import h5py raises {type(e).__name__}: {e}")
+    else:
+        raise AssertionError("tools: h5py imports here; the phase is written for the card's "
+                             "machine, which has no h5py")
+    try:
+        __import__("matplotlib")
+        drawer = "matplotlib"
+    except ModuleNotFoundError:
+        drawer = "PIL"
+    export = Export(KITCHEN_CORPUS)
+    demos = sorted(export.demos)[:TOOLS_DEMOS]
+    want = sum(int(export.demo_attrs(d)["num_samples"]) - 10 for d in demos)
+    results = {"drawer": drawer, "demos": demos, "predictions": want}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        cfg = kitchen_config(KITCHEN_CORPUS, os.path.join(tmp, "out"))
+        cfg["train"]["num_epochs"] = 1
+        cfg["experiment"]["epoch_every_n_steps"] = TOOLS_STEPS
+        run = counted_script("tools checkpoint", cfg, tmp, TOOLS_STEPS, "mujoco", 1)
+        ckpt = os.path.join(run["ckpt_dir"], "model_epoch_1.ckpt")
+        results["checkpoint_launches"] = run["launches"]
+        del run
+
+        # the main path: the plots on the card
+        log = []
+        with recorded_policies(log) as models:
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            paths = plot_predictions(ckpt, KITCHEN_CORPUS, os.path.join(tmp, "png"),
+                                     TOOLS_DEMOS)
+            plot_s = time.perf_counter() - t0
+            counts = launch_counts()
+        model = models[0]
+        if model.device.type != "cuda" or counts != (want, 0, 0) or len(log) != want:
+            raise AssertionError(f"tools plot_predictions: {len(log)} predictions on "
+                                 f"{model.device}, launches (K1, K1f, K2) {counts}; want "
+                                 f"({want}, 0, 0) on the card")
+        names = [os.path.basename(p) for p in paths]
+        if names != [f"{d}_predictions.png" for d in demos] or \
+                not all(os.path.getsize(p) > 0 for p in paths):
+            raise AssertionError(f"tools plot_predictions wrote {names}")
+        preds = np.stack(log)
+        if preds.shape != (want, 1, AC_DIM) or not np.isfinite(preds).all():
+            raise AssertionError(f"tools plot_predictions: predictions {preds.shape}, finite "
+                                 f"{np.isfinite(preds).all()}")
+        results.update({"plot_s": plot_s, "launches": counts, "pngs": names,
+                        "png_bytes": [os.path.getsize(p) for p in paths]})
+        print(f"tools plot_predictions: {want} predictions over {demos} of the OpenDrawer "
+              f"corpus by the 6 x 384 flagship (512 codes, bf16) on the card in "
+              f"{plot_s:.2f} s; launches (K1, K1f, K2) {counts}; wrote {names} with "
+              f"{drawer} ({results['png_bytes']} bytes)")
+
+        # one request: the window of the last prediction, timed and profiled
+        t = model.context_length
+        acts = export.load(demos[0], "actions").astype(np.float32)
+        obs = {k: (np.zeros((1, t, *model.obs_shapes[k]), np.float32) if k == "lang_emb"
+                   else export.load(demos[0], f"obs/{k}")[:t].astype(np.float32)[None])
+               for k in model.obs_shapes}
+        ctx = {"obs": obs, "actions": acts[:t][None]}
+        request_ms = host_ms(lambda: model.get_action(obs, ctx), reps=TOOLS_REQUEST_REPS)
+        busy, kernels = profile_device(lambda: model.get_action(obs, ctx), 10)
+        results["request"] = {
+            "ms": request_ms, "busy_ms": busy,
+            "idle_share": None if busy is None else 1 - busy / request_ms,
+            "top_ops_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])}
+        print(f"tools timing: one prediction request {request_ms:.3f} ms (device busy {busy} "
+              f"ms, idle share {results['request']['idle_share']}); top ops "
+              f"{results['request']['top_ops_ms']} [{card}]")
+        tok = model.nets.net.encoder.action_network
+        with torch.no_grad():
+            z_request = tok.encode(torch.as_tensor(acts[:t], device=model.device))
+        codebook = tok.quantizer.codebook.detach().clone()
+        del model, models
+
+        # the fp32 checkpoint with codes kept apart, card against CPU
+        hold = os.path.join(tmp, "hold.ckpt")
+        all_acts = np.concatenate([export.load(d, "actions") for d in demos]).astype(np.float32)
+        codes = hold_checkpoint(ckpt, hold, all_acts)
+        got = {}
+        for device in ("cuda", "cpu"):
+            log = []
+            with recorded_policies(log, draws=True):
+                zero_launch_counts()
+                plot_predictions(hold, KITCHEN_CORPUS, os.path.join(tmp, f"png_{device}"),
+                                 TOOLS_DEMOS, device=device)
+                hold_counts = launch_counts()
+            got[device] = np.stack(log)
+            if hold_counts != ((want, 0, 0) if device == "cuda" else (0, 0, 0)):
+                raise AssertionError(f"tools fp32 plot on {device}: launches {hold_counts}")
+        err = float(np.abs(got["cuda"] - got["cpu"]).max())
+        if got["cuda"].shape != (want, 1, AC_DIM) or not err <= PLOT_ATOL:
+            raise AssertionError(f"tools fp32 plot: card against CPU max abs error {err} "
+                                 f"(want <= {PLOT_ATOL})")
+        results["hold"] = {"codes": codes, "max_abs_err": err, "atol": PLOT_ATOL}
+        print(f"tools fp32 plot: {want} predictions on the card within {err:.3g} of the "
+              f"CPU's (<= {PLOT_ATOL}) on the same GMM draws, {codes} codes kept apart")
+
+        # the examples on the card
+        examples = {}
+        for name, main, want_counts in (
+                ("tokenize_actions", tokenize_actions.main, (1, 0, 0)),
+                ("simple_train_loop", simple_train_loop.main, (15, 0, 0))):
+            t0 = time.perf_counter()
+            lines, ex_counts = _example_main(main, [])
+            seconds = time.perf_counter() - t0
+            if ex_counts != want_counts:
+                raise AssertionError(f"tools {name}: launches (K1, K1f, K2) {ex_counts}; want "
+                                     f"{want_counts}")
+            for line in lines:
+                print(f"  {name}: {line}")
+            examples[name] = {"launches": ex_counts, "seconds": seconds, "lines": lines}
+        losses = [float(line.split("loss=")[1].split()[0]) for line in
+                  examples["simple_train_loop"]["lines"] if line.startswith("epoch")]
+        if len(losses) != 3 or not np.isfinite(losses).all():
+            raise AssertionError(f"tools simple_train_loop: losses {losses}")
+        results["examples"] = examples
+
+        # profile_utils around K1 calls at the request's shape
+        gen = torch.Generator(device="cuda").manual_seed(23)
+        z = torch.randn(*z_request.shape, generator=gen, device="cuda")
+        c = torch.randn(*codebook.shape, generator=gen, device="cuda")
+        timed = {mode: profile_utils.timeit(vq_nearest_cuda, z, c, iters=50, fetch=fetch)
+                 for mode, fetch in (("amortized", True), ("synchronize", False))}
+        trace_dir = os.path.join(tmp, "trace")
+        with profile_utils.trace(trace_dir):
+            for _ in range(TOOLS_TRACED_CALLS):
+                vq_nearest_cuda(z, c)
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f).get("traceEvents", [])
+        device = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+        traced = sum("nearest_tile_kernel" in name for name in device)
+        if not traced:
+            print(f"tools profile_utils: the trace holds {len(events)} events, {len(device)} "
+                  f"kernels: {sorted(set(device))[:8]}")
+        if not traced or any(sorted(r) != sorted({"mean_s", "iters", "mode"} | (
+                {"p50_s"} if m == "synchronize" else set())) or r["mode"] != m
+                for m, r in timed.items()):
+            raise AssertionError(f"tools profile_utils: timeit {timed}, kernel traced {traced}")
+        results["profile_utils"] = timed
+        print(f"tools profile_utils: timeit of K1 at {tuple(z.shape)} x {tuple(c.shape)}: "
+              f"{timed}; trace.json names nearest_tile_kernel in {traced} of its "
+              f"{len(device)} kernel events ({TOOLS_TRACED_CALLS} K1 calls traced) [{card}]")
+
+        # bench_loader at its defaults
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench_loader.main([])
+        bench = json.loads(out.getvalue().strip().splitlines()[-1])
+        results["bench_loader"] = {**bench, "seconds": time.perf_counter() - t0}
+        print(f"tools bench_loader: {json.dumps(bench)} in "
+              f"{results['bench_loader']['seconds']:.1f} s [{card}]")
+
+        # a config generator and the sweep helper; a generated config loads
+        argv = sys.argv
+        try:
+            sys.argv = ["icl_xfmr_gen", "--name", "smoke", "--tokenizer", "vq_vae",
+                        "--output_dir", os.path.join(tmp, "gen")]
+            with contextlib.redirect_stdout(io.StringIO()):
+                icl_xfmr_gen.main()
+        finally:
+            sys.argv = argv
+        (generated,) = glob.glob(os.path.join(tmp, "gen", "configs", "smoke", "*.json"))
+        with open(generated) as f:
+            raw = json.load(f)
+        loaded = config_factory(raw.pop("algo_name"), raw)
+        if not (loaded.algo.transformer.vq_vae_enabled and loaded.experiment.name == "smoke"):
+            raise AssertionError(f"tools: the generated config {generated} did not load")
+        base = os.path.join(tmp, "base.json")
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "exps", "templates",
+                               "icl_transformer.json")) as src, open(base, "w") as dst:
+            dst.write(src.read())
+        with contextlib.redirect_stdout(io.StringIO()):
+            sweep = hyperparam_helper.main(["--config", base,
+                                            "--script", os.path.join(tmp, "sweep", "run.sh")])
+        if len(sweep) != 8:
+            raise AssertionError(f"tools hyperparam_helper wrote {len(sweep)} configs")
+        results["config_tools"] = {"generated": os.path.basename(generated),
+                                   "sweep_configs": len(sweep)}
+        print(f"tools config: icl_xfmr_gen wrote {os.path.basename(generated)}, which "
+              f"config_factory loads; hyperparam_helper wrote {len(sweep)} configs")
+    results["k1"] = kitchen_k1(card, "tools", (
+        ("plot_request", tuple(z_request.shape[:1]) + tuple(codebook.shape), z_request,
+         codebook),))
+    torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5675,6 +6001,7 @@ def main() -> int:
     kitchen_multi = timed("kitchen_multi", kitchen_multi_phase, card)
     kitchen_suite = timed("kitchen_suite", kitchen_suite_phase, card)
     data_tools = timed("data_tools", data_tools_phase, card)
+    tools = timed("tools", tools_phase, card)
 
     keys = ("shape", "mismatches", "max_abs_err", "ms", "device_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
@@ -5755,6 +6082,10 @@ def main() -> int:
             paths[f"kitchen_suite requests {t}"] = r["request_launches"][i]
         paths["data_tools filter_key train_script"] = data_tools["filter_key"]["launches"][i]
         paths["data_tools d4rl train_script"] = data_tools["d4rl"]["launches"][i]
+        paths["tools checkpoint train_script"] = tools["checkpoint_launches"][i]
+        paths["tools plot_predictions"] = tools["launches"][i]
+        for name, r in tools["examples"].items():
+            paths[f"tools {name}"] = r["launches"][i]
     for batch in EXPORT_BATCHES:  # counted in the reloading process
         k1_paths[f"export reloaded batch {batch}"] = exported[batch]["k1_launches"]
     print(json.dumps({"kernels": [{
@@ -5786,6 +6117,7 @@ def main() -> int:
         "data_tools_train_shape": data_tools["k1"]["train"],
         "data_tools_valid_shape": data_tools["k1"]["valid"],
         "data_tools_d4rl_train_shape": data_tools["k1"]["d4rl_train"],
+        "tools_plot_request_shape": tools["k1"]["plot_request"],
         "op_wrapper_host_ms": k1["slice"]["op_wrapper_host_ms"],
         "card": card,
     }, {
@@ -5821,7 +6153,7 @@ def main() -> int:
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
         "kitchen": kitchen, "kitchen_multi": kitchen_multi, "kitchen_suite": kitchen_suite,
-        "data_tools": data_tools, "phase_s": phase_s}))
+        "data_tools": data_tools, "tools": tools, "phase_s": phase_s}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

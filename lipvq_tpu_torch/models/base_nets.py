@@ -348,6 +348,39 @@ class BatchNorm(nn.Module):
         return (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
 
 
+class CoordConv2d(nn.Module):
+    """``CoordConv2d`` of the JAX package (reference base_nets.py:1287 — Liu
+    et al. 2018 CoordConv) over channels-first [B, C, H, W]: the normalized
+    (y, x) coordinate channels, each ``linspace(-1, 1)`` over its axis, are
+    appended after the input's channels, then ``conv`` (flax's ``Conv``,
+    "SAME" padding) maps the C + 2 channels to ``features``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: tuple = (3, 3),
+                 stride: int = 1):
+        super().__init__()
+        self.conv = Conv(in_channels + 2, features, kernel_size, stride=stride, padding="SAME")
+
+    def forward(self, x):
+        b, _, h, w = x.shape
+        ys = torch.linspace(-1.0, 1.0, h, dtype=x.dtype, device=x.device)
+        xs = torch.linspace(-1.0, 1.0, w, dtype=x.dtype, device=x.device)
+        coords = torch.stack([ys[:, None].expand(h, w), xs[None, :].expand(h, w)])
+        return self.conv(torch.cat([x, coords.expand(b, 2, h, w)], dim=1))
+
+
+class FeatureAggregator(nn.Module):
+    """Aggregate features over an axis (reference base_nets.py:1688 —
+    average pooling over e.g. multiple camera streams); no parameters."""
+
+    def __init__(self, dim: int = 1, agg_type: str = "avg"):
+        super().__init__()
+        self.dim, self.agg_type = dim, agg_type
+
+    def forward(self, x):
+        assert self.agg_type == "avg"
+        return torch.mean(x, dim=self.dim)
+
+
 class FiLMLayer(nn.Module):
     """Feature-wise linear modulation (``FiLMLayer`` of the JAX package):
     ``TorchLinear_0`` maps the condition [B, Dc] to (gamma, beta) [B, C]

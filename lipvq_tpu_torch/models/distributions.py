@@ -95,3 +95,29 @@ def make_gmm(raw_means, raw_scales, logits, *, min_std: float = 1e-4,
     else:
         raise ValueError(std_activation)
     return GMMParams(means=means, scales=scales, logits=logits)
+
+
+# ---------------------------------------------------------------------------
+# Tanh-wrapped distribution (reference models/distributions.py)
+# ---------------------------------------------------------------------------
+
+class TanhWrapped(NamedTuple):
+    base: GMMParams
+    scale: float = 1.0
+
+
+def tanh_log_prob(d: TanhWrapped, value: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """log prob with tanh change-of-variables (one_minus_sq correction)."""
+    inner = torch.clamp(value / d.scale, -1.0 + eps, 1.0 - eps)
+    pre_tanh = torch.atanh(inner)
+    lp = gmm_log_prob(d.base, pre_tanh)
+    correction = torch.sum(torch.log(d.scale * (1.0 - inner ** 2) + eps), dim=-1)
+    return lp - correction
+
+
+def tanh_sample(d: TanhWrapped, generator: torch.Generator | None, draws=None) -> torch.Tensor:
+    """``tanh(gmm_sample(base)) * scale``, drawn from ``generator`` or from
+    ``draws`` = (u, eps) of ``gmm_draws``."""
+    z = (gmm_sample(d.base, generator) if draws is None
+         else gmm_sample_from_draws(d.base, *draws))
+    return torch.tanh(z) * d.scale

@@ -12,7 +12,10 @@ flax path maps to a state_dict key by joining with dots, with these renames:
   the UNet's 1-D [K, in, out]) becomes ``weight`` [out, in, *taps]; a 1-D
   transposed convolution's (the UNet's ``Upsample1d``) [K, in, out] becomes
   ``weight`` [in, out, K] with its taps reversed (``base_nets.ConvTranspose``);
-  the port's module at the tree's root tells the three apart;
+  the port's module at the tree's root tells the three apart (a
+  ``CoordConv2d``'s ``conv`` is such a 2-D convolution over the input's
+  channels and the two coordinate channels; ``FeatureAggregator`` has no
+  parameters);
 - a LayerNorm or GroupNorm ``scale`` becomes ``weight``;
 - a flax ``OptimizedLSTMCell`` (``ii``/``if``/``ig``/``io`` kernels [in, H],
   ``hi``/``hf``/``hg``/``ho`` kernels [H, H] and biases) becomes the port's

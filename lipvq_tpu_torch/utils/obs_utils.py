@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from lipvq_tpu_torch.macros import LANG_EMB_KEY  # noqa: F401  (reference macros.py:19)
+
 # ---------------------------------------------------------------------------
 # registry (module-level, mirrors reference globals obs_utils.py:27-44)
 # ---------------------------------------------------------------------------
@@ -25,7 +27,6 @@ OBS_KEYS_TO_MODALITIES: dict[str, str] = {}
 OBS_MODALITIES_TO_KEYS: dict[str, list[str]] = {}
 DEFAULT_ENCODER_KWARGS: dict[str, dict] = {}
 
-LANG_EMB_KEY = "lang_emb"  # reference macros.py:19
 LANG_EMB_DIM = 768  # CLIP ViT-L/14 text width (reference lang_utils.py)
 
 

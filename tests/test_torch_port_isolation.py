@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "h5py", "msgpack", "lipvq_tpu")
 # optional packages that modules import only inside the functions that need
 # them (the HF-backed PRISE algorithms, the pretrained CLIP loader, the gym,
 # robosuite and iG-MoMart env adapters)
-LAZY = ("tokenizers", "transformers", "gymnasium", "robosuite", "igibson")
+LAZY = ("tokenizers", "transformers", "gymnasium", "robosuite", "igibson", "matplotlib")
 # the simulators and h5py, which the env adapters and the dataset tools
 # import only inside the functions that build an env or read an HDF5 file
 SIMULATORS = ("gymnasium", "robosuite", "igibson", "mujoco", "h5py")
@@ -64,10 +64,28 @@ DATA_TOOL_MODULES = (
         "convert_d4rl", "convert_r2d2", "convert_robosuite", "copy_ds_key",
         "remove_mg_env_label", "set_dataset_attr", "robosuite_add_absolute_actions")))
 
+# the macros, the config generators, the sweep helper, the profiling and
+# loader tools, the model-prediction plots and the simple examples
+CONFIG_TOOL_MODULES = (
+    "lipvq_tpu_torch.macros", "lipvq_tpu_torch.utils.hyperparam_utils",
+    "lipvq_tpu_torch.utils.profile_utils",
+    *(f"lipvq_tpu_torch.scripts.{m}" for m in (
+        "setup_macros", "hyperparam_helper", "generate_config_templates",
+        "generate_paper_configs", "bench_loader", "plot_model_predictions", "config_gen")),
+    *(f"lipvq_tpu_torch.scripts.config_gen.{m}" for m in (
+        "config_gen_utils", "act_gen", "bc_rnn_gen", "bc_xfmr_gen", "bc_xfmr_gen_mg_data",
+        "bc_xfmr_gen_zr_data", "diffusion_gen", "icl_mamba_gen", "icl_xfmr_gen",
+        "icl_xfmr_gen_mg_data", "icl_xfmr_gen_zr_data", "mcr_gen", "eval_ckpt",
+        "eval_icl_ckpt", "eval_zr_ckpt")),
+    *(f"lipvq_tpu_torch.examples.{m}" for m in (
+        "simple_config", "simple_obs_nets", "simple_train_loop", "tokenize_actions",
+        "train_bc_rnn", "add_new_modality")))
+
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
 KITCHEN_MODULES = {KITCHEN_MODULES!r}
 DATA_TOOL_MODULES = {DATA_TOOL_MODULES!r}
+CONFIG_TOOL_MODULES = {CONFIG_TOOL_MODULES!r}
 import lipvq_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(lipvq_tpu_torch.__path__, "lipvq_tpu_torch.")]
 for name in names:
@@ -99,7 +117,7 @@ for name in ("lipvq_tpu_torch.algo.icl", "lipvq_tpu_torch.ops.vq_lookup",
              "lipvq_tpu_torch.algo.mcr_data", "lipvq_tpu_torch.scripts.train_mcr_representation",
              "lipvq_tpu_torch.scripts.collect_demos",
              "lipvq_tpu_torch.examples.convergence_demo", *KITCHEN_MODULES,
-             *DATA_TOOL_MODULES):
+             *DATA_TOOL_MODULES, *CONFIG_TOOL_MODULES):
     assert name in names, (name, names)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} + {LAZY!r})
 print(len(names), loaded)
@@ -220,13 +238,16 @@ def test_source_imports_nothing_of_jax(path):
         assert not found, f"{path} imports {found}"
 
 
-@pytest.mark.parametrize("module", DATA_TOOL_MODULES)
+@pytest.mark.parametrize("module", DATA_TOOL_MODULES + CONFIG_TOOL_MODULES)
 def test_data_tools_import_simulators_only_inside_functions(module):
-    """The env adapters and the dataset tools import ``gymnasium``,
-    ``robosuite``, ``igibson``, ``mujoco`` and ``h5py`` only inside a function
-    (the one that builds the env or reads the file), never at module
+    """The env adapters, the dataset tools and the config, profiling, plot
+    and example modules import ``gymnasium``, ``robosuite``, ``igibson``,
+    ``mujoco``, ``h5py`` and ``matplotlib`` only inside a function (the one
+    that builds the env, reads the file or draws the figure), never at module
     level."""
     path = REPO / (module.replace(".", "/") + ".py")
+    if not path.exists():  # a package
+        path = REPO / module.replace(".", "/") / "__init__.py"
     tree = ast.parse(path.read_text())
     inside = set()
     for fn in ast.walk(tree):
@@ -240,7 +261,7 @@ def test_data_tools_import_simulators_only_inside_functions(module):
             top += [a.name.split(".")[0] for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             top.append(node.module.split(".")[0])
-    assert not set(top) & set(SIMULATORS), f"{module} imports {top} at module level"
+    assert not set(top) & {*SIMULATORS, "matplotlib"}, f"{module} imports {top} at module level"
 
 
 _WITHOUT_SIMULATORS = f"""

@@ -22,6 +22,8 @@ from collections.abc import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from lipvq_tpu_torch.utils import profile_utils
+
 ALGO_REGISTRY: dict[str, Callable] = {}
 
 
@@ -283,13 +285,19 @@ class Algo:
         """Host arrays (or tensors) -> float32 tensors on ``self.device``;
         tensors already there are not copied. uint8 leaves are camera frames
         (``process_obs_for_device`` keeps them so): they are copied as uint8
-        and divided by 255 on the device (``frames_to_float``)."""
+        and divided by 255 on the device (``frames_to_float``). While the
+        port's recording is on, the bytes that host leaves send to a card
+        are counted as ``h2d_bytes``."""
         if isinstance(tree, Mapping):
             return {k: self._put_infer(v) for k, v in tree.items()}
-        if (tree.dtype == torch.uint8 if isinstance(tree, torch.Tensor)
-                else np.asarray(tree).dtype == np.uint8):
-            return frames_to_float(torch.as_tensor(tree, device=self.device))
-        return torch.as_tensor(tree, dtype=torch.float32, device=self.device)
+        frames = (tree.dtype == torch.uint8 if isinstance(tree, torch.Tensor)
+                  else np.asarray(tree).dtype == np.uint8)
+        out = (torch.as_tensor(tree, device=self.device) if frames
+               else torch.as_tensor(tree, dtype=torch.float32, device=self.device))
+        if (profile_utils.recording() and out.device.type != "cpu"
+                and (not isinstance(tree, torch.Tensor) or tree.device.type == "cpu")):
+            profile_utils.count("h2d_bytes", out.nbytes)
+        return frames_to_float(out) if frames else out
 
     # -- data-parallel execution -------------------------------------------
     mesh = None  # parallel.mesh.Mesh when attached; None = one device

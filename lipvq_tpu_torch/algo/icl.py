@@ -65,6 +65,7 @@ from lipvq_tpu_torch.models.policy_nets import ICLActorNetwork, ICLGMMActorNetwo
 from lipvq_tpu_torch.models.tokenizers.fast import FastActionTokenizer
 from lipvq_tpu_torch.utils.lang_utils import LangEncoder
 from lipvq_tpu_torch.utils.obs_utils import encoder_cores_from_config, process_obs_for_device
+from lipvq_tpu_torch.utils.profile_utils import span
 
 
 @register_algo_factory_func("icl")
@@ -336,13 +337,15 @@ class ICLTransformerGMM(PolicyAlgo):
         if validate:
             grad_norm = torch.zeros((), device=self.device)
         else:
-            (action_loss + aux).backward()
-            optimizers = [o for o in (self.policy_optimizer, self.vq_optimizer) if o]
-            # the norm of every grad, taken before the policy's clip
-            grad_norm = global_norm([g for o in optimizers for g in o.grads()])
-            for o in optimizers:
-                o.step()
-                o.zero_grad()
+            with span("train.backward"):
+                (action_loss + aux).backward()
+            with span("train.optimizer"):
+                optimizers = [o for o in (self.policy_optimizer, self.vq_optimizer) if o]
+                # the norm of every grad, taken before the policy's clip
+                grad_norm = global_norm([g for o in optimizers for g in o.grads()])
+                for o in optimizers:
+                    o.step()
+                    o.zero_grad()
             if self.vq_ema:
                 self.nets.net.encoder.action_network.apply_ema_codebook()
         action_loss = action_loss.detach()
@@ -384,13 +387,13 @@ class ICLTransformerGMM(PolicyAlgo):
                     actions = actions.cpu().numpy()
                 ctx_act = self._fast_features(actions)
         with torch.inference_mode():
-            act = self._get_action_impl(
-                self._put_infer(obs_dict),
-                self._put_infer(context_batch["obs"]),
-                self._put_infer(ctx_act),
-                self._put_infer(goal_dict) if goal_dict else None,
-            )
-            return act.cpu().numpy()
+            with span("policy.upload"):
+                inputs = (self._put_infer(obs_dict), self._put_infer(context_batch["obs"]),
+                          self._put_infer(ctx_act),
+                          self._put_infer(goal_dict) if goal_dict else None)
+            act = self._get_action_impl(*inputs)
+            with span("policy.fetch"):
+                return act.cpu().numpy()
 
     # -- checkpointing: the fitted FAST tokenizer rides along ----------------
     def serialize(self) -> dict[str, torch.Tensor]:

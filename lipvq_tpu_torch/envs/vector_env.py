@@ -17,6 +17,7 @@ from collections import OrderedDict
 import numpy as np
 
 from lipvq_tpu_torch.envs.wrappers import FrameStackWrapper
+from lipvq_tpu_torch.utils.profile_utils import span
 
 
 class VectorEnv:
@@ -40,10 +41,11 @@ class VectorEnv:
         return self._stack(obs, self.obs_keys)
 
     def step(self, actions: np.ndarray):
-        results = [e.step(actions[i]) for i, e in enumerate(self.envs)]
-        obs, rews, dones, infos = zip(*results)
-        return (self._stack(obs, self.obs_keys), np.asarray(rews),
-                np.asarray(dones), infos)
+        with span("env.step"):
+            results = [e.step(actions[i]) for i, e in enumerate(self.envs)]
+            obs, rews, dones, infos = zip(*results)
+            return (self._stack(obs, self.obs_keys), np.asarray(rews),
+                    np.asarray(dones), infos)
 
     def is_success(self):
         return [e.is_success() for e in self.envs]
@@ -73,7 +75,8 @@ class VectorEnv:
             k for k in obs_list[0]
             if obs_keys is None or k in obs_keys
         ]
-        return {k: np.stack([o[k] for o in obs_list]) for k in keys}
+        with span("env.vector_stack"):
+            return {k: np.stack([o[k] for o in obs_list]) for k in keys}
 
 
 def _subproc_worker(pipe, env_fn, frame_stack):

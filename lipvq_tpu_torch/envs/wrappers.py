@@ -10,6 +10,8 @@ from collections import deque
 
 import numpy as np
 
+from lipvq_tpu_torch.utils.profile_utils import span
+
 
 class EnvWrapper:
     def __init__(self, env):
@@ -39,9 +41,10 @@ class FrameStackWrapper(EnvWrapper):
 
     def _stacked(self):
         keys = self._frames[0].keys()
-        return {
-            k: np.stack([f[k] for f in self._frames], axis=0) for k in keys
-        }
+        with span("env.frame_stack"):
+            return {
+                k: np.stack([f[k] for f in self._frames], axis=0) for k in keys
+            }
 
     def reset(self):
         obs = self.env.reset()

@@ -51,6 +51,7 @@ from lipvq_tpu_torch.models.transformer import (
     sinusoidal_position_encoding,
 )
 from lipvq_tpu_torch.utils.obs_utils import LANG_EMB_KEY
+from lipvq_tpu_torch.utils.profile_utils import span
 
 # (key, shape) static spec type used across modules
 ObsSpec = tuple  # tuple[tuple[str, tuple[int, ...]], ...]
@@ -294,20 +295,22 @@ class ICLObservationGroupEncoder(nn.Module):
             groups["goal"] = ctx_groups["goal"] = goal
         # query first, then context: the BatchNorm statistics advance in
         # this order, as flax applies the two calls' updates
-        obs_feat = self.group_encoder(train, generator, **groups)
-        ctx_obs_feat = self.group_encoder(train, generator, **ctx_groups)
-        aux_loss = torch.zeros((), device=prompt_actions.device)
-        if self.arm == "fast":
-            h = gelu_exact(self.fast_proj_0(prompt_actions))
-            ctx_act_feat = self.fast_proj_2(gelu_exact(self.fast_proj_1(h)))
-        elif self.arm == "vq":
-            ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
-        elif self.arm == "bin":
-            ctx_act_feat = self.action_network(prompt_actions, update_stats=train)
-        elif self.arm == "ln_act":
-            ctx_act_feat = self.action_network(prompt_actions)
-        else:
-            ctx_act_feat = self.action_network(prompt_actions, train=train)
+        with span("model.trunks"):
+            obs_feat = self.group_encoder(train, generator, **groups)
+            ctx_obs_feat = self.group_encoder(train, generator, **ctx_groups)
+        with span("model.tokenizer"):
+            aux_loss = torch.zeros((), device=prompt_actions.device)
+            if self.arm == "fast":
+                h = gelu_exact(self.fast_proj_0(prompt_actions))
+                ctx_act_feat = self.fast_proj_2(gelu_exact(self.fast_proj_1(h)))
+            elif self.arm == "vq":
+                ctx_act_feat, aux_loss, _ids = self.action_network(prompt_actions, train=train)
+            elif self.arm == "bin":
+                ctx_act_feat = self.action_network(prompt_actions, update_stats=train)
+            elif self.arm == "ln_act":
+                ctx_act_feat = self.action_network(prompt_actions)
+            else:
+                ctx_act_feat = self.action_network(prompt_actions, train=train)
         return obs_feat, ctx_obs_feat, ctx_act_feat, aux_loss
 
 
@@ -408,8 +411,10 @@ class ICLMIMOTransformer(nn.Module):
         interleaved = torch.stack([ctx_obs_emb, ctx_act_emb], dim=2).reshape(
             b, 2 * t, self.embed_dim)
         tokens = torch.cat([interleaved, obs_emb], dim=1)  # [B, 3T, D]
-        hidden = self.transformer(tokens, train, generator)
-        return self.decoder(hidden[:, -t:]), aux
+        with span("model.backbone"):
+            hidden = self.transformer(tokens, train, generator)
+        with span("model.head"):
+            return self.decoder(hidden[:, -t:]), aux
 
 
 class MIMOTransformer(nn.Module):

@@ -23,6 +23,7 @@ from lipvq_tpu_torch.algo.base import resolve_device
 from lipvq_tpu_torch.data.export import Export, add_arrays
 from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
 from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_fast
+from lipvq_tpu_torch.utils.profile_utils import span
 
 
 def tokenize_array(model: LipVQVAE, actions: np.ndarray, device=None, chunk: int = 1 << 16,
@@ -36,16 +37,19 @@ def tokenize_array(model: LipVQVAE, actions: np.ndarray, device=None, chunk: int
         raise ValueError(f"precision is 'highest' or 'fast', got {precision!r}")
     dev = resolve_device(device)
     model.to(dev)
-    x = torch.as_tensor(np.ascontiguousarray(actions, dtype=np.float32), device=dev)
+    with span("corpus.upload"):
+        x = torch.as_tensor(np.ascontiguousarray(actions, dtype=np.float32), device=dev)
     with torch.inference_mode():
         ids = []
         for xc in x.split(chunk):
-            if precision == "fast":
-                ids.append(vq_nearest_fast(model.encode(xc), model.quantizer.codebook))
-            else:
-                ids.append(model.tokenize(xc))
+            with span("corpus.chunk"):
+                if precision == "fast":
+                    ids.append(vq_nearest_fast(model.encode(xc), model.quantizer.codebook))
+                else:
+                    ids.append(model.tokenize(xc))
         out = torch.cat(ids) if ids else torch.empty(0, dtype=torch.int32, device=dev)
-        return out.cpu().numpy()
+        with span("corpus.fetch"):
+            return out.cpu().numpy()
 
 
 def tokenize_export_corpus(model: LipVQVAE, export_dirs: list[str],

@@ -33,6 +33,7 @@ from lipvq_tpu_torch.data.loaders import (
     MultiprocessLoader,
     PrefetchLoader,
 )
+from lipvq_tpu_torch.utils.profile_utils import PhaseTimer
 
 
 def dataset_factory(config, obs_keys, filter_by_attribute=None,
@@ -201,33 +202,25 @@ def run_epoch(model, data_loader, epoch: int, validate: bool = False,
     # a device-cached loader's batches are processed already, on the device
     preprocessed = getattr(inner, "preprocessed", False)
 
-    timing = {"Data_Loading": 0.0, "Process_Batch": 0.0, "Train_Batch": 0.0,
-              "Log_Info": 0.0}
+    timer = PhaseTimer()
     infos = []
     for _ in range(num_steps):
-        t0 = time.time()
-        batch = next(it)
-        timing["Data_Loading"] += time.time() - t0
+        with timer.phase("Data_Loading", "train.data"):
+            batch = next(it)
+        with timer.phase("Process_Batch"):
+            input_batch = batch if preprocessed else model.process_batch_for_training(batch)
+        with timer.phase("Train_Batch", "train.step"):
+            infos.append(model.train_on_batch(input_batch, epoch, validate=validate))
 
-        t0 = time.time()
-        input_batch = batch if preprocessed else model.process_batch_for_training(batch)
-        timing["Process_Batch"] += time.time() - t0
-
-        t0 = time.time()
-        infos.append(model.train_on_batch(input_batch, epoch, validate=validate))
-        timing["Train_Batch"] += time.time() - t0
-
-    t0 = time.time()
-    stacked = _stack_to_host(infos)
-    step_log_all = defaultdict(list)
-    for i in range(num_steps):
-        for k, v in model.log_info(_index(stacked, i)).items():
-            step_log_all[k].append(v)
-    timing["Log_Info"] += time.time() - t0
+    with timer.phase("Log_Info", "train.fetch"):
+        stacked = _stack_to_host(infos)
+        step_log_all = defaultdict(list)
+        for i in range(num_steps):
+            for k, v in model.log_info(_index(stacked, i)).items():
+                step_log_all[k].append(v)
 
     out = {k: float(np.mean(v)) for k, v in step_log_all.items()}
-    for k, v in timing.items():
-        out[f"Time_{k}"] = v / 60.0
+    out.update(timer.logs())
     return out
 
 

@@ -675,8 +675,91 @@ def kernel_phase(card: str) -> dict:
               f"addmm+argmin {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}) [{card}]")
         del z, c, got, want
+    results["corpus"].update(tc_rescored(*CORPUS_SHAPE[1:], gauss=True))
+    results["corpus_latents"] = tc_corpus_latents(card)
     torch.cuda.empty_cache()
     return results
+
+
+def corpus_latents(seed: int, rows: int, codes: int, d: int):
+    """LipVQ latents of 0.5 N(0, 1) actions under seeded encoder weights, the
+    codebook the latents of other actions (the lowdim corpus cell's kind:
+    sigmoid outputs close together, many near-ties), on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    w1, w2 = torch.randn(64, 12, generator=gen) / 12 ** 0.5, torch.randn(128, 64, generator=gen) / 8
+    w = torch.randn(d, 128, generator=gen)
+    ci = 3.0 + 0.3 * torch.randn(d, generator=gen)
+    w = w * torch.clamp(torch.nn.functional.softplus(ci)[:, None] / w.abs().sum(1, keepdim=True),
+                        max=1.0)
+    w1, w2, w = (t.cuda() for t in (w1, w2, w))
+    gelu = torch.nn.functional.gelu
+
+    def encode(x):
+        return torch.sigmoid(gelu(gelu(x.cuda() @ w1.T) @ w2.T) @ w.T).contiguous()
+
+    return (encode(0.5 * torch.randn(rows, 12, generator=gen)),
+            encode(0.5 * torch.randn(codes, 12, generator=gen)))
+
+
+def tc_rescored(n: int, d: int, gauss: bool = False, z=None, c=None) -> dict:
+    """One K1 call at the corpus shape (the tensor-core path): the share of
+    rows re-scored exactly by K1's chain, over candidates or over every code,
+    from the card's counters; on seeded Gaussians with ``gauss``."""
+    from lipvq_tpu_torch.ops import vq_lookup
+
+    if gauss:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        z = torch.randn(CORPUS_SHAPE[0], d, generator=gen, device="cuda")
+        c = torch.randn(n, d, generator=gen, device="cuda")
+    tc_before = vq_lookup.vq_nearest_cuda.tc_launches
+    vq_lookup.vq_nearest_cuda(z, c)
+    counts = vq_lookup.rescored_rows()[torch.cuda.current_device()]
+    before = counts.clone()
+    vq_lookup.vq_nearest_cuda(z, c)
+    rescored, every = (counts - before).tolist()
+    if vq_lookup.vq_nearest_cuda.tc_launches != tc_before + 2:
+        raise AssertionError("K1 at the corpus shape did not take the tensor-core path")
+    b = z.shape[0]
+    tc_ms, _ = fast_bound(b, n, d)
+    print(f"K1 tensor-core path {b}x{n}x{d}{' gauss' if gauss else ''}: {rescored} rows "
+          f"re-scored exactly ({100 * rescored / b:.3f} %), {every} of them over every code "
+          f"({100 * every / b:.4f} %); tensor-core bound {tc_ms:.4f} ms")
+    return {"path": "tensor cores", "rescored_rows": rescored, "every_code_rows": every,
+            "rescored_share": rescored / b, "every_code_share": every / b, "tc_bound_ms": tc_ms}
+
+
+def tc_corpus_latents(card: str) -> dict:
+    """K1 at 2^20 x 1024 x 208 on the corpus cell's kind of latents: ids bit
+    for bit those of the SIMT tiles (the same rows in 8192-row calls), per
+    call, device time, bounds and shares, plain and library times, and the
+    share of rows re-scored."""
+    from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_reference
+
+    b, n, d = CORPUS_SHAPE
+    z, c = corpus_latents(1, b, n, d)
+    got = vq_nearest_cuda(z, c)
+    want = torch.cat([vq_nearest_cuda(zc.contiguous(), c) for zc in z.split(8192)])
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"K1's tensor-core path differs from the SIMT tiles on {differ} rows")
+    out = tc_rescored(n, d, z=z, c=c)
+    ms = cuda_ms(lambda: vq_nearest_cuda(z, c), 10)
+    simt_ms = cuda_ms(lambda: [vq_nearest_cuda(zc.contiguous(), c) for zc in z.split(8192)], 3)
+    plain_ms = cuda_ms(lambda: vq_nearest_reference(z, c), 1, warmup=0)
+    library_ms = cuda_ms(lambda: torch.addmm((c * c).sum(1), z, c.T, alpha=-2.0).argmin(1), 10)
+    device_ms, kernels = profile_device(lambda: vq_nearest_cuda(z, c), 10)
+    bound_ms, _ = vq_bound(b, n, d)
+    share = out["tc_bound_ms"] / device_ms if device_ms else None
+    out.update({"shape": [b, n, d], "ms": ms, "device_ms": device_ms, "kernel_ms": kernels,
+                "simt_medium_ms": simt_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "tc_share": share})
+    print(f"K1 corpus latents {b}x{n}x{d}: ids bit-equal to the SIMT tiles; {ms:.4f} ms per "
+          f"call (device busy {device_ms} ms: {kernels}); fp32 bound {bound_ms:.4f} ms, "
+          f"tensor-core bound {out['tc_bound_ms']:.4f} ms (share "
+          f"{'not measured' if share is None else f'{100 * share:.2f} %'}); SIMT in 8192-row "
+          f"calls {simt_ms:.4f} ms, plain {plain_ms:.4f} ms, addmm+argmin {library_ms:.4f} ms "
+          f"[{card}]")
+    return out
 
 
 def stats_phase(card: str) -> dict:

@@ -11,8 +11,12 @@
 //
 // Numerics. Every dot product is one chain of fp32 FMAs over d ascending,
 // starting from 0, then cn - 2 * dot: no TF32, no bf16, no split over D.
-// wgmma has no fp32 mode (TF32 at best), and one TF32 or bf16 pass flips
-// argmins on near-ties, so the tensor cores are not used. Each thread keeps
+// The ids are therefore a function of (z, c) alone, whatever the tile. K1's
+// tensor-core path (vq_nearest_tc.cuh) returns these same ids: it scores
+// every code in split precision on wgmma, certifies each row's winner
+// against a proven bound that covers this chain's own fp32 error, and runs
+// this chain (tile_lookup below, or its per-code form) wherever the bound
+// cannot decide. Each thread keeps
 // a strict-< running minimum over its codes in ascending order; threads,
 // warps and code splits then reduce (dist, idx) lexicographically, so the
 // result is the lowest index among the smallest distances. cn[n] is one
@@ -70,7 +74,9 @@
 //     where MEDIUM's grid would leave SMs without a CTA (the served 160 rows:
 //     5 row tiles x 32 code splits = 160 CTAs on 132 SMs).
 // With splits > 1 each CTA writes its rows' partial (dist, idx) to scratch
-// and a second kernel reduces the splits per row in split order.
+// and a second kernel reduces the splits per row in split order. Where LARGE
+// would run and D <= 256, K1 takes the tensor-core path instead; K2 keeps
+// the tiles here.
 //
 // Each .cu that includes this header builds into its own shared library, so
 // the extern "C" helpers at the end exist once per library.
@@ -141,13 +147,19 @@ __global__ void code_norms_kernel(const float* __restrict__ c, int N, int D,
   if (lane == 0) cn[n] = s;
 }
 
-template <class C>
-__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
-nearest_tile_kernel(const float* __restrict__ z, const float* __restrict__ c,
-                    const float* __restrict__ cn, int B, int N, int D,
-                    int codes_per_split, int* __restrict__ ids,
-                    float* __restrict__ part_d, int* __restrict__ part_i) {
-  extern __shared__ __align__(16) float smem[];
+// One CTA's tile: rows row_tile * BM .. + BM of z (through `rows`, a list of
+// row indices, with GATHER) against code split `split`. With `direct` the ids
+// go to ids[row]; else the partial (dist, idx) go to part_d / part_i at
+// [split * part_stride + row], the row's index in the tile walk.
+template <class C, bool GATHER>
+__device__ __forceinline__ void tile_lookup(const float* __restrict__ z,
+                                            const float* __restrict__ c,
+                                            const float* __restrict__ cn, int B, int N,
+                                            int D, int codes_per_split, int row_tile,
+                                            int split, bool direct,
+                                            const int* __restrict__ rows, int part_stride,
+                                            int* __restrict__ ids, float* __restrict__ part_d,
+                                            int* __restrict__ part_i, float* smem) {
   float* red_d = smem + C::STAGES * C::STAGE_FLOATS;
   int* red_i = reinterpret_cast<int*>(red_d + C::WARPS_N * C::BM);
 
@@ -155,8 +167,8 @@ nearest_tile_kernel(const float* __restrict__ z, const float* __restrict__ c,
   const int lane = tid & 31, warp = tid >> 5;
   const int wm = warp / C::WARPS_N, wn = warp % C::WARPS_N;
   const int lm = lane / C::LANES_N, ln = lane % C::LANES_N;
-  const int row0 = blockIdx.x * C::BM;
-  const int code_begin = blockIdx.y * codes_per_split;
+  const int row0 = row_tile * C::BM;
+  const int code_begin = split * codes_per_split;
   const int code_end = min(N, code_begin + codes_per_split);
   const int ktiles = (D + C::BK - 1) / C::BK;
   const int steps = (code_end - code_begin + C::BN - 1) / C::BN * ktiles;
@@ -172,7 +184,8 @@ nearest_tile_kernel(const float* __restrict__ z, const float* __restrict__ c,
 #pragma unroll
     for (int r = cr; r < C::BM; r += C::THREADS / C::BK) {
       const bool ok = gk < D && row0 + r < B;
-      cp_async4(as + ck * C::LDA + r, ok ? z + static_cast<size_t>(row0 + r) * D + gk : z, ok);
+      const size_t zr = GATHER ? (ok ? rows[row0 + r] : 0) : row0 + r;
+      cp_async4(as + ck * C::LDA + r, ok ? z + zr * D + gk : z, ok);
     }
 #pragma unroll
     for (int r = cr; r < C::BN; r += C::THREADS / C::BK) {
@@ -277,14 +290,25 @@ nearest_tile_kernel(const float* __restrict__ z, const float* __restrict__ c,
     }
     const int gr = row0 + r;
     if (gr < B) {
-      if (gridDim.y == 1) {
+      if (direct) {
         ids[gr] = idx == INT_MAX ? 0 : idx;  // no finite distance: argmin's 0
       } else {
-        part_d[static_cast<size_t>(blockIdx.y) * B + gr] = d;
-        part_i[static_cast<size_t>(blockIdx.y) * B + gr] = idx;
+        part_d[static_cast<size_t>(split) * part_stride + gr] = d;
+        part_i[static_cast<size_t>(split) * part_stride + gr] = idx;
       }
     }
   }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+nearest_tile_kernel(const float* __restrict__ z, const float* __restrict__ c,
+                    const float* __restrict__ cn, int B, int N, int D,
+                    int codes_per_split, int* __restrict__ ids,
+                    float* __restrict__ part_d, int* __restrict__ part_i) {
+  extern __shared__ __align__(16) float smem[];
+  tile_lookup<C, false>(z, c, cn, B, N, D, codes_per_split, blockIdx.x, blockIdx.y,
+                        gridDim.y == 1, nullptr, B, ids, part_d, part_i, smem);
 }
 
 __global__ void reduce_splits_kernel(const float* __restrict__ part_d,

@@ -16,7 +16,9 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
   ``precision="fast"`` kernel K1f (``csrc/vq_nearest_fast.cu``: one bf16
   pass on the tensor cores, wgmma fed by a TMA ring, fp32 accumulation); it
   launches on CUDA tensors and raises on anything else. ``plan_lookup`` (K1)
-  and ``plan_fast`` (K1f) pick the tile configuration and code splits; the
+  and ``plan_fast`` (K1f) pick the tile configuration and code splits (for
+  K1 at the corpus's row counts and D <= ``TC_MAX_D`` the tensor-core path,
+  whose ids equal the SIMT tiles' bit for bit); the
   plan and the scratch size are cached per device and shape, and all
   scratch is one ``torch.empty`` of the size the library states (K1f's
   holds the bf16 copy of the codebook).
@@ -31,6 +33,10 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
 - ``tie_gap``: the near-tie rule by which K1f is held against its plain
   version (their ids cannot be bit-equal), and K1 against the exact
   difference form where the expand form's cancellation decides.
+- ``vq_nearest_certified``: the plain version of K1's tensor-core path
+  (``csrc/vq_nearest_tc.cuh``): split-precision scores (``tc_split``), the
+  bound ``tc_bound``, the per-row certificate over the kernel's lists, and
+  K1's own fp32 chain (``k1_chain_distances``) for the rows it cannot settle.
 - ``vq_cluster_stats``: the one-hot counts [N] and sums [N, D] of given ids.
 - ``vq_nearest_with_stats_reference``: the plain version of K2, the
   reference ids plus their cluster stats.
@@ -114,6 +120,169 @@ def tie_gap(z_e: torch.Tensor, codebook: torch.Tensor, ids_a: torch.Tensor,
     return (dists[0] - dists[1]).abs(), allowed + torch.zeros_like(dists[0])
 
 
+# K1's tensor-core path (csrc/vq_nearest_tc.cuh), in plain PyTorch: the
+# lists each row keeps (TC_LISTS of TC_KT entries: code n goes to list
+# n % 8 // 2, its thread of the wgmma layout), and the rounding unit
+TC_KT, TC_LISTS = 4, 4
+_U = 2.0 ** -24
+
+
+def tc_split(x: torch.Tensor, mu: torch.Tensor):
+    """The kernel's split of ``x - mu`` (fp32): (centred, hi, lo, resid)
+    with centred = hi + lo + resid exactly, hi and lo bf16 values (round to
+    nearest even of what is left), all fp32."""
+    centred = x.float() - mu.float()
+    hi = centred.bfloat16().float()
+    lo = (centred - hi).bfloat16().float()
+    return centred, hi, lo, centred - hi - lo
+
+
+def tc_norms(x: torch.Tensor, mu: torch.Tensor, rows: bool) -> torch.Tensor:
+    """The fp64 norms of the kernel's bound: for rows [len(x), 5] ||z||,
+    ||w z|| (w_k = D - k), ||zb||, ||zl||, ||rz||; for codes [len(x), 4]
+    ||c||, ||cb||, ||cl||, ||rc||."""
+    centred, _, lo, resid = tc_split(x, mu)
+    out = [x.double(), centred.double(), lo.double(), resid.double()]
+    if rows:
+        w = torch.arange(x.shape[1], 0, -1, dtype=torch.float64, device=x.device)
+        out.insert(1, out[0] * w)
+    return torch.stack([t.norm(dim=1) for t in out], 1)
+
+
+def tc_bound(row_norms: torch.Tensor, code_norms: torch.Tensor, d: int) -> torch.Tensor:
+    """E [B, N] in fp64: how far K1's fp32 distance and the split-precision
+    score can part, less a constant of the row (``vq_nearest_tc.cuh`` derives
+    it): K1's own chain u (2 (||w z|| + ||z||) ||c|| + (ceil(D / 32) + 6)
+    ||c||^2), the split's dropped terms, the tensor cores' fp32 sums (2^-16
+    of the magnitudes a k16 step), the centring's and the scores' roundings."""
+    r = row_norms.double()[:, :, None]
+    c = code_norms.double().T[None]
+    z_, wz, zb, zl, zr = r[:, 0], r[:, 1], r[:, 2], r[:, 3], r[:, 4]
+    c_, cb, cl, cr = c[:, 0], c[:, 1], c[:, 2], c[:, 3]
+    e1 = _U * (2.0 * (wz + z_) * c_ + ((d + 31) // 32 + 6) * c_ * c_)
+    sq = (zb + 2.0 * zl + zr) * (cb + 2.0 * cl + cr)
+    steps = 3 * ((d + 15) // 16)
+    e2 = (2.0 * (zl * cl + (zb + zr) * cr + zr * cb) + 2.0 * steps * 2.0 ** -16 * sq
+          + 2.0 * _U * (zb + cb) ** 2 + 2.0 * _U * (cb * cb + sq))
+    return 1.01 * (e1 + e2) + d * 2.0 ** -80
+
+
+def _fma_chain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """sum_k x_k y_k over the last axis as one fp32 chain in ascending k,
+    each step's product and add rounded once (fp64, then fp32: the double
+    rounding can differ from a fused add in the last bit about once in 2^29
+    steps)."""
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    x64, y64 = x.double(), y.double()
+    for k in range(x.shape[-1]):
+        acc = (x64[..., k] * y64[..., k] + acc.double()).float()
+    return acc
+
+
+def k1_code_norms(codebook: torch.Tensor) -> torch.Tensor:
+    """cn [N] as K1's code_norms_kernel: 32 lane chains over columns lane,
+    lane + 32, ..., then a butterfly of fp32 adds."""
+    c = codebook.float()
+    n, d = c.shape
+    lanes = torch.zeros((n, 32), dtype=torch.float32, device=c.device)
+    for lane in range(min(32, d)):
+        cols = c[:, lane::32]
+        lanes[:, lane] = _fma_chain(cols, cols)
+    off = 16
+    while off:
+        lanes = lanes + lanes[:, torch.arange(32, device=c.device) ^ off]
+        off //= 2
+    return lanes[:, 0]
+
+
+def k1_chain_distances(z_e: torch.Tensor, codebook: torch.Tensor, codes: torch.Tensor,
+                       cn: torch.Tensor | None = None) -> torch.Tensor:
+    """K1's fp32 distances cn[n] - 2 dot(z[b], c[n]) for codes [B, K] of
+    each row (each dot one FMA chain in ascending d): [B, K] fp32."""
+    cn = k1_code_norms(codebook) if cn is None else cn
+    c = codebook.float()[codes.long()]
+    dots = _fma_chain(z_e.float()[:, None, :].expand_as(c), c)
+    return cn[codes.long()] - 2.0 * dots
+
+
+def _lowest_of_least(d: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Per row the code with the smallest d, the lowest among equals."""
+    best = d.min(1, keepdim=True).values
+    masked = torch.where(d == best, codes.long(), torch.iinfo(torch.int64).max)
+    return masked.min(1).values
+
+
+def tc_scores(z_e: torch.Tensor, codebook: torch.Tensor):
+    """The split-precision scores a [B, N] fp32 (each product sum taken
+    exactly, then rounded once: one evaluation the tensor cores' bound
+    covers) and mu."""
+    c = codebook.float()
+    mu = c.mean(0)
+    _, zh, zl, _ = tc_split(z_e, mu)
+    cb, ch, cl, _ = tc_split(c, mu)
+    acc = (zh.double() @ ch.double().T + zl.double() @ ch.double().T
+           + zh.double() @ cl.double().T).float()
+    cb2 = (cb.double() ** 2).sum(1).float()
+    return cb2[None] - 2.0 * acc, mu
+
+
+def vq_nearest_certified(z_e: torch.Tensor, codebook: torch.Tensor, counts: bool = False):
+    """Plain version of K1's tensor-core path: split-precision scores, each
+    row's lists (the TC_KT least scores of each of the TC_LISTS lists, and
+    the least of the rest; the kernel sorts them as packed keys, a bucket of
+    2^-15 of a score wide at 1024 codes, and widens each interval by its
+    bucket), the certificate, and K1's fp32 chain over the candidates, or
+    over every code where the codes outside the lists are not excluded. Ids
+    [B] int32, with ``counts`` also (rows re-scored, of them over every
+    code)."""
+    z = z_e.float()
+    c = codebook.float()
+    b, d = z.shape
+    n = c.shape[0]
+    scores, mu = tc_scores(z, c)
+    rn = tc_norms(z, mu, rows=True)
+    cnorms = tc_norms(c, mu, rows=False)
+    cls = torch.arange(n, device=z.device) % 8 // 2
+    vals, codes, rests = [], [], []
+    for g in range(TC_LISTS):
+        cols = (cls == g).nonzero().flatten()
+        if cols.numel() == 0:
+            continue
+        a, order = scores[:, cols].sort(dim=1, stable=True)
+        k = min(TC_KT, cols.numel())
+        vals.append(a[:, :k])
+        codes.append(cols[order[:, :k]])
+        rests.append(a[:, k] if cols.numel() > k else torch.full((b,), float("inf")))
+    a = torch.cat(vals, 1).double()
+    listed = torch.cat(codes, 1)
+    rest = torch.stack(rests, 1).min(1).values.double()
+    e_all = tc_bound(rn, cnorms, d)
+    e = e_all.gather(1, listed)
+    e_max = tc_bound(rn, cnorms.max(0, keepdim=True).values, d)[:, 0]
+    top = (a + e).min(1).values
+    finite = (rn < 2.0 ** 40).all(1) & bool((cnorms < 2.0 ** 40).all())
+    every = ~(finite & (rest - e_max > top))
+    cand = ~(a - e > top[:, None])
+    ids = torch.empty(b, dtype=torch.int64, device=z.device)
+    single = ~every & (cand.sum(1) == 1)
+    ids[single] = listed[single][cand[single]]
+    cn = k1_code_norms(c)
+    several = (~every & ~single).nonzero().flatten()
+    if several.numel():
+        sub = listed[several]
+        dist = k1_chain_distances(z[several], c, sub, cn)
+        dist = torch.where(cand[several], dist, torch.tensor(float("inf")))
+        ids[several] = _lowest_of_least(dist, sub)
+    rows = every.nonzero().flatten()
+    if rows.numel():
+        allc = torch.arange(n, device=z.device).expand(rows.numel(), n)
+        ids[rows] = _lowest_of_least(k1_chain_distances(z[rows], c, allc, cn), allc)
+    ids = ids.to(torch.int32)
+    if counts:
+        return ids, (int(several.numel() + rows.numel()), int(rows.numel()))
+    return ids
+
+
 def vq_nearest_expand(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Expand-form lookup in plain fp32 PyTorch; ``||z||^2`` dropped, first
     minimum wins (counterpart of ``vq_nearest_xla_expand``)."""
@@ -127,6 +296,11 @@ def vq_nearest_expand(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor
 # csrc/vq_nearest_tile.cuh; _bind checks them against the library
 LARGE, MEDIUM, SMALL = 0, 1, 2
 TILE_SHAPES = {LARGE: (128, 256), MEDIUM: (32, 64), SMALL: (32, 32)}
+# K1's tensor-core path (csrc/vq_nearest_tc.cuh): its tile, largest D and N
+TC = 3
+TC_TILE = (128, 128)
+TC_MAX_D = 256
+TC_MAX_N = 16384
 
 
 class LookupPlan(NamedTuple):
@@ -155,16 +329,21 @@ def _split_codes(config: int, shape: tuple[int, int], b: int, n: int, sms: int) 
     return LookupPlan(config, row_tiles, splits, tiles_per_split * codes)
 
 
-def plan_lookup(b: int, n: int, sms: int) -> LookupPlan:
-    """K1's launch plan for B rows, N codes on a card with ``sms`` SMs:
-    LARGE when its row tiles alone give every SM two CTAs (the corpus); else
-    MEDIUM when its row and code tiles give every SM a CTA (train batches),
-    else SMALL (served requests)."""
+def plan_lookup(b: int, n: int, sms: int, d: int | None = None) -> LookupPlan:
+    """The lookup's launch plan for B rows, N codes on a card with ``sms``
+    SMs: LARGE when its row tiles alone give every SM two CTAs (the corpus);
+    else MEDIUM when its row and code tiles give every SM a CTA (train
+    batches), else SMALL (served requests). K1 passes its width ``d``: where
+    LARGE would run, d <= ``TC_MAX_D`` and N <= ``TC_MAX_N`` it takes the
+    tensor-core path (one code split), whose ids are LARGE's bit for bit. K2
+    passes none."""
     def tiles(config):
         rows, codes = TILE_SHAPES[config]
         return -(-b // rows), -(-n // codes)
 
     if tiles(LARGE)[0] >= 2 * sms:
+        if d is not None and d <= TC_MAX_D and n <= TC_MAX_N:
+            return _split_codes(TC, TC_TILE, b, n, sms)
         config = LARGE
     elif tiles(MEDIUM)[0] * tiles(MEDIUM)[1] >= sms:
         config = MEDIUM
@@ -193,7 +372,7 @@ def plan_fast(b: int, n: int, d: int, sms: int) -> LookupPlan:
     return _split_codes(config, FAST_TILES[config], b, n, sms)
 
 
-_POINTERS = {"vq_nearest": 4, "vq_nearest_fast": 4, "vq_stats": 6}  # pointer args
+_POINTERS = {"vq_nearest": 5, "vq_nearest_fast": 4, "vq_stats": 6}  # pointer args
 _LIBS: dict[str, ctypes.CDLL] = {}
 _SMS: dict[int, int] = {}
 _PLANS: dict[tuple, tuple[LookupPlan, int, int]] = {}
@@ -211,7 +390,8 @@ def _bind(name: str) -> ctypes.CDLL:
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fast = name == "vq_nearest_fast"
-        for scratch, ints in ((getattr(lib, f"{name}_scratch_elems"), 4 if fast else 3),
+        own = {"vq_nearest": 5, "vq_nearest_fast": 4}.get(name, 3)
+        for scratch, ints in ((getattr(lib, f"{name}_scratch_elems"), own),
                               (lib.vq_lookup_scratch_elems, 3)):
             scratch.argtypes = [ctypes.c_int] * ints
             scratch.restype = ctypes.c_size_t
@@ -222,6 +402,13 @@ def _bind(name: str) -> ctypes.CDLL:
             if got != shape:
                 raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
                                    f"library, {shape} in vq_lookup.py")
+        if name == "vq_nearest":
+            got = (lib.vq_tc_tile_rows(), lib.vq_tc_tile_codes(), lib.vq_tc_max_d(),
+                   lib.vq_tc_max_n())
+            if got != (*TC_TILE, TC_MAX_D, TC_MAX_N):
+                raise RuntimeError(f"{name}: the tensor-core tile and largest D and N are "
+                                   f"{got} in the library, {(*TC_TILE, TC_MAX_D, TC_MAX_N)} "
+                                   f"in vq_lookup.py")
         if fast:
             for config, shape in FAST_TILES.items():
                 got = (lib.vq_fast_tile_rows(config), lib.vq_fast_tile_codes(config),
@@ -239,7 +426,7 @@ def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int, d: int
     first) at this shape, cached per device and shape, with the device's SM
     count cached once."""
     fast = name == "vq_nearest_fast"
-    key = (name, dev.index, b, n, d if fast else None)
+    key = (name, dev.index, b, n, d if name != "vq_stats" else None)
     hit = _PLANS.get(key)
     if hit is None:
         sms = _SMS.get(dev.index)
@@ -248,6 +435,9 @@ def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int, d: int
         if fast:
             plan = plan_fast(b, n, d, sms)
             scratch = lib.vq_nearest_fast_scratch_elems(b, n, d, plan.splits)
+        elif name == "vq_nearest":
+            plan = plan_lookup(b, n, sms, d)
+            scratch = lib.vq_nearest_scratch_elems(b, n, d, plan.config, plan.splits)
         else:
             plan = plan_lookup(b, n, sms)
             scratch = getattr(lib, f"{name}_scratch_elems")(b, n, plan.splits)
@@ -318,19 +508,50 @@ def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
                          f"memory), got D={d}")
     lib = _bind(name)
     plan, scratch_elems, _ = _plan(lib, name, dev, b, n, d)
-    _, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
-    _launch(kernel, lib, name, dev,
-            [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch],
+    tc = not fast and plan.config == TC
+    if tc:
+        # the ids alone outlive the call: the scratch goes back to the cache
+        # once the launch is enqueued (stream-ordered, so no later kernel
+        # on this stream can see it reused early)
+        ids = torch.empty(b, dtype=torch.int32, device=dev)
+        buf = torch.empty(scratch_elems, dtype=torch.int32, device=dev)
+        scratch = buf.data_ptr()
+    else:
+        buf, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
+    ptrs = [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch]
+    if not fast:
+        ptrs.append(_rescore_counts(dev).data_ptr() if tc else None)
+    _launch(kernel, lib, name, dev, ptrs,
             [b, n, d, plan.config, plan.codes_per_split, plan.splits])
     if fast:
         vq_nearest_cuda.fast_launches += 1
     else:
         vq_nearest_cuda.launches += 1
+        vq_nearest_cuda.tc_launches += tc
     return ids
 
 
 vq_nearest_cuda.launches = 0
 vq_nearest_cuda.fast_launches = 0
+vq_nearest_cuda.tc_launches = 0
+
+# per device: [rows re-scored exactly, of them over every code] by K1's
+# tensor-core path, int64, added to by its certify kernel
+_RESCORED: dict[int, torch.Tensor] = {}
+
+
+def _rescore_counts(dev: torch.device) -> torch.Tensor:
+    counts = _RESCORED.get(dev.index)
+    if counts is None:
+        counts = _RESCORED[dev.index] = torch.zeros(2, dtype=torch.int64, device=dev)
+    return counts
+
+
+def rescored_rows() -> dict[int, torch.Tensor]:
+    """{device index: [2] int64 on that device}: the rows K1's tensor-core
+    path re-scored exactly since the process started, and of them those
+    re-scored over every code. Reading them waits for the card."""
+    return dict(_RESCORED)
 
 
 def vq_cluster_stats(z_e: torch.Tensor, ids: torch.Tensor, num_codes: int):

@@ -42,6 +42,7 @@ _offset_ns = 0  # epoch ns minus perf_counter ns, taken at enable
 _records: list = []  # [name, start, end, parent record, root record (None: itself)]
 _counters: dict[str, int] = {}
 _launch_base: dict[str, int] = {}
+_rescored_base: dict = {}  # device index -> the card's re-scored counts at the last reset
 _local = threading.local()  # each thread's stack of open spans
 _count_lock = threading.Lock()
 
@@ -138,6 +139,11 @@ def reset() -> None:
     _counters.clear()
     _launch_base.clear()
     _launch_base.update(_launches())
+    _rescored_base.clear()
+    vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
+    if vq is not None:
+        # a copy on the card, in stream order: no wait
+        _rescored_base.update({dev: t.clone() for dev, t in vq.rescored_rows().items()})
 
 
 def recording() -> bool:
@@ -150,10 +156,25 @@ def _launches() -> dict[str, int]:
     ``ops/vq_lookup.py`` on its wrappers (0 where it was never imported)."""
     vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
     if vq is None:
-        return {"k1_launches": 0, "k1f_launches": 0, "k2_launches": 0}
+        return {"k1_launches": 0, "k1f_launches": 0, "k2_launches": 0, "k1_tc_launches": 0}
     return {"k1_launches": vq.vq_nearest_cuda.launches,
             "k1f_launches": vq.vq_nearest_cuda.fast_launches,
-            "k2_launches": vq.vq_nearest_with_stats_cuda.launches}
+            "k2_launches": vq.vq_nearest_with_stats_cuda.launches,
+            "k1_tc_launches": vq.vq_nearest_cuda.tc_launches}
+
+
+def _rescored() -> dict[str, int]:
+    """The rows K1's tensor-core path re-scored exactly since the last
+    ``reset`` (and of them those re-scored over every code), summed over the
+    cards. They are counted on the card; reading them waits for it."""
+    rows = every = 0
+    vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
+    for dev, t in (vq.rescored_rows().items() if vq is not None else ()):
+        base = _rescored_base.get(dev)
+        got = (t - base if base is not None else t).tolist()
+        rows += got[0]
+        every += got[1]
+    return {"k1_rescored_rows": rows, "k1_rescored_every_code_rows": every}
 
 
 def records() -> list[tuple]:
@@ -171,7 +192,9 @@ def totals() -> dict:
     """{"spans": {name: {"n", "total_s", "self_s"}}, "counters": {name: n}}
     over the closed spans since the last ``reset``; self time is a span's
     duration less its child spans' (which run one after another inside
-    it). The counters hold the lookup kernels' launches since the reset."""
+    it). The counters hold the lookup kernels' launches since the reset,
+    K1's launches that took its tensor-core path, and the rows that path
+    re-scored exactly (read from the card: this waits for it)."""
     child_ns: dict[int, int] = {}
     for rec in _records:
         if rec[2] is not None and rec[3] is not None:
@@ -189,6 +212,7 @@ def totals() -> dict:
     counters = dict(_counters)
     for k, v in _launches().items():
         counters[k] = v - _launch_base.get(k, 0)
+    counters.update(_rescored())
     return {"spans": spans, "counters": counters}
 
 

@@ -11,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from lipvq_tpu_torch.ops import vq_lookup
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
+    TC,
     plan_fast,
+    plan_lookup,
+    tc_bound,
+    tc_norms,
     tie_gap,
     vq_cluster_stats,
     vq_nearest,
@@ -207,6 +212,124 @@ def test_k1_shapes_and_configs(cuda, plan_sms, b, n, d):
     assert got.shape == (b,) and got.dtype == torch.int32
     assert int(got.min()) >= 0 and int(got.max()) < n
     _ids_within_ties(z, c, got, vq_nearest_reference(z, c))
+
+
+# K1's tensor-core path (corpus-sized lookups) against the SIMT tiles: the
+# same rows in 8192-row calls take MEDIUM, today's fp32 chain.
+TC_ROWS, SIMT_ROWS = 1 << 16, 8192
+
+
+def _corpus_latents(seed, rows, codes, dev, d=208):
+    """LipVQ latents of 0.5 N(0, 1) actions under seeded encoder weights, the
+    codebook the latents of other actions (the lowdim corpus cell's kind:
+    sigmoid outputs close together, many near-ties)."""
+    gen = torch.Generator().manual_seed(seed)
+    w1, w2 = torch.randn(64, 12, generator=gen) / 12 ** 0.5, torch.randn(128, 64, generator=gen) / 8
+    w = torch.randn(d, 128, generator=gen)
+    ci = 3.0 + 0.3 * torch.randn(d, generator=gen)
+    w = w * torch.clamp(torch.nn.functional.softplus(ci)[:, None] / w.abs().sum(1, keepdim=True),
+                        max=1.0)
+    gelu = torch.nn.functional.gelu
+
+    def encode(x):
+        return torch.sigmoid(gelu(gelu(x @ w1.T) @ w2.T) @ w.T).contiguous().to(dev)
+
+    return (encode(0.5 * torch.randn(rows, 12, generator=gen)),
+            encode(0.5 * torch.randn(codes, 12, generator=gen)))
+
+
+def _tc_against_simt(z, c):
+    """(ids of one tensor-core call, ids of the same rows in SIMT calls, the
+    call's re-scored rows and every-code rows from the card's counters)."""
+    sms = torch.cuda.get_device_properties(z.device).multi_processor_count
+    assert plan_lookup(z.shape[0], c.shape[0], sms, z.shape[1]).config == TC
+    assert plan_lookup(SIMT_ROWS, c.shape[0], sms, z.shape[1]).config != TC
+    launches = vq_nearest_cuda.tc_launches
+    got = vq_nearest_cuda(z, c)
+    counts = vq_lookup.rescored_rows()[z.device.index or 0]
+    before = counts.clone()
+    got = vq_nearest_cuda(z, c)
+    after = counts.clone()
+    want = torch.cat([vq_nearest_cuda(zc.contiguous(), c) for zc in z.split(SIMT_ROWS)])
+    assert vq_nearest_cuda.tc_launches == launches + 2
+    rescored, every = (after - before).tolist()
+    return got, want, rescored, every
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 2**31 + 5])
+def test_k1_tensor_core_path_equals_the_simt_tiles_on_corpus_latents(cuda, seed):
+    z, c = _corpus_latents(seed, TC_ROWS, 1024, cuda)
+    got, want, rescored, every = _tc_against_simt(z, c)
+    assert torch.equal(got, want)
+    assert 0 < rescored < TC_ROWS and every <= rescored
+
+
+@pytest.mark.parametrize("case", ["pairs", "copies"])
+def test_k1_tensor_core_path_takes_the_lowest_of_duplicated_codes(cuda, case):
+    """Exact ties: every code twice (re-scored over the candidates), or 41
+    copies of one code (more than the lists hold: re-scored over every
+    code); the ids must be the SIMT tiles' (lowest index)."""
+    z, c = _corpus_latents(7, TC_ROWS, 1024, cuda)
+    if case == "pairs":
+        c[1::2] = c[0::2]
+    else:
+        c[100:140] = c[99]
+        z[:64] = c[99]
+    got, want, rescored, every = _tc_against_simt(z, c.contiguous())
+    assert torch.equal(got, want)
+    if case == "pairs":
+        assert bool((got % 2 == 0).all()) and rescored > TC_ROWS // 2
+    else:
+        assert got[:64].tolist() == [99] * 64 and every >= 64
+
+
+@pytest.mark.parametrize("gap_in_e", [0.0, 0.25, 0.5, 1.0, 2.0, 4.0])
+def test_k1_tensor_core_path_near_ties_planted_at_the_bound(cuda, gap_in_e):
+    """Rows between two codes, their distance gap a multiple of the bound E
+    at the nearer: inside E + E both are candidates and K1's chain decides;
+    beyond it the certificate does. Ids equal the SIMT tiles either way."""
+    z, c = _corpus_latents(11, TC_ROWS, 1024, cuda)
+    gen = torch.Generator().manual_seed(int(gap_in_e * 8))
+    i = torch.randint(0, 1024, (4096,), generator=gen)
+    j = (i + torch.randint(1, 1024, (4096,), generator=gen)) % 1024
+    cc = c.cpu().double()
+    delta = cc[i] - cc[j]
+    mid = (cc[i] + cc[j]) / 2
+    mu = c.cpu().mean(0)
+    e = tc_bound(tc_norms(mid.float(), mu, rows=True), tc_norms(c.cpu(), mu, rows=False), 208)
+    t = gap_in_e * e[torch.arange(4096), i] / (2.0 * (delta ** 2).sum(1))
+    z[:4096] = (mid + t[:, None] * delta).float().to(cuda)
+    got, want, _, _ = _tc_against_simt(z, c)
+    assert torch.equal(got, want)
+
+
+def test_k1_tensor_core_path_adds_no_host_sync(cuda):
+    z, c = _corpus_latents(13, TC_ROWS, 1024, cuda)
+    vq_nearest_cuda(z, c)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ids = vq_nearest_cuda(z, c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ids.shape == (TC_ROWS,)
+
+
+def test_k1_tensor_core_counters_reach_the_totals(cuda):
+    from lipvq_tpu_torch.utils import profile_utils
+
+    z, c = _corpus_latents(17, TC_ROWS, 1024, cuda)
+    vq_nearest_cuda(z, c)
+    counts = vq_lookup.rescored_rows()[cuda.index or 0]
+    profile_utils.reset()
+    before = counts.clone()
+    vq_nearest_cuda(z, c)
+    vq_nearest_cuda(z[:SIMT_ROWS].contiguous(), c)
+    rescored, every = (counts - before).tolist()
+    got = profile_utils.totals()["counters"]
+    assert got["k1_launches"] == 2 and got["k1_tc_launches"] == 1
+    assert got["k1_rescored_rows"] == rescored > 0
+    assert got["k1_rescored_every_code_rows"] == every
 
 
 def _sequential_sums(z, ids, n):

@@ -49,6 +49,16 @@ all started together). Phases:
    on an idle card, of the ``ctypes`` wrapper and of ``vq_nearest`` through
    the registered op. K1 also runs at the profiler's largest low-dim batch
    (8000 x 1024 x 791) and its image step (80 x 1024 x 905).
+   The selective scan (``scan_phase``; ``ops/selective_scan.py``): at the
+   Jamba cell's call (192 x 30 x 5120 x 16), the icl_mamba arms' train and
+   served calls (50 and 16 x 30 x 1024 x 8) and a narrow one (10 x 10 x 24
+   x 8), a forward and a backward through ``selective_scan_cuda``: exactly
+   two launches and 2 b t d n elements counted; y, dx, ddt, dA, dB, dC and
+   dD within 1e-4 of ``scan_forward_plain`` / ``scan_backward_plain``'s
+   value plus 1e-5 of the tensor's largest (sums in another order); CUDA-event
+   medians, profiler time by kernel (every kernel named ``selective_scan``),
+   the plain versions' times and the bound (each tensor read or written once
+   over the HBM rate, or 7 / 23 operations an element over the dense peak).
 3. Serve: the flagship ICLTransformerGMM at full width (6 layers x 512 x 8
    heads, 30 tokens, 1024 x 791 codebook, bf16 compute) behind
    ICLRolloutPolicy answers 5 requests for 16 envs and 3 single-env
@@ -111,7 +121,9 @@ all started together). Phases:
 8. Arms: the other arms of the paper's tokenizer ablation at full width
    (``arms_phase``): bin, ln_act and raw on the GPT backbone, ln_act and
    LipVQ on icl_mamba, each serving 8 requests of 16 envs and taking 10
-   train steps (K1 once per request and step for LipVQ only), its fp32
+   train steps (K1 once per request and step for LipVQ only; the scan's
+   launches counted, some where a Mamba block runs, the icl_mamba backbone
+   or the ln_act tokenizer, and none elsewhere), its fp32
    forward on the card held against the CPU, and one fp32 step of the bin
    and the raw arm held against the CPU step by ``hold_step``. Then FAST
    (``fast_arm``): 10 train steps (the BPE refits on the first 8), 8
@@ -324,8 +336,8 @@ all started together). Phases:
    at its defaults (its JSON printed); ``config_gen/icl_xfmr_gen`` and
    ``hyperparam_helper`` into a temporary directory, one generated ICL
    config loaded by ``config_factory``.
-24. Output: a ``kernels`` JSON line (K1, K1f and K2 with the launches of
-   every path), the card line, and last the result line
+24. Output: a ``kernels`` JSON line (K1, K1f, K2 and the selective scan
+   with the launches of every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -1061,6 +1073,94 @@ ARM_SWITCHES = {"vq": {"vq_vae_enabled": True, "ln_act_enabled": False},
                 "fast": {"fast_enabled": True, "ln_act_enabled": False}}
 
 
+# the Jamba cell's scan call, the icl_mamba arms' (6 x 512, d_state 8: 50
+# pairs a train step, 16 envs a request) and a narrow one
+SCAN_SHAPES = {"jamba": (192, 30, 5120, 16), "arm_train": (50, 30, 1024, 8),
+               "arm_serve": (16, 30, 1024, 8), "narrow": (10, 10, 24, 8)}
+SCAN_OPS = (7, 23)  # per element (b, t, d, n), forward and backward
+
+
+def scan_bound(b: int, t: int, d: int, n: int) -> tuple[float, float]:
+    """Least ms of the scan's forward and backward call: each tensor read
+    or written once over the HBM rate (forward x, dt, B, C, A, D in and y
+    out; backward those with dy in, the six gradients out), or the
+    operations over the dense peak, whichever is larger."""
+    e, btd, btn = b * t * d * n, b * t * d, b * t * n
+    fwd = max(SCAN_OPS[0] * e / PEAK_BF16_FLOPS,
+              4 * (3 * btd + 2 * btn + d * n + d) / PEAK_BYTES_PER_S)
+    bwd = max(SCAN_OPS[1] * e / PEAK_BF16_FLOPS,
+              4 * (5 * btd + 4 * btn + 2 * d * n + 2 * d) / PEAK_BYTES_PER_S)
+    return 1e3 * fwd, 1e3 * bwd
+
+
+def scan_counts() -> tuple[int, int]:
+    from lipvq_tpu_torch.ops.selective_scan import selective_scan_cuda
+
+    return selective_scan_cuda.launches, selective_scan_cuda.elems
+
+
+def scan_phase(card: str) -> dict:
+    """The fused selective scan against its plain versions at the shapes of
+    ``SCAN_SHAPES`` (module docstring, phase 2)."""
+    from lipvq_tpu_torch.ops import selective_scan as ss
+
+    results = {}
+    for label, (b, t, d, n) in SCAN_SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(16)
+        x = torch.randn(b, t, d, generator=g, device="cuda")
+        dt = torch.nn.functional.softplus(torch.randn(b, t, d, generator=g, device="cuda"))
+        A = -torch.rand(d, n, generator=g, device="cuda") * 2.0 - 0.1
+        B, C = (torch.randn(b, t, n, generator=g, device="cuda") for _ in range(2))
+        D = torch.randn(d, generator=g, device="cuda")
+        args = [v.requires_grad_() for v in (x, dt, A, B, C, D)]
+        before = scan_counts()
+        y = ss.selective_scan_cuda(*args)
+        dy = torch.randn(b, t, d, generator=g, device="cuda")
+        grads = torch.autograd.grad(y, args, dy)
+        torch.cuda.synchronize()
+        launches, elems = (a - z for a, z in zip(scan_counts(), before))
+        if (launches, elems) != (2, 2 * b * t * d * n):
+            raise AssertionError(f"scan {label}: {launches} launches of {elems} elements for "
+                                 f"one forward and backward of {(b, t, d, n)}")
+        plain = [v.detach() for v in args]
+        with torch.no_grad():
+            want = (ss.scan_forward_plain(*plain), *ss.scan_backward_plain(*plain, dy))
+        worst = {}
+        for name, got, w in zip(("y", "dx", "ddt", "dA", "dB", "dC", "dD"),
+                                (y.detach(), *grads), want):
+            atol = 1e-5 * float(w.abs().max())
+            torch.testing.assert_close(got, w, rtol=1e-4, atol=atol, msg=f"scan {label} {name}")
+            # the worst element's error in units of its tolerance
+            worst[name] = float(((got - w).abs() / (atol + 1e-4 * w.abs())).max())
+        del y, grads, want
+        fwd_ms = cuda_ms(lambda: ss._forward_cuda(*plain), 20)
+        bwd_ms = cuda_ms(lambda: ss._backward_cuda(*plain, dy), 20)
+        fwd_dev, fwd_kernels = profile_device(lambda: ss._forward_cuda(*plain), 10)
+        bwd_dev, bwd_kernels = profile_device(lambda: ss._backward_cuda(*plain, dy), 10)
+        named = {**fwd_kernels, **bwd_kernels}
+        if not named or not all("selective_scan" in k for k in named):
+            raise AssertionError(f"scan {label}: kernels {sorted(named)}")
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(lambda: ss.scan_forward_plain(*plain), 3)
+            plain_bwd_ms = cuda_ms(lambda: ss.scan_backward_plain(*plain, dy), 3)
+        bound = scan_bound(b, t, d, n)
+        results[label] = {
+            "shape": [b, t, d, n], "launches": launches, "elems": elems,
+            "worst_in_tolerance": worst, "ms": [fwd_ms, bwd_ms],
+            "device_ms": [fwd_dev, bwd_dev], "kernel_ms": named,
+            "plain_ms": [plain_fwd_ms, plain_bwd_ms], "bound_ms": list(bound),
+            "share": [None if dv is None else bd / dv for bd, dv in zip(bound, (fwd_dev, bwd_dev))]}
+        print(f"scan {label} {(b, t, d, n)}: 2 launches, {elems} elements; y and the six "
+              f"gradients within rtol 1e-4 / atol 1e-5 of the largest of the plain versions "
+              f"(worst in units of the tolerance {worst}); forward {fwd_ms:.4f} ms (device "
+              f"{fwd_dev} ms), backward {bwd_ms:.4f} ms (device {bwd_dev} ms): {named}; plain "
+              f"{plain_fwd_ms:.3f} / {plain_bwd_ms:.3f} ms; bound {bound[0]:.4f} / "
+              f"{bound[1]:.4f} ms [{card}]")
+        del plain, args, dy
+        torch.cuda.empty_cache()
+    return results
+
+
 def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None,
                algo: str = "icl", arm: str = "vq"):
     """The paper's template widths with the flagship switches (``arm`` picks
@@ -1746,16 +1846,23 @@ def arms_phase(card: str) -> dict:
 
         # the main path: 8 served requests, then 10 train steps, each counted
         zero_launch_counts()
+        scan0 = scan_counts()
         served = [policy.batched(o, context) for o in requests]
         serve_counts = launch_counts()
+        scan1 = scan_counts()
         loader = DataLoader(items, BATCH, seed=5)
         zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
         train_counts = launch_counts()
+        scan2 = scan_counts()
         k1 = arm == "vq"
         if serve_counts != (ARM_REQUESTS * k1, 0, 0) or train_counts != (ARM_STEPS * k1, 0, 0):
             raise AssertionError(f"{label}: launches (K1, K1f, K2) {serve_counts} serving "
                                  f"{ARM_REQUESTS} requests, {train_counts} in {ARM_STEPS} steps")
+        scans = (scan1[0] - scan0[0], scan2[0] - scan1[0])
+        mamba_block = algo_name == "icl_mamba" or arm == "ln_act"
+        if (min(scans) > 0) != mamba_block or (max(scans) > 0) != mamba_block:
+            raise AssertionError(f"{label}: scan launches {scans} serving and training")
         if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
             raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
         if not all(np.isfinite(v) for v in log.values()):
@@ -1791,6 +1898,7 @@ def arms_phase(card: str) -> dict:
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
         results[label] = {
             "serve_launches": serve_counts, "train_launches": train_counts, "log": log,
+            "scan_launches": scans,
             "fp32_forward_max_abs_err": fwd_err, "request_ms": request_ms,
             "request_busy_ms": request_busy,
             "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
@@ -1799,7 +1907,8 @@ def arms_phase(card: str) -> dict:
             "step_top_ops_ms": top}
         r = results[label]
         print(f"arm {label}: {ARM_REQUESTS} requests of {N_ENVS} envs and {ARM_STEPS} steps of "
-              f"batch {BATCH}, launches (K1, K1f, K2) {serve_counts} / {train_counts}; Loss "
+              f"batch {BATCH}, launches (K1, K1f, K2) {serve_counts} / {train_counts}, of the "
+              f"scan {scans[0]} / {scans[1]}; Loss "
               f"{log['Loss']:.4f}; fp32 card == CPU within rtol 1e-3 / atol 1e-4 (max abs "
               f"{fwd_err:.3g}); request {request_ms:.3f} ms (device busy {request_busy} ms, "
               f"idle share {r['request_idle_share']}), step {step_ms:.3f} ms (device busy "
@@ -6039,7 +6148,7 @@ def main() -> int:
                              timeout=60).stdout.strip().splitlines()
         print(f"{tool}: {out[-1] if 'nvcc' in tool else out[0]}")
     t0 = time.perf_counter()
-    logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats"])
+    logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats", "selective_scan"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in logs.items():
         for line in log.splitlines():
@@ -6061,6 +6170,7 @@ def main() -> int:
     k1 = timed("kernel", kernel_phase, card)
     k2 = timed("stats", stats_phase, card)
     k1f = timed("fast", fast_phase, card)
+    scan = timed("scan", scan_phase, card)
     served = timed("slice", slice_phase, card)
     trained = timed("train", train_phase, card)
     scripted = timed("script", script_phase, card, served)
@@ -6147,6 +6257,10 @@ def main() -> int:
     k1_paths["rollout_device_cache"] = dc["k1_rollout"]
     k1f_paths["device_cache_script"] = dc["k1f"]
     k2_paths["device_cache_script"] = dc["k2"]
+    scan_paths = {f"scan {label}": r["launches"] for label, r in scan.items()}
+    for label, r in arms.items():
+        if "scan_launches" in r:
+            scan_paths[f"arm {label}"] = sum(r["scan_launches"])
     for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
         paths["import"] = imported["launches"][i]
         for label in ("lowdim", "lowdim_ema", "image"):
@@ -6230,6 +6344,17 @@ def main() -> int:
         "skewed": k2["skewed"],
         "beyond_one_histogram": k2["wide"],
         "visual_train_shape": k2["visual_train"],
+        "card": card,
+    }, {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "lipvq_tpu_torch/ops/csrc/selective_scan.cu",
+        "replaces": "lipvq_tpu/models/mamba.py:34",
+        "launches": sum(scan_paths.values()),
+        "launches_by_path": scan_paths,
+        **{k: scan["jamba"][k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                          "worst_in_tolerance")},
+        "shapes": scan,
         "card": card,
     }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
         "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,

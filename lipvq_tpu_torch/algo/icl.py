@@ -53,6 +53,7 @@ from lipvq_tpu_torch.algo.base import (
     optimizer_from_optim_params,
     register_algo_factory_func,
 )
+from lipvq_tpu_torch.config.algo_configs import MAMBA_HYBRID_DEFAULTS
 from lipvq_tpu_torch.models.base_nets import batch_mean, seeded_init
 from lipvq_tpu_torch.models.distributions import (
     GMMParams,
@@ -90,6 +91,19 @@ def _seq_section(algo_config, backbone: str):
     return algo_config.mamba if backbone == "mamba" else algo_config.transformer
 
 
+def _mamba_kwargs(section) -> dict:
+    """The Mamba backbone's sizes from ``algo.mamba`` and its hybrid layout
+    (``algo.mamba.hybrid``; None where the section has none or holds
+    ``MAMBA_HYBRID_DEFAULTS``, the JAX package's backbone)."""
+    hybrid = section.get("hybrid")
+    if hybrid is not None:
+        hybrid = {k: type(v)(hybrid[k]) for k, v in MAMBA_HYBRID_DEFAULTS.items()}
+        if hybrid == MAMBA_HYBRID_DEFAULTS:
+            hybrid = None
+    return {"mamba_d_state": int(section.d_state), "mamba_d_conv": int(section.d_conv),
+            "mamba_expand": int(section.expand), "mamba_hybrid": hybrid}
+
+
 # the FAST tokenizer's fit: refit on every early batch, frozen from this many
 # accumulated windows or batches on (reference algo/icl.py:282-306)
 FAST_FREEZE_WINDOWS, FAST_FREEZE_BATCHES = 2048, 8
@@ -111,8 +125,9 @@ def _torch_dtype(name: str) -> torch.dtype | None:
 
 class ICLTransformerGMM(PolicyAlgo):
     """ICL policy with a GMM head over the transformer (or Mamba) backbone.
-    As in the JAX package, ``algo.mamba.{d_state,d_conv,expand}`` are not
-    read: the Mamba backbone takes ICLMIMOTransformer's defaults (8, 4, 2)."""
+    The Mamba backbone takes ``algo.mamba.{d_state,d_conv,expand}`` and the
+    port's hybrid layout ``algo.mamba.hybrid`` (the JAX package reads
+    neither: its backbone keeps ICLMIMOTransformer's 8, 4, 2)."""
 
     backbone = "transformer"
     net_cls = ICLGMMActorNetwork
@@ -177,6 +192,7 @@ class ICLTransformerGMM(PolicyAlgo):
             vq_ema_codebook=self.vq_ema,
             vq_ema_decay=float(vq_cfg.get("ema_decay", 0.99)),
             encoder_cores=encoder_cores_from_config(self.obs_config, self.obs_shapes),
+            **(_mamba_kwargs(tc) if self.backbone == "mamba" else {}),
         )
         # initialize on the CPU, then move: one seed, the same weights on
         # every device

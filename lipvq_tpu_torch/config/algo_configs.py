@@ -18,6 +18,24 @@ tokenizer.
 from __future__ import annotations
 
 from lipvq_tpu_torch.config.base import BaseConfig
+from lipvq_tpu_torch.config.config import Config
+
+# The port-only sub-section ``algo.mamba.hybrid`` of ``icl_mamba``: the Mamba
+# backbone's hybrid layout (``models/mamba.py``; Jamba's keys in brackets).
+# Attention where i % attn_layer_period == attn_layer_offset (period 0: no
+# attention) [attn_layer_period, attn_layer_offset], with num_kv_heads
+# key/value heads [num_key_value_heads]; a SiLU-gated MLP of width mlp_dim
+# after each mixer (0: none) [intermediate_size]; every norm "layer" or
+# "rms" of eps norm_eps [rms_norm_eps]; RMSNorms on the mixer's dt, B and C
+# (dt_bc_norm); dt_rank (0: ceil(d / 16)) [mamba_dt_rank]. With the
+# sub-section set, the backbone's Dense layers also take the section's
+# compute_dtype. These defaults are the JAX package's backbone. A config
+# holds the sub-section only where an override names it: the JAX package's
+# config has no such key, its strict loader refuses one, and the configs
+# and templates both packages write stay the same.
+MAMBA_HYBRID_DEFAULTS = {"attn_layer_period": 0, "attn_layer_offset": 0, "num_kv_heads": 1,
+                         "mlp_dim": 0, "norm": "layer", "norm_eps": 1e-6,
+                         "dt_bc_norm": False, "dt_rank": 0}
 
 
 def _policy_optim_defaults(algo):
@@ -175,6 +193,20 @@ class ICLMambaConfig(BaseConfig):
         algo.vq.hidden_dim = 128
         algo.vq.ema_codebook = False
         algo.vq.ema_decay = 0.99
+
+    def update_from(self, other: dict, strict: bool = True):
+        """``Config.update_from``; an override that names
+        ``algo.mamba.hybrid`` first adds the sub-section at
+        ``MAMBA_HYBRID_DEFAULTS`` (locked as the rest), so its keys are
+        merged as strictly as any other."""
+        algo = other.get("algo")
+        mamba = algo.get("mamba") if isinstance(algo, dict) else None
+        if isinstance(mamba, dict) and "hybrid" in mamba and "hybrid" not in self.algo.mamba:
+            section = self.algo.mamba
+            with section.unlocked():
+                section["hybrid"] = Config(MAMBA_HYBRID_DEFAULTS)
+            section["hybrid"].lock()
+        super().update_from(other, strict=strict)
 
 
 class BCConfig(BaseConfig):

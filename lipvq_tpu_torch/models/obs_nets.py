@@ -319,11 +319,15 @@ class ICLMIMOTransformer(nn.Module):
     Mamba with ``backbone="mamba"``) -> decode. The timestep embedding is
     the learned offset ``embed_timestep`` (zeros) by default, the sinusoidal
     encoding with ``sinusoidal_embedding``, else the learned table
-    ``embed_timestep_table`` (N(0, 1))."""
+    ``embed_timestep_table`` (N(0, 1)). ``mamba_hybrid`` (``MambaBackbone``'s
+    hybrid keywords) gives the Mamba backbone its hybrid layout, with
+    ``num_heads``, ``causal`` and ``compute_dtype``; without it the Mamba
+    backbone is fp32, as the JAX package's."""
 
     def __init__(self, group_specs: ObsSpec, output_spec: ObsSpec,
                  backbone: str = "transformer", mamba_d_state: int = 8,
-                 mamba_d_conv: int = 4, mamba_expand: int = 2, embed_dim: int = 512,
+                 mamba_d_conv: int = 4, mamba_expand: int = 2,
+                 mamba_hybrid: dict | None = None, embed_dim: int = 512,
                  num_layers: int = 6, num_heads: int = 8, context_length: int = 10,
                  causal: bool = False, emb_dropout: float = 0.1,
                  attn_dropout: float = 0.1, block_output_dropout: float = 0.1,
@@ -360,9 +364,12 @@ class ICLMIMOTransformer(nn.Module):
         elif not sinusoidal_embedding:
             self.embed_timestep_table = nn.Parameter(torch.empty(context_length, embed_dim))
         if backbone == "mamba":
+            hybrid = ({} if mamba_hybrid is None else
+                      dict(mamba_hybrid, num_heads=num_heads, causal=causal,
+                           compute_dtype=compute_dtype))
             self.transformer = MambaBackbone(
                 embed_dim, num_layers=num_layers, d_state=mamba_d_state,
-                d_conv=mamba_d_conv, expand=mamba_expand)
+                d_conv=mamba_d_conv, expand=mamba_expand, **hybrid)
         else:
             self.transformer = GPTBackbone(
                 embed_dim=embed_dim, context_length=3 * context_length, causal=causal,

@@ -60,16 +60,53 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        cd = self.compute_dtype
-        if cd is None:
-            return F.linear(x, self.weight, self.bias)
-        bias = self.bias.to(cd) if self.bias is not None else None
-        return F.linear(x.to(cd), self.weight.to(cd), bias)
+        return cast_linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+def cast_linear(x, weight, bias, compute_dtype: torch.dtype | None):
+    """``F.linear``, or with ``compute_dtype`` its operands cast to it."""
+    if compute_dtype is None:
+        return F.linear(x, weight, bias)
+    bias = bias.to(compute_dtype) if bias is not None else None
+    return F.linear(x.to(compute_dtype), weight.to(compute_dtype), bias)
 
 
 def layer_norm(ln: nn.LayerNorm, x):
     """LayerNorm in fp32 with fp32 output, as flax computes it."""
     return ln(x.float())
+
+
+class RMSNorm(nn.Module):
+    """x / sqrt(mean(x^2) + eps) * weight over the last axis, in fp32 with
+    fp32 output; ``weight`` starts at ones."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+
+    def forward(self, x):
+        x = x.float()
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + self.eps) * self.weight
+
+
+class GatedMLP(nn.Module):
+    """``down_proj(silu(gate_proj(x)) * up_proj(x))`` without biases (the
+    SiLU-gated feed-forward of Jamba and Llama); the gate's product in fp32,
+    each Dense in ``compute_dtype``."""
+
+    def __init__(self, embed_dim: int, width: int, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        self.gate_proj = Dense(embed_dim, width, bias=False, compute_dtype=compute_dtype)
+        self.up_proj = Dense(embed_dim, width, bias=False, compute_dtype=compute_dtype)
+        self.down_proj = Dense(width, embed_dim, bias=False, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x).float()) * self.up_proj(x).float())
 
 
 class GEGLU(nn.Module):
@@ -130,6 +167,51 @@ class SelfAttention(nn.Module):
         y = (att.float() @ v.float()).to(x.dtype)
         y = y.transpose(1, 2).reshape(b, t, d)
         return dropout(self.output(y), self.output_dropout, generator, train)
+
+
+class GroupedQueryAttention(nn.Module):
+    """Attention with ``num_kv_heads`` key/value heads, each shared by
+    ``num_heads / num_kv_heads`` query heads (one: multi-query attention),
+    no biases and no positions (Jamba's attention layers): ``q_proj``,
+    ``k_proj``, ``v_proj``, ``o_proj``. The scores and the weighted values
+    are accumulated in fp32 from the Dense layers' outputs, the softmax in
+    fp32, as ``SelfAttention`` does; no dropout."""
+
+    def __init__(self, embed_dim: int, num_heads: int, num_kv_heads: int = 1,
+                 causal: bool = True, compute_dtype: torch.dtype | None = None):
+        super().__init__()
+        if embed_dim % num_heads or num_heads % num_kv_heads:
+            raise ValueError(f"{num_heads} query heads need to divide the width {embed_dim} "
+                             f"and be a multiple of the {num_kv_heads} key/value heads")
+        self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+        self.head_dim = embed_dim // num_heads
+        self.causal = causal
+        self.compute_dtype = compute_dtype
+        kv = num_kv_heads * self.head_dim
+        self.q_proj = Dense(embed_dim, embed_dim, bias=False, compute_dtype=compute_dtype)
+        self.k_proj = Dense(embed_dim, kv, bias=False, compute_dtype=compute_dtype)
+        self.v_proj = Dense(embed_dim, kv, bias=False, compute_dtype=compute_dtype)
+        self.o_proj = Dense(embed_dim, embed_dim, bias=False, compute_dtype=compute_dtype)
+
+    def forward(self, x):
+        b, t, d = x.shape
+        kvh, dh = self.num_kv_heads, self.head_dim
+        group = self.num_heads // kvh
+        # [b, kv heads, group * t, dh]: the query heads that share a key/value
+        # head stacked along the rows
+        q = self.q_proj(x).reshape(b, t, kvh, group, dh).permute(0, 2, 3, 1, 4)
+        q = q.reshape(b, kvh, group * t, dh)
+        k, v = (p(x).reshape(b, t, kvh, dh).transpose(1, 2) for p in (self.k_proj, self.v_proj))
+        att = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+        if self.causal:
+            mask = torch.ones(t, t, dtype=torch.bool, device=x.device).tril().repeat(group, 1)
+            att = att.masked_fill(~mask, float("-inf"))
+        att = torch.softmax(att, dim=-1)
+        if self.compute_dtype is not None:
+            att = att.to(self.compute_dtype)  # fp32 softmax result -> bf16 operand
+        y = (att.float() @ v.float()).to(x.dtype)  # [b, kv heads, group * t, dh]
+        y = y.reshape(b, kvh, group, t, dh).permute(0, 3, 1, 2, 4).reshape(b, t, d)
+        return self.o_proj(y)
 
 
 class SelfAttentionBlock(nn.Module):

@@ -1,0 +1,215 @@
+"""The selective scan of the Mamba mixer: plain PyTorch and a fused kernel.
+
+For x, dt [b, t, d], A [d, n], B, C [b, t, n] and D [d], per channel and
+state
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t        (h_{-1} = 0)
+    y_t = C_t . h_t + D x_t
+
+- ``selective_scan_reference``: the recurrence as a sequential loop over t
+  in fp32 (the JAX package's ``associative_scan`` written as its
+  definition), autograd through every step. It writes exp(dt A) and
+  dt B x as [b, t, d, n] tensors and autograd keeps each step's state.
+- ``scan_forward_plain`` / ``scan_backward_plain``: the plain versions of
+  the kernel's forward and backward, in any dtype: the backward recomputes
+  the states and runs the adjoint dh_t = C_t dy_t + exp(dt_{t+1} A) dh_{t+1}
+  back over t, as the kernel does.
+- ``SelectiveScan``: the autograd Function over the two: the kernels of
+  ``csrc/selective_scan.cu`` on CUDA tensors, the plain versions on CPU
+  tensors (which is how the CPU tests hold its backward to autograd).
+- ``selective_scan_cuda``: the Function on the card; raises on anything
+  else. ``selective_scan_cuda.launches`` counts its forward and backward
+  calls, ``selective_scan_cuda.elems`` the elements (b, t, d, n) they
+  scanned; while the port's recording is on they are also the counters
+  ``ssm_scan_launches`` and ``ssm_scan_elems``.
+- ``selective_scan``: the dispatcher the Mamba block calls: the kernel on a
+  CUDA tensor, the plain loop on a CPU tensor. y comes back in x's dtype;
+  the state is fp32 (the kernel's inputs are cast to fp32).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lipvq_tpu_torch.ops import _build
+from lipvq_tpu_torch.utils.profile_utils import count
+
+MAX_STATE = 32  # csrc/selective_scan.cu: one warp's lanes per channel
+
+
+def selective_scan_reference(x, dt, A, B, C, D):
+    """x, dt [b, t, d]; A [d, n]; B, C [b, t, n]; D [d] -> y [b, t, d] in
+    x's dtype, the state in fp32."""
+    x32, dt32 = x.float(), dt.float()
+    dA = torch.exp(dt32[..., None] * A[None, None])        # [b, t, d, n]
+    dBx = (dt32 * x32)[..., None] * B.float()[:, :, None, :]  # [b, t, d, n]
+    h = torch.zeros_like(dA[:, 0])
+    states = []
+    for i in range(x.shape[1]):
+        h = dA[:, i] * h + dBx[:, i]
+        states.append(h)
+    y = torch.einsum("btdn,btn->btd", torch.stack(states, 1), C.float())
+    return (y + x32 * D[None, None]).to(x.dtype)
+
+
+def _states(x, dt, A, B):
+    """Every step's state [b, t, d, n] in the inputs' dtype."""
+    h = torch.zeros(x.shape[0], x.shape[2], A.shape[1], dtype=x.dtype, device=x.device)
+    out = []
+    for i in range(x.shape[1]):
+        h = torch.exp(dt[:, i, :, None] * A) * h + (dt[:, i] * x[:, i])[:, :, None] * B[:, i, None]
+        out.append(h)
+    return torch.stack(out, 1)
+
+
+def scan_forward_plain(x, dt, A, B, C, D):
+    """The kernel's forward in the inputs' dtype: y [b, t, d]."""
+    return torch.einsum("btdn,btn->btd", _states(x, dt, A, B), C) + x * D
+
+
+def scan_backward_plain(x, dt, A, B, C, D, dy):
+    """The kernel's backward in the inputs' dtype: (dx, ddt, dA, dB, dC, dD)
+    of y = scan_forward_plain(...) for the output's gradient dy."""
+    h = _states(x, dt, A, B)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+    eA = torch.exp(dt[..., None] * A)  # [b, t, d, n]
+    dh = torch.zeros_like(h[:, 0])
+    dhs = [None] * x.shape[1]
+    for i in reversed(range(x.shape[1])):
+        dh = dh + C[:, i, None] * dy[:, i, :, None]
+        dhs[i] = dh
+        dh = eA[:, i] * dh
+    dh = torch.stack(dhs, 1)
+    dx = (dh * B[:, :, None]).sum(-1) * dt + D * dy
+    ddt = (dh * (h_prev * eA * A + B[:, :, None] * x[..., None])).sum(-1)
+    dA = (dh * h_prev * eA * dt[..., None]).sum((0, 1))
+    dB = (dh * (dt * x)[..., None]).sum(2)
+    dC = (h * dy[..., None]).sum(2)
+    dD = (dy * x).sum((0, 1))
+    return dx, ddt, dA, dB, dC, dD
+
+
+_LIB: list = []
+
+
+def _lib() -> ctypes.CDLL:
+    """``csrc/selective_scan.cu``'s library with its entry points declared."""
+    if not _LIB:
+        lib = _build.load("selective_scan")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.selective_scan_fwd_launch.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+        lib.selective_scan_fwd_launch.restype = i32
+        lib.selective_scan_bwd_launch.argtypes = [ptr] * 14 + [i32] * 4 + [ptr]
+        lib.selective_scan_bwd_launch.restype = i32
+        lib.selective_scan_bwd_scratch_elems.argtypes = [i32] * 4
+        lib.selective_scan_bwd_scratch_elems.restype = ctypes.c_size_t
+        lib.selective_scan_error_string.argtypes = [i32]
+        lib.selective_scan_error_string.restype = ctypes.c_char_p
+        lib.selective_scan_max_batch.restype = i32
+        if lib.selective_scan_max_state() != MAX_STATE:
+            raise RuntimeError("selective_scan: the library's largest state differs from "
+                               "ops/selective_scan.py's")
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _check(x, dt, A, B, C, D) -> None:
+    ts = (x, dt, A, B, C, D)
+    if not all(t.is_cuda and t.device == x.device for t in ts):
+        raise ValueError("the selective scan kernel takes tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if not all(t.dtype == torch.float32 and t.is_contiguous() for t in ts):
+        raise ValueError("the selective scan kernel takes contiguous float32 tensors")
+    b, t, d = x.shape
+    n = A.shape[1]
+    if (dt.shape != x.shape or A.shape != (d, n) or B.shape != (b, t, n)
+            or C.shape != (b, t, n) or D.shape != (d,)):
+        raise ValueError("the selective scan takes x, dt [b, t, d], A [d, n], B, C [b, t, n], "
+                         f"D [d], got {[tuple(v.shape) for v in ts]}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"the selective scan kernel takes 1 to {MAX_STATE} states, got {n}")
+    if min(b, t, d) == 0 or b * t * max(d, n) >= 2**31:
+        raise ValueError(f"the selective scan kernel takes non-empty inputs of fewer than "
+                         f"2**31 elements, got {tuple(x.shape)} and {n} states")
+
+
+def _launch(name: str, dev, *args) -> None:
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = getattr(lib, f"selective_scan_{name}_launch")(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective scan {name} launch failed: "
+                           f"{lib.selective_scan_error_string(err).decode()} ({err})")
+    elems = args[-4] * args[-3] * args[-2] * args[-1]
+    selective_scan_cuda.launches += 1
+    selective_scan_cuda.elems += elems
+    count("ssm_scan_launches")
+    count("ssm_scan_elems", elems)
+
+
+def _ptrs(*ts):
+    return [t.data_ptr() for t in ts]
+
+
+def _forward_cuda(x, dt, A, B, C, D):
+    _check(x, dt, A, B, C, D)
+    y = torch.empty_like(x)
+    b, t, d = x.shape
+    _launch("fwd", x.device, *_ptrs(x, dt, A, B, C, D, y), b, t, d, A.shape[1])
+    return y
+
+
+def _backward_cuda(x, dt, A, B, C, D, dy):
+    b, t, d = x.shape
+    n = A.shape[1]
+    if b > _lib().selective_scan_max_batch():
+        raise ValueError(f"the selective scan's backward takes at most "
+                         f"{_lib().selective_scan_max_batch()} sequences, got {b}")
+    out = [torch.empty_like(v) for v in (x, dt, A, B, C, D)]
+    scratch = torch.empty(_lib().selective_scan_bwd_scratch_elems(b, t, d, n),
+                          dtype=torch.float32, device=x.device)
+    _launch("bwd", x.device, *_ptrs(x, dt, A, B, C, D, dy, *out, scratch), b, t, d, n)
+    return tuple(out)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """y = scan(x, dt, A, B, C, D): the kernels on CUDA tensors, their plain
+    versions on CPU tensors. Only the inputs are kept for the backward,
+    which recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D):
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        if x.is_cuda:
+            return _forward_cuda(x, dt, A, B, C, D)
+        return scan_forward_plain(x, dt, A, B, C, D)
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        if dy.is_cuda:
+            return _backward_cuda(*saved, dy.contiguous())
+        return scan_backward_plain(*saved, dy)
+
+
+def selective_scan_cuda(x, dt, A, B, C, D):
+    """The fused scan on the card: inputs cast to contiguous fp32, y [b, t, d]
+    in x's dtype. Raises on CPU tensors."""
+    if not x.is_cuda:
+        raise ValueError(f"selective_scan_cuda takes CUDA tensors, got {x.device}")
+    y = SelectiveScan.apply(*(v.float().contiguous() for v in (x, dt, A, B, C, D)))
+    return y.to(x.dtype)
+
+
+selective_scan_cuda.launches = 0
+selective_scan_cuda.elems = 0
+
+
+def selective_scan(x, dt, A, B, C, D):
+    """The kernel on a CUDA tensor, the plain loop on a CPU tensor."""
+    if x.is_cuda:
+        return selective_scan_cuda(x, dt, A, B, C, D)
+    return selective_scan_reference(x, dt, A, B, C, D)

@@ -9,6 +9,12 @@ ln_act default tokenizer).
 The port's twin of ``lipvq_tpu/scripts/generate_config_templates.py``,
 built from the port's ``config_factory``. ``TEMPLATE_DIR`` is the repo's
 ``exps/templates/`` (JSON data shared with the JAX package).
+
+The port-only rule: a template leaves out ``algo.mamba.hybrid`` (the
+port's hybrid layout of the Mamba backbone) while it holds its defaults,
+``MAMBA_HYBRID_DEFAULTS``, and keeps it when an overlay sets it. The
+templates are shared with the JAX package, whose strict loader refuses a
+key its config lacks, and at its defaults the sub-section changes nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import os
 
 import lipvq_tpu_torch.config  # noqa: F401
 from lipvq_tpu_torch.config import REGISTERED_CONFIGS, config_factory
+from lipvq_tpu_torch.config.algo_configs import MAMBA_HYBRID_DEFAULTS
 
 TEMPLATE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -78,12 +85,22 @@ def _merge(dst: dict, src: dict):
             dst[k] = v
 
 
+def _without_port_defaults(d: dict) -> dict:
+    """``d`` without ``algo.mamba.hybrid`` where it holds its defaults (the
+    port-only rule of the module docstring)."""
+    mamba = d.get("algo", {}).get("mamba", {})
+    if mamba.get("hybrid") == MAMBA_HYBRID_DEFAULTS:
+        del mamba["hybrid"]
+    return d
+
+
 def main():
     os.makedirs(TEMPLATE_DIR, exist_ok=True)
     for algo_name in sorted(REGISTERED_CONFIGS):
         cfg = config_factory(algo_name)
         d = cfg.to_dict()
         _merge(d, OVERLAYS.get(algo_name, {}))
+        _without_port_defaults(d)
         path = os.path.join(TEMPLATE_DIR, f"{algo_name}.json")
         with open(path, "w") as f:
             json.dump(d, f, indent=4)

@@ -734,3 +734,101 @@ def test_inference_moved_from_the_card_to_the_cpu(cuda):
     assert bool((gap <= allowed).all())
     if torch.equal(card[1], cpu[1]):
         np.testing.assert_allclose(cpu[0].numpy(), card[0].numpy(), rtol=1e-4, atol=1e-5)
+
+
+# -- the selective scan (ops/selective_scan.py, csrc/selective_scan.cu) -------
+
+def _scan_args(b, t, d, n, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, d, generator=g, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn(b, t, d, generator=g, device=dev))
+    A = -torch.rand(d, n, generator=g, device=dev) * 2.0 - 0.1
+    B, C = (torch.randn(b, t, n, generator=g, device=dev) for _ in range(2))
+    D = torch.randn(d, generator=g, device=dev)
+    return [x, dt, A, B, C, D]
+
+
+def _close(got, want, name):
+    """fp32 sums in another order (over the states, the steps and, for dB and
+    dC, up to b x d x t terms): each element within 1e-4 of its value plus
+    1e-5 of the tensor's largest."""
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()),
+                               msg=name)
+
+
+@pytest.mark.parametrize("b,t,d,n", [(192, 30, 5120, 16), (3, 70, 100, 8), (5, 10, 33, 32),
+                                     (2, 70, 300, 16), (1, 1, 1, 1), (4, 33, 24, 3),
+                                     (9, 10, 26, 4)])
+def test_selective_scan_kernel_matches_its_plain_version(cuda, b, t, d, n):
+    from lipvq_tpu_torch.ops import selective_scan as ss
+
+    args = [v.requires_grad_() for v in _scan_args(b, t, d, n, cuda)]
+    launches, elems = ss.selective_scan_cuda.launches, ss.selective_scan_cuda.elems
+    y = ss.selective_scan_cuda(*args)
+    dy = torch.randn_like(y)
+    grads = torch.autograd.grad(y, args, dy)
+    torch.cuda.synchronize()
+    assert ss.selective_scan_cuda.launches == launches + 2
+    assert ss.selective_scan_cuda.elems == elems + 2 * b * t * d * n
+    with torch.no_grad():
+        plain = [v.detach() for v in args]
+        _close(y.detach(), ss.scan_forward_plain(*plain), "y")
+        want = ss.scan_backward_plain(*plain, dy)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD"), grads, want):
+        _close(g, w, name)
+
+
+def test_mamba_block_on_the_card_takes_the_kernel_and_matches_the_cpu(cuda):
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.mamba import MambaBlock
+    from lipvq_tpu_torch.ops import selective_scan as ss
+
+    block = seeded_init(MambaBlock(64, d_state=16, dt_rank=8, dt_bc_norm=True),
+                        torch.Generator().manual_seed(0))
+    x = torch.randn(6, 30, 64, generator=torch.Generator().manual_seed(1))
+    want = block(x)
+    launches = ss.selective_scan_cuda.launches
+    got = block.to(cuda)(x.to(cuda))
+    torch.cuda.synchronize()
+    assert ss.selective_scan_cuda.launches == launches + 1
+    np.testing.assert_allclose(got.detach().cpu().numpy(), want.detach().numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_hybrid_step_on_the_card_counts_its_scans(cuda):
+    """One step of the small hybrid policy on the card: two scan calls (a
+    forward and a backward) per Mamba layer in the port's counters."""
+    import copy
+    import json
+    from pathlib import Path
+
+    from lipvq_tpu_torch.utils import profile_utils
+    from portbench.harness import program, weights
+    from portbench.reference import icl_jamba as ref
+
+    path = Path(__file__).resolve().parents[1] / "portbench/configs/icl_lipvq_jamba2_3b.json"
+    raw = json.loads(path.read_text())
+    raw["port_config"] = pc = copy.deepcopy(raw["port_config"])
+    pc["algo"]["mamba"].update(context_length=3, embed_dim=64, num_heads=4, num_layers=4,
+                               d_state=4)
+    pc["algo"]["mamba"]["hybrid"].update(attn_layer_period=4, attn_layer_offset=2, mlp_dim=128,
+                                         dt_rank=0)
+    pc["algo"]["vq"]["num_codes"] = 32
+    cfg = program.normalize(raw)
+    w = weights.make(ref.param_specs(cfg), 5, cuda, ref.lipvq_encode, codebooks=[ref.TOK])
+    algo = program.build_policy(cfg, w, 5, cuda)
+    rng = np.random.default_rng(0)
+    items = {"obs": {k: rng.standard_normal((6, 5, *s), dtype=np.float32) for k, s in cfg["obs"]},
+             "actions": rng.standard_normal((6, 5, cfg["ac_dim"]), dtype=np.float32)}
+    profile_utils.reset()
+    profile_utils.enable()
+    try:
+        algo.train_on_batch(algo.process_batch_for_training(items), 0)
+        counters = profile_utils.totals()["counters"]
+    finally:
+        profile_utils.disable()
+        profile_utils.reset()
+    mamba_layers = 3
+    b, t = 3, 3 * cfg["context_length"]
+    assert counters["ssm_scan_launches"] == 2 * mamba_layers
+    assert counters["ssm_scan_elems"] == 2 * mamba_layers * b * t * 2 * 64 * 4

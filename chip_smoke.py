@@ -59,6 +59,26 @@ all started together). Phases:
    medians, profiler time by kernel (every kernel named ``selective_scan``),
    the plain versions' times and the bound (each tensor read or written once
    over the HBM rate, or 7 / 23 operations an element over the dense peak).
+   The optimizer (``optimizer_phase``; ``ops/fused_adamw.py``): the Jamba
+   cell's parameters (the icl_mamba policy built on the meta device from
+   its configuration: 256 fp32 tensors, 1.43 B elements) under its two
+   AdamW optimizers (the policy's clipped at 100, the grads N(0, 0.01) so
+   that the clip engages) take 4 steps through ``step_optimizers`` (both
+   on the kernels' path) and 4 through torch's block (``global_norm``,
+   ``clip_by_global_norm_``, torch's foreach AdamW) from the same weights
+   and grads: the logged norms within 1e-5, p within a thousandth of one
+   step and the moments within 1e-5 of their largest; every kernel of the
+   kernels' step credited to a host op named ``_foreach``, and as many
+   launches profiled as the library reported. Adam with L2 (the branch of
+   DP, ACT and BC) is held the same way at ACT's parameters and settings
+   (``adam_l2_check``). Every main path that trains (the train phase, the
+   baselines) counts the optimizer's launches and steps: all on the
+   kernels, none on torch's path. Printed: the
+   device time of a step of each path (CUDA events, the card kept busy while
+   the host enqueues), profiler time by kernel, the share of 3.35 TB/s over
+   32 bytes a parameter (28 for the update, 4 for the norms), the step's
+   extra memory and the peak, the host's time to enqueue a step here and at
+   the flagship's 93 tensors.
 3. Serve: the flagship ICLTransformerGMM at full width (6 layers x 512 x 8
    heads, 30 tokens, 1024 x 791 codebook, bf16 compute) behind
    ICLRolloutPolicy answers 5 requests for 16 envs and 3 single-env
@@ -502,11 +522,35 @@ def launch_counts() -> tuple[int, int, int]:
 
 
 def zero_launch_counts() -> None:
-    """Set the launch counts of K1, K1f and K2 to 0, just before a main path."""
+    """Set the launch counts of K1, K1f and K2 and the optimizer's counts
+    (``optimizer_counts``) to 0, just before a main path."""
+    from lipvq_tpu_torch.ops import fused_adamw
     from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
 
     vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
     vq_nearest_with_stats_cuda.launches = 0
+    fused_adamw.sq_norms.launches = fused_adamw.adam_step_.launches = 0
+    fused_adamw.adam_step_.steps = fused_adamw.adam_step_.elems = 0
+    fused_adamw.torch_step_.steps = 0
+
+
+def optimizer_counts() -> dict[str, int]:
+    """Since the last reset: the optimizer's kernels launched on the card
+    (both passes, as the library reports them), the optimizer steps they
+    took and the steps on torch's path."""
+    from lipvq_tpu_torch.ops import fused_adamw
+
+    return {"launches": fused_adamw.sq_norms.launches + fused_adamw.adam_step_.launches,
+            "fused_steps": fused_adamw.adam_step_.steps,
+            "torch_steps": fused_adamw.torch_step_.steps}
+
+
+def assert_fused_optimizer(label: str, counts: dict, steps: int) -> None:
+    """``counts`` (``optimizer_counts``) of a main path that took ``steps``
+    optimizer steps: every one on the kernels, none on torch's path."""
+    if not (counts["fused_steps"] == steps and counts["torch_steps"] == 0
+            and counts["launches"] > 0):
+        raise AssertionError(f"{label}: optimizer {counts}, want {steps} steps on the kernels")
 
 
 def profile_convs(fn, reps: int, warmup: bool = True) -> tuple[float | None, dict, dict, list]:
@@ -1161,6 +1205,311 @@ def scan_phase(card: str) -> dict:
     return results
 
 
+OPT_CONFIGS = {"jamba": "portbench/configs/icl_lipvq_jamba2_3b.json",
+               "lowdim": "portbench/configs/icl_lipvq_lowdim.json"}
+OPT_STEPS = 4  # the optimizer phase's steps on each path; the first makes the moments
+OPT_BYTES = (28, 4)  # bytes a parameter: the update (p, g, m, v in; p, m, v out), the norms
+OPT_HOST_REPS = 30
+OPT_L2_LR = 1e-4  # the L2 check's rate, held constant (the template's warm-up starts at 0)
+
+
+def param_sizes(path: str) -> list[list[int]]:
+    """The element counts of a benchmark configuration's parameters by
+    optimizer (policy, tokenizer): its policy built on the meta device,
+    where no weight is made."""
+    import lipvq_tpu_torch.algo.icl as icl_module
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.config import config_factory
+    from lipvq_tpu_torch.utils import obs_utils
+
+    cfg = json.loads(open(path).read())
+    cf = config_factory(cfg["algo"], cfg["port_config"])
+    obs_utils.initialize_obs_utils_with_config(cf)
+    saved = icl_module.seeded_init, torch.nn.Module.to
+    icl_module.seeded_init = lambda *args, **kwargs: None
+    torch.nn.Module.to = lambda self, *args, **kwargs: self
+    try:
+        with torch.device("meta"):
+            algo = algo_factory(cfg["algo"], cf, {k: list(v) for k, v in cfg["obs"]},
+                                ac_dim=cfg["ac_dim"], device="cpu")
+    finally:
+        icl_module.seeded_init, torch.nn.Module.to = saved
+    return [[p.numel() for p in o.params] for o in algo.optimizers().values()]
+
+
+def jamba_optimizers(lrs=(1e-4, 1e-3)):
+    """A policy's and a tokenizer's AdamW as the Jamba cell builds them (the
+    cells' rates after the warm-up, the policy's clip at 100) over
+    ``params`` [policy's, tokenizer's]."""
+    from lipvq_tpu_torch.algo.base import ScheduledOptimizer
+
+    def make(params):
+        return [ScheduledOptimizer(params[0], torch.optim.AdamW, lambda step: lrs[0],
+                                   max_grad_norm=100.0, weight_decay=0.01, eps=1e-8),
+                ScheduledOptimizer(params[1], torch.optim.AdamW, lambda step: lrs[1],
+                                   weight_decay=1e-4, eps=1e-8)]
+    return make
+
+
+def optimizer_paths(start: list[list[torch.Tensor]], make):
+    """Two copies of the optimizers ``make`` builds over fp32 parameters
+    from ``start`` (one list of tensors an optimizer, taken by the first
+    copy), one shared grad per parameter, and one step of each path:
+    (grads, kernels' optimizers, step, torch's optimizers, step). The
+    kernels' step goes first: torch's clips the shared grads in place."""
+    from lipvq_tpu_torch.algo.base import clip_by_global_norm_, global_norm, step_optimizers
+
+    grads = [[torch.empty_like(t) for t in ts] for ts in start]
+    plain = make([[torch.nn.Parameter(t.clone()) for t in ts] for ts in start])
+    fused = make([[torch.nn.Parameter(t) for t in ts] for ts in start])
+    start.clear()
+
+    def give(opts) -> None:
+        for o, gs in zip(opts, grads):
+            for p, g in zip(o.params, gs):
+                p.grad = g
+
+    def fused_step():
+        give(fused)
+        return step_optimizers(fused)
+
+    def torch_step():
+        """The block without the kernels: the logged norm, each clip,
+        torch's foreach step of each optimizer."""
+        give(plain)
+        norm = global_norm([g for gs in grads for g in gs])
+        for o, gs in zip(plain, grads):
+            if o.max_grad_norm is not None:
+                clip_by_global_norm_(gs, o.max_grad_norm)
+            o.optimizer.step()
+            o._advance()
+        return norm
+
+    return grads, fused, fused_step, plain, torch_step
+
+
+def expected_launches(sizes: list[list[int]], clips: list) -> int:
+    """The launches one ``step_optimizers`` call over optimizers of
+    parameters of ``sizes`` with clips ``clips`` makes, as the argument
+    blocks call for: each clipping optimizer's norm pass and finalize, each
+    optimizer's update (one set of hyper-parameters each), then one norm
+    pass and finalize over the rest's grads; empty tensors take no place."""
+    from lipvq_tpu_torch.ops import fused_adamw
+
+    lim = fused_adamw.limits()
+    launches, rest = 0, 0
+    for ns, clip in zip(sizes, clips):
+        k = sum(1 for n in ns if n)
+        launches += -(-k // lim["adam_tensors"])
+        if clip is None:
+            rest += k
+        else:
+            launches += -(-k // lim["norm_tensors"]) + 1
+    return launches + -(-rest // lim["norm_tensors"]) + 1
+
+
+def optimizer_gaps(fused, plain) -> dict[str, float]:
+    """After the same steps from the same start: the largest gap of p in
+    units of the optimizer's rate (one step's size), of each moment over
+    its largest element."""
+    worst = {"p": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    for of, op in zip(fused, plain):
+        lr = op.optimizer.param_groups[0]["lr"]
+        for pf, pp in zip(of.params, op.params):
+            sf, sp = of.optimizer.state[pf], op.optimizer.state[pp]
+            worst["p"] = max(worst["p"], float((pf - pp).detach().abs().max()) / lr)
+            for k in ("exp_avg", "exp_avg_sq"):
+                scale = float(sp[k].abs().max()) or 1.0
+                worst[k] = max(worst[k], float((sf[k] - sp[k]).abs().max()) / scale)
+            if not float(sf["step"]) == float(sp["step"]) == OPT_STEPS:
+                raise AssertionError("optimizer: step counts differ")
+    return worst
+
+
+def check_gaps(label: str, worst: dict, norms: list) -> float:
+    """The clip's scale differs in its last bits (the norm's order of sums):
+    p within a thousandth of one step, the moments within 1e-5 of their
+    largest, the logged norms within 1e-5. Returns the norms' largest gap."""
+    rel_norm = max(abs(a - b) / b for a, b in norms)
+    if worst["p"] > 1e-3 or max(worst["exp_avg"], worst["exp_avg_sq"]) > 1e-5 or rel_norm > 1e-5:
+        raise AssertionError(f"optimizer {label}: kernels against torch {worst}, norms {norms}")
+    return rel_norm
+
+
+def adam_l2_check(card: str, gen) -> dict:
+    """Adam with L2 into the gradient, the branch Diffusion Policy, ACT and
+    BC take: ``optimizer_from_optim_params`` over ACT's parameters and with
+    its template's settings (L2 1e-4, its clip; the rate held at
+    OPT_L2_LR), from ACT's initial weights, grads N(0, 1e-3) so that the
+    L2 term shows in the moments; OPT_STEPS steps of each path, held as the
+    Jamba parameters are."""
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.algo.base import optimizer_from_optim_params
+
+    act = algo_factory("act", baseline_config("act", {}), OBS_SHAPES, ac_dim=AC_DIM)
+    start = [[p.detach().clone() for p in act.optimizers()["policy"].params]]
+    optim_params = act.algo_config.optim_params.policy
+    clip = act.global_config.train.max_grad_norm
+    del act
+
+    def make(params):
+        o = optimizer_from_optim_params(params[0], optim_params, max_grad_norm=clip)
+        o.schedule = lambda step: OPT_L2_LR
+        for group in o.optimizer.param_groups:
+            group["lr"] = OPT_L2_LR
+        return [o]
+
+    elems = sum(t.numel() for t in start[0])
+    grads, fused, fused_step, plain, torch_step = optimizer_paths(start, make)
+    group = fused[0].optimizer.param_groups[0]
+    assert type(fused[0].optimizer) is torch.optim.Adam and group["weight_decay"] > 0
+    before = optimizer_counts()
+    norms = []
+    for _ in range(OPT_STEPS):
+        for g in grads[0]:
+            g.normal_(0.0, 1e-3, generator=gen)
+        norms.append([float(fused_step()), float(torch_step())])
+    counts = {k: v - before[k] for k, v in optimizer_counts().items()}
+    assert_fused_optimizer("adam_l2", counts, OPT_STEPS)
+    worst = optimizer_gaps(fused, plain)
+    rel_norm = check_gaps("adam_l2", worst, norms)
+    print(f"optimizer, Adam with L2 {group['weight_decay']} (ACT's {len(grads[0])} tensors, "
+          f"{elems} parameters, clip {clip}): kernels against torch: p within "
+          f"{worst['p']:.3g} of a step, moments {worst['exp_avg']:.3g} / "
+          f"{worst['exp_avg_sq']:.3g} of their largest, norm {rel_norm:.3g}; "
+          f"{counts['launches']} launches in {OPT_STEPS} steps [{card}]")
+    del fused, plain, grads, fused_step, torch_step
+    torch.cuda.empty_cache()
+    return {"elems": elems, "weight_decay": group["weight_decay"], "worst": worst,
+            "norm_rel_gap": rel_norm, "counts": counts}
+
+
+def optimizer_phase(card: str) -> dict:
+    """The optimizer's two kernels against torch's foreach path at the
+    Jamba cell's parameters (AdamW) and at ACT's (Adam with L2), and the
+    host time of each path's step at the Jamba cell's and the flagship's
+    (module docstring, phase 2)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sizes = param_sizes(OPT_CONFIGS["jamba"])
+    elems = sum(map(sum, sizes))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    start = [[torch.randn(n, generator=gen, device="cuda") * 0.02 for n in ns] for ns in sizes]
+    grads, fused, fused_step, plain, torch_step = optimizer_paths(start, jamba_optimizers())
+    ms, peak, norms = {"kernels": [], "torch": []}, {}, []
+    host_ms = {cell: {"kernels": [], "torch": []} for cell in OPT_CONFIGS}
+    before = optimizer_counts()
+    for i in range(OPT_STEPS):
+        for gs in grads:  # N(0, 0.01): the policy's norm ~380, so the clip engages
+            for g in gs:
+                g.normal_(0.0, 0.01, generator=gen)
+        pair = []
+        for label, fn in (("kernels", fused_step), ("torch", torch_step)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            # the card kept busy while the host enqueues the step: e0 -> e1 is
+            # the step's device time (the profiler can lose a session's first
+            # kernels in a long process)
+            torch.cuda._sleep(int(0.03 * SM_CLOCK_HZ))
+            t0 = time.perf_counter()
+            e0.record()
+            pair.append(fn())
+            e1.record()
+            host = (time.perf_counter() - t0) * 1e3
+            e1.synchronize()
+            if i > 0:
+                ms[label].append(e0.elapsed_time(e1))
+                host_ms["jamba"][label].append(host)
+            top = torch.cuda.max_memory_allocated()
+            peak[label] = (top - base, top)
+        norms.append([float(n) for n in pair])
+    counts = {k: v - before[k] for k, v in optimizer_counts().items()}
+    assert_fused_optimizer("jamba", counts, 2 * OPT_STEPS)
+    worst = optimizer_gaps(fused, plain)
+    rel_norm = check_gaps("jamba", worst, norms)
+    # the device time of one more step of each, by kernel and by host op (the
+    # profiler may credit a kernel to its own "Activity Buffer Request" too);
+    # the launches the library reported against those the argument blocks
+    # call for (the profiler can lose a session's first kernels in a long
+    # process: it sees at most as many)
+    want = expected_launches(sizes, [o.max_grad_norm for o in fused])
+    before = optimizer_counts()["launches"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_step()
+        torch.cuda.synchronize()
+    launches = optimizer_counts()["launches"] - before
+    dev_ms, kernels = device_busy(prof)
+    by_op: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            for k in e.kernels:
+                by_op[e.name] = by_op.get(e.name, 0.0) + k.duration / 1e3
+    seen = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("sq_norms" in e.name or "clip_adamw" in e.name))
+    foreach_ms = sum(v for op, v in by_op.items() if "_foreach" in op)
+    if not kernels or abs(foreach_ms - sum(kernels.values())) > 1e-4 * foreach_ms:
+        raise AssertionError(f"optimizer: kernels {kernels} launched under ops {by_op}")
+    if launches != want or seen > launches or counts["launches"] != OPT_STEPS * want:
+        raise AssertionError(f"optimizer: {launches} launches counted ({counts['launches']} in "
+                             f"{OPT_STEPS} steps), {want} a step expected, {seen} profiled")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch_step()
+        torch.cuda.synchronize()
+    torch_dev_ms, torch_kernels = device_busy(prof)
+    del fused, plain, grads, fused_step, torch_step
+    torch.cuda.empty_cache()
+    # the host's time from entry to return, the card idle before each call,
+    # at the flagship's parameters (its cell is paced by the host)
+    sizes_lowdim = param_sizes(OPT_CONFIGS["lowdim"])
+    start = [[torch.randn(n, generator=gen, device="cuda") * 0.02 for n in ns]
+             for ns in sizes_lowdim]
+    grads, fused, fused_step, plain, torch_step = optimizer_paths(start, jamba_optimizers())
+    for gs in grads:
+        for g in gs:
+            g.normal_(0.0, 0.01, generator=gen)
+    for i in range(2 * (OPT_HOST_REPS + 1)):
+        label, fn = (("kernels", fused_step), ("torch", torch_step))[i % 2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if i >= 2:
+            host_ms["lowdim"][label].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    del fused, plain, grads, fused_step, torch_step
+    torch.cuda.empty_cache()
+    host = {cell: {k: statistics.median(v) for k, v in d.items()} for cell, d in host_ms.items()}
+    bytes_moved = sum(OPT_BYTES) * elems
+    out = {"elems": elems, "tensors": sum(map(len, sizes)), "bytes": bytes_moved,
+           "ms": {k: statistics.median(v) for k, v in ms.items()},
+           "profiled_ms": {"kernels": dev_ms, "torch": torch_dev_ms},
+           "hbm_share": {k: bytes_moved / (v * 1e-3) / PEAK_BYTES_PER_S
+                         for k, v in (("kernels", statistics.median(ms["kernels"])),
+                                      ("torch", statistics.median(ms["torch"])))},
+           "bound_ms": 1e3 * bytes_moved / PEAK_BYTES_PER_S, "launches": launches,
+           "profiled_launches": seen,
+           "counts": counts, "kernel_ms": kernels, "op_ms": by_op,
+           "torch_kernel_ms": torch_kernels,
+           "extra_bytes": {k: v[0] for k, v in peak.items()},
+           "peak_bytes": {k: v[1] for k, v in peak.items()},
+           "worst": worst, "norm_rel_gap": rel_norm, "host_ms": host,
+           "host_tensors": {"jamba": sum(map(len, sizes)), "lowdim": sum(map(len, sizes_lowdim))}}
+    print(f"optimizer at the Jamba cell's {out['tensors']} tensors, {elems} parameters (AdamW, "
+          f"clip 100 engaged, logged norm): kernels {out['ms']['kernels']:.3f} ms of device time "
+          f"(profiled {dev_ms} ms, {launches} launches counted, {seen} profiled), "
+          f"{out['hbm_share']['kernels']} of 3.35 TB/s over {bytes_moved / 1e9:.2f} GB; torch's "
+          f"foreach {out['ms']['torch']:.3f} ms (profiled {torch_dev_ms} ms); bound "
+          f"{out['bound_ms']:.3f} ms; extra memory of the step {out['extra_bytes']} B, peak "
+          f"{out['peak_bytes']} B; kernels against torch: p within {worst['p']:.3g} of a step, "
+          f"moments {worst['exp_avg']:.3g} / {worst['exp_avg_sq']:.3g} of their largest, norm "
+          f"{rel_norm:.3g}; {counts['launches']} launches in {OPT_STEPS} steps; by op {by_op}; "
+          f"host ms a step (the enqueue), kernels / torch: {host} at {out['host_tensors']} "
+          f"tensors [{card}]")
+    out["adam_l2"] = adam_l2_check(card, gen)
+    return out
+
+
 def icl_config(compute_dtype: str = "bfloat16", train: dict | None = None,
                algo: str = "icl", arm: str = "vq"):
     """The paper's template widths with the flagship switches (``arm`` picks
@@ -1380,9 +1729,11 @@ def train_phase(card: str) -> dict:
         zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=TRAIN_STEPS)
         k1, k1f, k2 = launch_counts()
+        opt = optimizer_counts()
         if (k1, k1f, k2) != ((0, 0, TRAIN_STEPS) if ema else (TRAIN_STEPS, 0, 0)):
             raise AssertionError(f"{label}: K1 launched {k1}, K1f {k1f} and K2 {k2} times in "
                                  f"{TRAIN_STEPS} steps")
+        assert_fused_optimizer(label, opt, TRAIN_STEPS * len(algo.optimizers()))
         if not all(np.isfinite(v) for v in log.values()):
             raise AssertionError(f"{label}: non-finite step log {log}")
         lr = algo.policy_optimizer.optimizer.param_groups[0]["lr"]
@@ -1402,14 +1753,17 @@ def train_phase(card: str) -> dict:
         idle = None if busy_ms is None else 1.0 - busy_ms / step_ms
         top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
         print(f"{label}: {TRAIN_STEPS} steps of batch {BATCH}, K1 launched {k1} and K2 "
-              f"{k2} times; Loss {log['Loss']:.4f}, VQ_Loss {log['VQ_Loss']:.4f}, "
+              f"{k2} times, the optimizer's kernels {opt['launches']} times over "
+              f"{opt['fused_steps']} optimizer steps; Loss {log['Loss']:.4f}, "
+              f"VQ_Loss {log['VQ_Loss']:.4f}, "
               f"grad norm {log['Policy_Grad_Norms']:.4f}, policy lr {lr:.3g}"
               + (f", {used} codes with EMA mass" if ema else "") + "; "
               f"Time_* minutes { {k: v for k, v in log.items() if k.startswith('Time_')} }")
         print(f"{label} step: {step_ms:.3f} ms median of 10; device busy {busy_ms} ms "
               f"per step, idle share {idle}; {len(kernels)} distinct device ops, top "
               f"{top} [{card}]")
-        results[label] = {"k1_launches": k1, "k1f_launches": k1f, "k2_launches": k2, "log": log,
+        results[label] = {"k1_launches": k1, "k1f_launches": k1f, "k2_launches": k2,
+                          "optimizer": opt, "log": log,
                           "step_ms": step_ms, "device_busy_ms": busy_ms, "idle_share": idle,
                           "top_ops_ms": dict(top), "ema_codes_used": used}
         del algo, tok, batch
@@ -3366,10 +3720,13 @@ def baselines_phase(card: str) -> dict:
                                         horizon=BASELINE_HORIZON, num_episodes=1,
                                         frame_stack=baseline_frame_stack(algo))
         episode_s = time.perf_counter() - t0
+        opt = optimizer_counts()  # requests and the episode step no optimizer
         log = run_epoch(algo, loader, epoch=1, num_steps=BASELINE_STEPS)
         counts = launch_counts()
+        opt = {k: v - opt[k] for k, v in optimizer_counts().items()}
         if counts != (0, 0, 0):
             raise AssertionError(f"{label}: launches (K1, K1f, K2) {counts}")
+        assert_fused_optimizer(label, opt, BASELINE_STEPS * len(algo.optimizers()))
         if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
             raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
         stats = rollout["SyntheticKitchen"]
@@ -3411,8 +3768,8 @@ def baselines_phase(card: str) -> dict:
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
         request_top = dict(sorted(request_kernels.items(), key=lambda kv: -kv[1])[:4])
         r.update({
-            "launches": counts, "log": log, "episode": stats, "episode_s": episode_s,
-            "new_request_ms": new_ms, "queued_request_ms": queued_ms,
+            "launches": counts, "optimizer": opt, "log": log, "episode": stats,
+            "episode_s": episode_s, "new_request_ms": new_ms, "queued_request_ms": queued_ms,
             "request_busy_ms": request_busy,
             "request_idle_share": None if request_busy is None else 1 - request_busy / new_ms,
             "step_ms": step_ms, "step_busy_ms": step_busy,
@@ -3422,7 +3779,8 @@ def baselines_phase(card: str) -> dict:
         print(f"baseline {label} ({r['class']}, {params / 1e6:.2f} M parameters): "
               f"{BASELINE_REQUESTS} requests of {N_ENVS} envs, one {BASELINE_HORIZON}-step "
               f"episode (Return {stats['Return']:.3f}, {episode_s:.2f} s) and "
-              f"{BASELINE_STEPS} steps of batch {BATCH}, launches (K1, K1f, K2) {counts}; "
+              f"{BASELINE_STEPS} steps of batch {BATCH}, launches (K1, K1f, K2) {counts}, "
+              f"the optimizer's kernels {opt['launches']} over {opt['fused_steps']} steps; "
               f"Loss {log['Loss']:.4f}; {N_ENVS}-env request {new_ms:.3f} ms with a new "
               f"sample (device busy {request_busy} ms, idle share {r['request_idle_share']}), "
               f"{queued_ms} ms from the queue; step {step_ms:.3f} ms (device busy {step_busy} "
@@ -6148,7 +6506,8 @@ def main() -> int:
                              timeout=60).stdout.strip().splitlines()
         print(f"{tool}: {out[-1] if 'nvcc' in tool else out[0]}")
     t0 = time.perf_counter()
-    logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats", "selective_scan"])
+    logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats", "selective_scan",
+                         "fused_adamw"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in logs.items():
         for line in log.splitlines():
@@ -6171,6 +6530,7 @@ def main() -> int:
     k2 = timed("stats", stats_phase, card)
     k1f = timed("fast", fast_phase, card)
     scan = timed("scan", scan_phase, card)
+    optimizer = timed("optimizer", optimizer_phase, card)
     served = timed("slice", slice_phase, card)
     trained = timed("train", train_phase, card)
     scripted = timed("script", script_phase, card, served)
@@ -6258,6 +6618,13 @@ def main() -> int:
     k1f_paths["device_cache_script"] = dc["k1f"]
     k2_paths["device_cache_script"] = dc["k2"]
     scan_paths = {f"scan {label}": r["launches"] for label, r in scan.items()}
+    # the optimizer's kernels, as the library reported their launches
+    opt_paths = {"optimizer jamba": optimizer["counts"]["launches"] + optimizer["launches"],
+                 "optimizer adam_l2": optimizer["adam_l2"]["counts"]["launches"],
+                 **{label: trained[label]["optimizer"]["launches"]
+                    for label in ("train", "train_ema")},
+                 **{f"baseline {label}": baselines[label]["optimizer"]["launches"]
+                    for label, _, _ in BASELINES}}
     for label, r in arms.items():
         if "scan_launches" in r:
             scan_paths[f"arm {label}"] = sum(r["scan_launches"])
@@ -6356,8 +6723,21 @@ def main() -> int:
                                           "worst_in_tolerance")},
         "shapes": scan,
         "card": card,
-    }], "serve": served, "train": trained, "script": scripted, "corpus": corpus,
-        "arms": arms, "tokenizers": tokenizers, "visual": visual, "baselines": baselines,
+    }, {
+        "name": "fused_adamw",
+        "route": "cuda",
+        "source": "lipvq_tpu_torch/ops/csrc/fused_adamw.cu",
+        "replaces": "torch.optim.AdamW's foreach step and clip_by_global_norm_",
+        "launches": sum(opt_paths.values()),
+        "launches_by_path": opt_paths,
+        "profiled_step_launches": optimizer["launches"],
+        **{k: optimizer[k] for k in ("elems", "tensors", "bytes", "ms", "profiled_ms",
+                                     "hbm_share", "bound_ms", "extra_bytes", "worst")},
+        "adam_l2_worst": optimizer["adam_l2"]["worst"],
+        "card": card,
+    }], "optimizer": optimizer, "serve": served, "train": trained, "script": scripted,
+        "corpus": corpus, "arms": arms, "tokenizers": tokenizers, "visual": visual,
+        "baselines": baselines,
         "rl": offline, "mcr": mcr, "closed_loop": loop, "import": imported,
         "export": exported, "profile": profiled, "ddp": ddp, "vector": vector,
         "kitchen": kitchen, "kitchen_multi": kitchen_multi, "kitchen_suite": kitchen_suite,

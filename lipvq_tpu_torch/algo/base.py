@@ -22,6 +22,7 @@ from collections.abc import Callable, Mapping, Sequence
 import numpy as np
 import torch
 
+from lipvq_tpu_torch.ops import fused_adamw
 from lipvq_tpu_torch.utils import profile_utils
 
 ALGO_REGISTRY: dict[str, Callable] = {}
@@ -144,7 +145,13 @@ class ScheduledOptimizer:
     the optax chain of the JAX package applies them. With a ``mesh``
     (``Algo.attach_mesh``) the gradients are averaged over the ranks, in one
     flat buffer, before anything reads them: the clip sees the global
-    gradient, as under GSPMD."""
+    gradient, as under GSPMD.
+
+    Where the torch optimizer ``fused_adamw.engages`` (Adam or AdamW over
+    fp32 CUDA tensors), two multi-tensor kernels take the step: one read of
+    the grads for the clip's norm and scale, one pass for clip and update.
+    Otherwise torch's path: ``clip_by_global_norm_``, then the optimizer's
+    own step. ``ops/fused_adamw.py`` counts the steps each path took."""
 
     def __init__(self, params, optimizer_cls, schedule: Callable[[int], float],
                  max_grad_norm: float | None = None, **optimizer_kwargs):
@@ -169,13 +176,28 @@ class ScheduledOptimizer:
             self._reduced = True
         return grads
 
-    def step(self) -> None:
+    def step(self) -> torch.Tensor | None:
         """Clip (if set), update with the current learning rate, then
-        advance the schedule."""
+        advance the schedule. Where the kernels clip, returns the sum of
+        squares of the grads they took for it (a one-element tensor on the
+        device), else None."""
         grads = self.grads()
-        if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, float(self.max_grad_norm))
-        self.optimizer.step()
+        sum_sq = None
+        if fused_adamw.engages(self.optimizer):
+            out = None
+            if self.max_grad_norm is not None:
+                out = fused_adamw.sq_norms([grads], [self.max_grad_norm])
+                sum_sq = out[:1]
+            fused_adamw.adam_step_([self.optimizer], out, [None if out is None else 2])
+        else:
+            if self.max_grad_norm is not None:
+                clip_by_global_norm_(grads, float(self.max_grad_norm))
+            fused_adamw.torch_step_(self.optimizer)
+        self._advance()
+        return sum_sq
+
+    def _advance(self) -> None:
+        """The schedule's next step and learning rate."""
         self.steps += 1
         self._reduced = False
         for group in self.optimizer.param_groups:
@@ -201,6 +223,26 @@ class ScheduledOptimizer:
         """The torch state carries each group's current lr as well."""
         self.optimizer.load_state_dict(state["optimizer"])
         self.steps = int(state["steps"])
+
+
+def step_optimizers(optimizers: Sequence[ScheduledOptimizer]) -> torch.Tensor:
+    """``step`` each of ``optimizers`` (disjoint parameters) and return the
+    global norm of all their grads, taken before any clip (on the device, no
+    host sync). Where the kernels engage for every one of them, the sums of
+    squares that the clipping steps return are carried into one norm pass
+    over the other optimizers' grads, so each grad is read once; otherwise
+    ``global_norm`` takes it before the steps."""
+    grads = [o.grads() for o in optimizers]  # averaged over a mesh before any step
+    if not all(fused_adamw.engages(o.optimizer) for o in optimizers):
+        total = global_norm([g for gs in grads for g in gs])
+        for o in optimizers:
+            o.step()
+        return total
+    # the kernels leave the grads as they are: the rest are read after the steps
+    sums = [o.step() for o in optimizers]
+    rest = [gs for gs, s in zip(grads, sums) if s is None]
+    out = fused_adamw.sq_norms(rest, [None] * len(rest), [s for s in sums if s is not None])
+    return out[len(rest)]
 
 
 def optimizer_from_optim_params(params, optim_params, max_grad_norm: float | None = None,

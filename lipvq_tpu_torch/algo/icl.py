@@ -49,9 +49,9 @@ import torch
 from lipvq_tpu_torch.algo.base import (
     PolicyAlgo,
     ScheduledOptimizer,
-    global_norm,
     optimizer_from_optim_params,
     register_algo_factory_func,
+    step_optimizers,
 )
 from lipvq_tpu_torch.config.algo_configs import MAMBA_HYBRID_DEFAULTS
 from lipvq_tpu_torch.models.base_nets import batch_mean, seeded_init
@@ -358,9 +358,8 @@ class ICLTransformerGMM(PolicyAlgo):
             with span("train.optimizer"):
                 optimizers = [o for o in (self.policy_optimizer, self.vq_optimizer) if o]
                 # the norm of every grad, taken before the policy's clip
-                grad_norm = global_norm([g for o in optimizers for g in o.grads()])
+                grad_norm = step_optimizers(optimizers)
                 for o in optimizers:
-                    o.step()
                     o.zero_grad()
             if self.vq_ema:
                 self.nets.net.encoder.action_network.apply_ema_codebook()

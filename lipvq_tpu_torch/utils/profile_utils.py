@@ -153,14 +153,22 @@ def recording() -> bool:
 
 def _launches() -> dict[str, int]:
     """The lookup kernels' launch counts since the process started, kept by
-    ``ops/vq_lookup.py`` on its wrappers (0 where it was never imported)."""
+    ``ops/vq_lookup.py`` on its wrappers, and the optimizer steps that took
+    the fused kernels or torch's path and the elements the kernels updated,
+    kept by ``ops/fused_adamw.py`` on its wrappers (0 where a module was
+    never imported)."""
     vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
-    if vq is None:
-        return {"k1_launches": 0, "k1f_launches": 0, "k2_launches": 0, "k1_tc_launches": 0}
-    return {"k1_launches": vq.vq_nearest_cuda.launches,
+    out = ({"k1_launches": 0, "k1f_launches": 0, "k2_launches": 0, "k1_tc_launches": 0}
+           if vq is None else
+           {"k1_launches": vq.vq_nearest_cuda.launches,
             "k1f_launches": vq.vq_nearest_cuda.fast_launches,
             "k2_launches": vq.vq_nearest_with_stats_cuda.launches,
-            "k1_tc_launches": vq.vq_nearest_cuda.tc_launches}
+            "k1_tc_launches": vq.vq_nearest_cuda.tc_launches})
+    opt = sys.modules.get("lipvq_tpu_torch.ops.fused_adamw")
+    out.update({"optimizer_fused_steps": opt.adam_step_.steps if opt else 0,
+                "optimizer_fused_elems": opt.adam_step_.elems if opt else 0,
+                "optimizer_torch_steps": opt.torch_step_.steps if opt else 0})
+    return out
 
 
 def _rescored() -> dict[str, int]:
@@ -193,8 +201,11 @@ def totals() -> dict:
     over the closed spans since the last ``reset``; self time is a span's
     duration less its child spans' (which run one after another inside
     it). The counters hold the lookup kernels' launches since the reset,
-    K1's launches that took its tensor-core path, and the rows that path
-    re-scored exactly (read from the card: this waits for it)."""
+    K1's launches that took its tensor-core path, the rows that path
+    re-scored exactly (read from the card: this waits for it), and the
+    optimizer steps on the fused kernels (``optimizer_fused_steps``, over
+    ``optimizer_fused_elems`` elements) and on torch's path
+    (``optimizer_torch_steps``)."""
     child_ns: dict[int, int] = {}
     for rec in _records:
         if rec[2] is not None and rec[3] is not None:

@@ -1,4 +1,5 @@
-"""Kernels K1, K1f and K2 on the card against their plain PyTorch versions.
+"""Kernels K1, K1f and K2, the selective scan and the optimizer's two passes
+on the card against their plain PyTorch versions (and torch's own step).
 
 These tests need an NVIDIA GPU and nvcc and skip without them. The machine
 with the card has no JAX, so this file imports none and runs without the
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from lipvq_tpu_torch.ops import vq_lookup
+from lipvq_tpu_torch.ops import fused_adamw, vq_lookup
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
     TC,
@@ -832,3 +833,244 @@ def test_hybrid_step_on_the_card_counts_its_scans(cuda):
     b, t = 3, 3 * cfg["context_length"]
     assert counters["ssm_scan_launches"] == 2 * mamba_layers
     assert counters["ssm_scan_elems"] == 2 * mamba_layers * b * t * 2 * 64 * 4
+
+
+# -- the optimizer's two passes (ops/fused_adamw.py, csrc/fused_adamw.cu) ------
+
+# odd sizes, an empty and a one-element tensor, several chunks of either pass
+ADAM_SHAPES = [(3, 5), (7,), (0,), (1,), (8193,), (130, 257), (16385,)]
+# the clip-engaged grads' nonzero elements by tensor: squares whose sum is a
+# square ((2, 3, 6) x 14: 784 + 1764 + 7056 = 98^2)
+ADAM_EXACT = [0, 0, 0, 0, 784, 1764, 7056]
+ADAM_KINDS = {"adamw": (torch.optim.AdamW, 0.01), "adam_l2": (torch.optim.Adam, 0.01),
+              "adam": (torch.optim.Adam, 0.0)}
+
+
+def _adam_pair(dev, kind: str, clip, shapes=ADAM_SHAPES, seed: int = 0, lr: float = 1e-3):
+    """Two ScheduledOptimizers over the same starting weights on ``dev``."""
+    from lipvq_tpu_torch.algo.base import ScheduledOptimizer
+
+    cls, wd = ADAM_KINDS[kind]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    start = [torch.randn(s, generator=g, device=dev) for s in shapes]
+    return [ScheduledOptimizer([torch.nn.Parameter(t.clone()) for t in start], cls,
+                               lambda step: lr, max_grad_norm=clip, weight_decay=wd, eps=1e-8)
+            for _ in range(2)]
+
+
+def _adam_grads(shapes, gen, dev, exact: bool):
+    """N(0, 1) grads, or (``exact``) +-2^e on the first ADAM_EXACT[i]
+    elements: every norm exact in fp32 whatever the order of sums, so the
+    clip's scale is the same bit for bit on both paths."""
+    out = []
+    if not exact:
+        return [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    e = int(torch.randint(-2, 3, (), generator=gen, device=dev))
+    for s, k in zip(shapes, ADAM_EXACT):
+        g = torch.zeros(s, device=dev).reshape(-1)
+        g[:k] = (torch.randint(0, 2, (k,), generator=gen, device=dev) * 2 - 1) * 2.0 ** e
+        out.append(g.reshape(s))
+    return out
+
+
+def _torch_block(opts):
+    """The block without the kernels: the logged norm, each clip, torch's
+    foreach step."""
+    from lipvq_tpu_torch.algo.base import clip_by_global_norm_, global_norm
+
+    norm = global_norm([p.grad for o in opts for p in o.params])
+    for o in opts:
+        if o.max_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in o.params], o.max_grad_norm)
+        o.optimizer.step()
+        o._advance()
+    return norm
+
+
+def _within_4_ulp(got, want, name):
+    tol = 4 * torch.finfo(torch.float32).eps * want.abs() + 1e-12
+    bad = (got - want).abs() > tol
+    assert not bool(bad.any()), (name, float((got - want).abs().max()))
+
+
+def _assert_adam_equal(fused, plain):
+    for of, op in zip(fused, plain):
+        for i, (pf, pp) in enumerate(zip(of.params, op.params)):
+            sf, sp = of.optimizer.state[pf], op.optimizer.state[pp]
+            assert float(sf["step"]) == float(sp["step"]) and sf["step"].is_cpu
+            _within_4_ulp(pf.detach(), pp.detach(), f"p {i}")
+            _within_4_ulp(sf["exp_avg"], sp["exp_avg"], f"exp_avg {i}")
+            _within_4_ulp(sf["exp_avg_sq"], sp["exp_avg_sq"], f"exp_avg_sq {i}")
+
+
+@pytest.mark.parametrize("clip", ["engaged", "not_engaged"])
+@pytest.mark.parametrize("kind", ADAM_KINDS)
+def test_fused_adamw_matches_torchs_foreach_step(cuda, kind, clip):
+    from lipvq_tpu_torch.algo.base import step_optimizers
+
+    exact = clip == "engaged"
+    fused, plain = _adam_pair(cuda, kind, 1.0 if exact else 1e6)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = fused_adamw.adam_step_.steps
+    for _ in range(10):
+        grads = _adam_grads(ADAM_SHAPES, gen, cuda, exact)
+        for o in (fused, plain):
+            for p, g in zip(o.params, grads):
+                p.grad = g.clone()
+        got = step_optimizers([fused])
+        want = _torch_block([plain])
+        if exact:
+            assert float(want) > 1.0  # the clip engaged
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert fused_adamw.adam_step_.steps == before + 10
+    _assert_adam_equal([fused], [plain])
+
+
+def test_fused_adamw_takes_several_launches_and_two_optimizers(cuda):
+    """More tensors than one launch of either pass takes (160 for the
+    norms, 80 for the update), two optimizers with their own rates, one
+    clipped, in one call; 16-byte misaligned tensors take the element path.
+    The launches counted are those the argument blocks call for: the
+    clipped optimizer's norm pass and finalize, its update, the other's
+    update, and a norm pass over the other's grads with the first sum
+    carried in."""
+    from lipvq_tpu_torch.algo.base import step_optimizers
+
+    lim = fused_adamw.limits()
+    sizes = [(1 + 37 * i) % 301 for i in range(lim["norm_tensors"] + 45)]
+    first, second = [(n,) for n in sizes[:130]], [(n,) for n in sizes[130:]]
+    opts = [_adam_pair(cuda, "adamw", 5.0, first, seed=2, lr=1e-3),
+            _adam_pair(cuda, "adam_l2", None, second, seed=3, lr=3e-4)]
+    fused, plain = [o[0] for o in opts], [o[1] for o in opts]
+    for o in (fused[1], plain[1]):  # views one element in: not 16-byte aligned
+        base = torch.randn(1 + sum(sizes[130:140]), device=cuda)
+        cuts = torch.split(base[1:], sizes[130:140])
+        o.params[:10] = [torch.nn.Parameter(c) for c in cuts]
+        o.optimizer.param_groups[0]["params"][:10] = o.params[:10]
+    with torch.no_grad():
+        for pf, pp in zip(fused[1].params[:10], plain[1].params[:10]):
+            pf.copy_(pp)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    nonempty = [sum(1 for n in part if n) for part in (sizes[:130], sizes[130:])]
+    blocks = [-(-k // lim["norm_tensors"]) + 1 for k in nonempty]  # and the finalize
+    updates = [-(-k // lim["adam_tensors"]) for k in nonempty]
+    assert updates[0] >= 2
+    launches = (fused_adamw.sq_norms.launches, fused_adamw.adam_step_.launches)
+    for _ in range(10):
+        for of, op in zip(fused, plain):
+            for pf, pp in zip(of.params, op.params):
+                pf.grad = torch.randn(pf.shape, generator=gen, device=cuda)
+                pp.grad = pf.grad.clone()
+        got = step_optimizers(fused)
+        want = _torch_block(plain)
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    assert fused_adamw.sq_norms.launches - launches[0] == 10 * sum(blocks)
+    assert fused_adamw.adam_step_.launches - launches[1] == 10 * sum(updates)
+    # the clip's scale differs in its last bits: within a hundredth of a step
+    for of, op, lr in zip(fused, plain, (1e-3, 3e-4)):
+        for pf, pp in zip(of.params, op.params):
+            torch.testing.assert_close(pf, pp, rtol=0, atol=1e-2 * lr)
+            for k in ("exp_avg", "exp_avg_sq"):
+                want = op.optimizer.state[pp][k]
+                largest = float(want.abs().max()) if want.numel() else 0.0
+                torch.testing.assert_close(of.optimizer.state[pf][k], want, rtol=1e-5,
+                                           atol=1e-6 * largest)
+
+
+def test_fused_adamw_adds_no_host_sync(cuda):
+    from lipvq_tpu_torch.algo.base import step_optimizers
+
+    fused, _ = _adam_pair(cuda, "adamw", 1.0)
+    second, _ = _adam_pair(cuda, "adam", None, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for i in range(2):
+        for o in (fused, second):
+            for p, g in zip(o.params, _adam_grads(ADAM_SHAPES, gen, cuda, False)):
+                p.grad = g
+        torch.cuda.synchronize()
+        if i:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            norm = step_optimizers([fused, second])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert norm.is_cuda and norm.shape == ()
+
+
+def test_fused_adamw_counters_reach_the_totals(cuda):
+    from lipvq_tpu_torch.algo.base import step_optimizers
+    from lipvq_tpu_torch.utils import profile_utils
+
+    fused, _ = _adam_pair(cuda, "adamw", 1.0)
+    second, _ = _adam_pair(cuda, "adam", None, seed=5)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    profile_utils.reset()
+    for _ in range(3):
+        for o in (fused, second):
+            for p, g in zip(o.params, _adam_grads(ADAM_SHAPES, gen, cuda, False)):
+                p.grad = g
+        step_optimizers([fused, second])
+    got = profile_utils.totals()["counters"]
+    profile_utils.reset()
+    assert got["optimizer_fused_steps"] == 6 and got["optimizer_torch_steps"] == 0
+    assert got["optimizer_fused_elems"] == 3 * 2 * sum(int(np.prod(s)) for s in ADAM_SHAPES)
+
+
+def test_fused_adamw_kernels_run_under_foreach_ops(cuda):
+    """The profiler credits every kernel of the step to a host op whose name
+    holds ``_foreach`` (``portbench/metrics/optimizer_share.py`` reads those)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lipvq_tpu_torch.algo.base import step_optimizers
+
+    fused, _ = _adam_pair(cuda, "adamw", 1.0)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for i in range(2):
+        for p, g in zip(fused.params, _adam_grads(ADAM_SHAPES, gen, cuda, False)):
+            p.grad = g
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_optimizers([fused])
+            torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.events() if e.device_type == cuda_type]
+    credited = {}
+    for e in prof.events():
+        if e.device_type != cuda_type and "_foreach" in e.name:
+            for k in e.kernels:
+                credited[e.name] = credited.get(e.name, 0.0) + k.duration
+    assert set(credited) == {"lipvq_tpu_torch::_foreach_sq_norms",
+                             "lipvq_tpu_torch::_foreach_clip_adamw_"}
+    assert {n for e in device for n in ("sq_norms", "clip_adamw") if n in e.name} == {
+        "sq_norms", "clip_adamw"}
+    # every kernel of the step is credited to one of the two ops
+    np.testing.assert_allclose(sum(credited.values()),
+                               sum(e.time_range.end - e.time_range.start for e in device),
+                               rtol=1e-6)
+
+
+def test_icl_step_on_the_card_takes_the_fused_optimizer(cuda):
+    from lipvq_tpu_torch.algo import algo_factory
+    from lipvq_tpu_torch.config import config_factory
+
+    cfg = config_factory("icl", {"algo": {
+        "gmm": {"enabled": True},
+        "transformer": {"enabled": True, "embed_dim": 64, "num_layers": 2, "num_heads": 4,
+                        "vq_vae_enabled": True, "ln_act_enabled": False},
+        "vq": {"num_codes": 64}}})
+    shapes = {"robot0_eef_pos": [3], "object": [14]}
+    with cfg.unlocked():
+        cfg.observation.modalities.obs.low_dim = list(shapes)
+    algo = algo_factory("icl", cfg, shapes, ac_dim=12, device=cuda)
+    rng = np.random.default_rng(0)
+    batch = {"obs": {k: rng.standard_normal((8, 10, *s), dtype=np.float32)
+                     for k, s in shapes.items()},
+             "actions": rng.uniform(-1, 1, (8, 10, 12)).astype(np.float32), "goal_obs": None}
+    counters = (fused_adamw.adam_step_.steps, fused_adamw.torch_step_.steps,
+                fused_adamw.sq_norms.launches, fused_adamw.adam_step_.launches)
+    out = algo.train_on_batch(batch, 0)["losses"]
+    assert fused_adamw.adam_step_.steps - counters[0] == 2  # policy and tokenizer
+    assert fused_adamw.torch_step_.steps == counters[1]
+    assert fused_adamw.sq_norms.launches > counters[2]
+    assert fused_adamw.adam_step_.launches - counters[3] == 2
+    assert out["policy_grad_norms"].is_cuda and float(out["policy_grad_norms"]) > 0

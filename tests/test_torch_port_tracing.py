@@ -209,8 +209,9 @@ def test_totals_count_launches_and_counters_since_reset(monkeypatch):
     profile_utils.count("rows", 4)
     counters = profile_utils.totals()["counters"]
     assert counters == {"rows": 5, "k1_launches": 3, "k1f_launches": 0, "k2_launches": 1,
-                        "k1_tc_launches": 0, "k1_rescored_rows": 0,
-                        "k1_rescored_every_code_rows": 0}
+                        "k1_tc_launches": 0, "optimizer_fused_steps": 0,
+                        "optimizer_fused_elems": 0, "optimizer_torch_steps": 0,
+                        "k1_rescored_rows": 0, "k1_rescored_every_code_rows": 0}
 
 
 # -- the instrumented paths ----------------------------------------------------

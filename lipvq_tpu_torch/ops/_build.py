@@ -8,6 +8,9 @@ a module is imported: the first call that needs a kernel builds it, and
 ``build`` starts one nvcc per source, all at once, for callers that want the
 build out of the way up front (``chip_smoke.py``).
 
+``load`` is the one library cache and ``launch`` the one foreign call of
+the kernel modules.
+
 There is no fallback: a missing nvcc or a failed compile raises.
 """
 
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -78,11 +83,39 @@ def build(names) -> dict[str, tuple[float, str]]:
     return results
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, declare=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed. On
+    the first load ``declare(name, lib)`` gives the entry points their
+    ctypes signatures and checks the constants its module shares with the
+    library."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
+        lib.lipvq_error_string.argtypes = [ctypes.c_int]
+        lib.lipvq_error_string.restype = ctypes.c_char_p
+        if declare is not None:
+            declare(name, lib)
         _LOADED[name] = lib
     return lib
+
+
+def addresses(tensors) -> ctypes.Array:
+    """The tensors' device addresses as a C array, for an entry point that
+    takes a list of tensors."""
+    return (ctypes.c_uint64 * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def launch(lib: ctypes.CDLL, entry: str, dev: torch.device, *args) -> None:
+    """Call ``lib``'s ``entry`` with ``args`` and ``dev``'s current stream,
+    under ``dev``'s guard only where it is not the current device; a
+    non-zero cudaError_t raises with the library's text for it."""
+    fn = getattr(lib, entry)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: {lib.lipvq_error_string(err).decode()} ({err})")

@@ -268,7 +268,8 @@ int64_t chunks_of(int64_t n, int chunk) { return (n + chunk - 1) / chunk; }
 
 extern "C" {
 
-const char* fused_adamw_error_string(int err) {
+// A returned cudaError_t's text, under the one name every library exports.
+const char* lipvq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -379,7 +379,8 @@ cudaError_t launch_bwd(const float* x, const float* dt, const float* A, const fl
 
 extern "C" {
 
-const char* selective_scan_error_string(int err) {
+// A returned cudaError_t's text, under the one name every library exports.
+const char* lipvq_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

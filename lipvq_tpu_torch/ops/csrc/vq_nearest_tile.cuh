@@ -396,7 +396,8 @@ size_t vq_lookup_scratch_elems(int B, int N, int splits) {
   return vq::lookup_scratch_elems(B, N, splits);
 }
 
-const char* vq_error_string(int code) {
+// A returned cudaError_t's text, under the one name every library exports.
+const char* lipvq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

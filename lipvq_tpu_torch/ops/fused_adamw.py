@@ -40,11 +40,14 @@ of the grads for the norms, one pass that reads p, g, m, v and writes p, m, v
   ``state_dict``, ``load_state_dict`` and checkpoints are torch's.
   ``torch_step_(optimizer)``: torch's own step, where the kernels do not
   engage.
-- Counters, since the process started (``utils/profile_utils.totals``
-  reads them): ``adam_step_.steps`` and ``.elems``, the optimizer steps the
-  kernels took and the elements they updated; ``torch_step_.steps``, the
-  steps on torch's path; ``sq_norms.launches`` and ``adam_step_.launches``,
-  the kernels each pass launched on the card, as the library reports them.
+- Counters, since the process started: ``adam_step_.steps`` and
+  ``.elems``, the optimizer steps the kernels took and the elements they
+  updated; ``torch_step_.steps``, the steps on torch's path (the three
+  registered with ``utils/profile_utils`` at import as
+  ``optimizer_fused_steps``, ``optimizer_fused_elems`` and
+  ``optimizer_torch_steps``); ``sq_norms.launches`` and
+  ``adam_step_.launches``, the kernels each pass launched on the card, as
+  the library reports them.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 from torch.optim import optimizer as torch_optimizer
 
 from lipvq_tpu_torch.ops import _build
+from lipvq_tpu_torch.utils import profile_utils
 
 KERNEL_DEVICE = "cuda"  # the device type the kernels run on
 DECAY = 1  # AdamW: p *= 1 - lr wd
@@ -113,25 +117,20 @@ def clip_adamw_reference_(params, grads, exp_avgs, exp_avg_sqs, scales, hyper_of
 
 # -- the kernels ---------------------------------------------------------------
 
-_LIB: list = []
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """``_build.load``'s declaration of ``csrc/fused_adamw.cu``'s entry
+    points."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.fused_sq_norms_partials.argtypes = [i32, ptr]
+    lib.fused_sq_norms_partials.restype = i64
+    lib.fused_sq_norms.argtypes = [i32, ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr, ptr]
+    lib.fused_sq_norms.restype = i32
+    lib.fused_clip_adamw.argtypes = [i32] + [ptr] * 6 + [i32, ptr, ptr, ptr, ptr, ptr]
+    lib.fused_clip_adamw.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    """``csrc/fused_adamw.cu``'s library with its entry points declared."""
-    if not _LIB:
-        lib = _build.load("fused_adamw")
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.fused_sq_norms_partials.argtypes = [i32, ptr]
-        lib.fused_sq_norms_partials.restype = i64
-        lib.fused_sq_norms.argtypes = [i32, ptr, ptr, i32, ptr, ptr, i32, ptr, ptr, ptr, ptr,
-                                       ptr]
-        lib.fused_sq_norms.restype = i32
-        lib.fused_clip_adamw.argtypes = [i32] + [ptr] * 6 + [i32, ptr, ptr, ptr, ptr, ptr]
-        lib.fused_clip_adamw.restype = i32
-        lib.fused_adamw_error_string.argtypes = [i32]
-        lib.fused_adamw_error_string.restype = ctypes.c_char_p
-        _LIB.append(lib)
-    return _LIB[0]
+    return _build.load("fused_adamw", _declare)
 
 
 def limits() -> dict[str, int]:
@@ -163,22 +162,6 @@ def _on_one_card(*lists) -> torch.device:
     return first.device
 
 
-def _ptrs(ts) -> ctypes.Array:
-    return (ctypes.c_uint64 * len(ts))(*[t.data_ptr() for t in ts])
-
-
-def _call(name: str, dev: torch.device, *args) -> int:
-    """Runs the library's entry point ``name`` on ``dev``'s current
-    stream; returns the kernels it launched."""
-    lib, launches = _lib(), ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        err = getattr(lib, name)(*args, ctypes.byref(launches),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: {lib.fused_adamw_error_string(err).decode()} ({err})")
-    return launches.value
-
-
 def _sq_norms_cuda(grads, group_sizes, max_norms, carry) -> torch.Tensor:
     dev = _on_one_card([*grads, *carry])
     n = len(grads)
@@ -191,10 +174,12 @@ def _sq_norms_cuda(grads, group_sizes, max_norms, carry) -> torch.Tensor:
     for size in group_sizes:
         total += size
         ends.append(total)
-    sq_norms.launches += _call(
-        "fused_sq_norms", dev, n, _ptrs(grads), numel, groups, (ctypes.c_int32 * groups)(*ends),
-        (ctypes.c_float * groups)(*max_norms), len(carry), _ptrs(carry), partials.data_ptr(),
-        out.data_ptr())
+    launches = ctypes.c_int(0)  # the kernels the entry point launched
+    _build.launch(_lib(), "fused_sq_norms", dev, n, _build.addresses(grads), numel, groups,
+                  (ctypes.c_int32 * groups)(*ends), (ctypes.c_float * groups)(*max_norms),
+                  len(carry), _build.addresses(carry), partials.data_ptr(), out.data_ptr(),
+                  ctypes.byref(launches))
+    sq_norms.launches += launches.value
     return out
 
 
@@ -205,14 +190,15 @@ def _clip_adamw_cuda(params, grads, exp_avgs, exp_avg_sqs, scales, hyper_of, hyp
         _on_one_card([scales])
         if scales.device != dev:
             raise ValueError(f"the clip scales are on {scales.device}, the tensors on {dev}")
-    n = len(params)
-    adam_step_.launches += _call(
-        "fused_clip_adamw", dev, n, _ptrs(params), _ptrs(grads), _ptrs(exp_avgs),
-        _ptrs(exp_avg_sqs), (ctypes.c_int64 * n)(*[p.numel() for p in params]),
-        (ctypes.c_int32 * n)(*hyper_of), len(hyper_ints) // HYPER_INTS,
-        (ctypes.c_float * len(hyper_floats))(*hyper_floats),
-        (ctypes.c_int32 * len(hyper_ints))(*hyper_ints),
-        None if scales is None else scales.data_ptr())
+    n, launches = len(params), ctypes.c_int(0)
+    lists = [_build.addresses(ts) for ts in (params, grads, exp_avgs, exp_avg_sqs)]
+    _build.launch(_lib(), "fused_clip_adamw", dev, n, *lists,
+                  (ctypes.c_int64 * n)(*[p.numel() for p in params]),
+                  (ctypes.c_int32 * n)(*hyper_of), len(hyper_ints) // HYPER_INTS,
+                  (ctypes.c_float * len(hyper_floats))(*hyper_floats),
+                  (ctypes.c_int32 * len(hyper_ints))(*hyper_ints),
+                  None if scales is None else scales.data_ptr(), ctypes.byref(launches))
+    adam_step_.launches += launches.value
 
 
 _OPS = torch.library.Library("lipvq_tpu_torch", "FRAGMENT")
@@ -346,6 +332,9 @@ def torch_step_(optimizer: torch.optim.Optimizer) -> None:
 
 
 torch_step_.steps = 0
+profile_utils.register({"optimizer_fused_steps": lambda: adam_step_.steps,
+                        "optimizer_fused_elems": lambda: adam_step_.elems,
+                        "optimizer_torch_steps": lambda: torch_step_.steps})
 
 
 def _hyper(group, optimizer, step: float, scale: int) -> tuple[list[float], list[int]]:

@@ -20,8 +20,8 @@ state
 - ``selective_scan_cuda``: the Function on the card; raises on anything
   else. ``selective_scan_cuda.launches`` counts its forward and backward
   calls, ``selective_scan_cuda.elems`` the elements (b, t, d, n) they
-  scanned; while the port's recording is on they are also the counters
-  ``ssm_scan_launches`` and ``ssm_scan_elems``.
+  scanned, registered with ``utils/profile_utils`` at import as the
+  counters ``ssm_scan_launches`` and ``ssm_scan_elems``.
 - ``selective_scan``: the dispatcher the Mamba block calls: the kernel on a
   CUDA tensor, the plain loop on a CPU tensor. y comes back in x's dtype;
   the state is fp32 (the kernel's inputs are cast to fp32).
@@ -34,7 +34,7 @@ import ctypes
 import torch
 
 from lipvq_tpu_torch.ops import _build
-from lipvq_tpu_torch.utils.profile_utils import count
+from lipvq_tpu_torch.utils import profile_utils
 
 MAX_STATE = 32  # csrc/selective_scan.cu: one warp's lanes per channel
 
@@ -91,28 +91,24 @@ def scan_backward_plain(x, dt, A, B, C, D, dy):
     return dx, ddt, dA, dB, dC, dD
 
 
-_LIB: list = []
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """``_build.load``'s declaration of ``csrc/selective_scan.cu``'s entry
+    points; its largest state must be this module's."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.selective_scan_fwd_launch.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.selective_scan_fwd_launch.restype = i32
+    lib.selective_scan_bwd_launch.argtypes = [ptr] * 14 + [i32] * 4 + [ptr]
+    lib.selective_scan_bwd_launch.restype = i32
+    lib.selective_scan_bwd_scratch_elems.argtypes = [i32] * 4
+    lib.selective_scan_bwd_scratch_elems.restype = ctypes.c_size_t
+    lib.selective_scan_max_batch.restype = i32
+    if lib.selective_scan_max_state() != MAX_STATE:
+        raise RuntimeError("selective_scan: the library's largest state differs from "
+                           "ops/selective_scan.py's")
 
 
 def _lib() -> ctypes.CDLL:
-    """``csrc/selective_scan.cu``'s library with its entry points declared."""
-    if not _LIB:
-        lib = _build.load("selective_scan")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.selective_scan_fwd_launch.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
-        lib.selective_scan_fwd_launch.restype = i32
-        lib.selective_scan_bwd_launch.argtypes = [ptr] * 14 + [i32] * 4 + [ptr]
-        lib.selective_scan_bwd_launch.restype = i32
-        lib.selective_scan_bwd_scratch_elems.argtypes = [i32] * 4
-        lib.selective_scan_bwd_scratch_elems.restype = ctypes.c_size_t
-        lib.selective_scan_error_string.argtypes = [i32]
-        lib.selective_scan_error_string.restype = ctypes.c_char_p
-        lib.selective_scan_max_batch.restype = i32
-        if lib.selective_scan_max_state() != MAX_STATE:
-            raise RuntimeError("selective_scan: the library's largest state differs from "
-                               "ops/selective_scan.py's")
-        _LIB.append(lib)
-    return _LIB[0]
+    return _build.load("selective_scan", _declare)
 
 
 def _check(x, dt, A, B, C, D) -> None:
@@ -135,30 +131,14 @@ def _check(x, dt, A, B, C, D) -> None:
                          f"2**31 elements, got {tuple(x.shape)} and {n} states")
 
 
-def _launch(name: str, dev, *args) -> None:
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = getattr(lib, f"selective_scan_{name}_launch")(
-            *args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"selective scan {name} launch failed: "
-                           f"{lib.selective_scan_error_string(err).decode()} ({err})")
-    elems = args[-4] * args[-3] * args[-2] * args[-1]
-    selective_scan_cuda.launches += 1
-    selective_scan_cuda.elems += elems
-    count("ssm_scan_launches")
-    count("ssm_scan_elems", elems)
-
-
-def _ptrs(*ts):
-    return [t.data_ptr() for t in ts]
-
-
 def _forward_cuda(x, dt, A, B, C, D):
     _check(x, dt, A, B, C, D)
     y = torch.empty_like(x)
-    b, t, d = x.shape
-    _launch("fwd", x.device, *_ptrs(x, dt, A, B, C, D, y), b, t, d, A.shape[1])
+    (b, t, d), n = x.shape, A.shape[1]
+    _build.launch(_lib(), "selective_scan_fwd_launch", x.device,
+                  *[v.data_ptr() for v in (x, dt, A, B, C, D, y)], b, t, d, n)
+    selective_scan_cuda.launches += 1
+    selective_scan_cuda.elems += b * t * d * n
     return y
 
 
@@ -171,7 +151,10 @@ def _backward_cuda(x, dt, A, B, C, D, dy):
     out = [torch.empty_like(v) for v in (x, dt, A, B, C, D)]
     scratch = torch.empty(_lib().selective_scan_bwd_scratch_elems(b, t, d, n),
                           dtype=torch.float32, device=x.device)
-    _launch("bwd", x.device, *_ptrs(x, dt, A, B, C, D, dy, *out, scratch), b, t, d, n)
+    _build.launch(_lib(), "selective_scan_bwd_launch", x.device,
+                  *[v.data_ptr() for v in (x, dt, A, B, C, D, dy, *out, scratch)], b, t, d, n)
+    selective_scan_cuda.launches += 1
+    selective_scan_cuda.elems += b * t * d * n
     return tuple(out)
 
 
@@ -206,6 +189,8 @@ def selective_scan_cuda(x, dt, A, B, C, D):
 
 selective_scan_cuda.launches = 0
 selective_scan_cuda.elems = 0
+profile_utils.register({"ssm_scan_launches": lambda: selective_scan_cuda.launches,
+                        "ssm_scan_elems": lambda: selective_scan_cuda.elems})
 
 
 def selective_scan(x, dt, A, B, C, D):

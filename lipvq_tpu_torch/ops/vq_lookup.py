@@ -44,6 +44,11 @@ Counterpart of ``lipvq_tpu/ops/vq_lookup.py``. For z [B, D] and a codebook
   lookup and the stats in one call, deterministic.
 - ``vq_nearest_with_stats``: the dispatcher the EMA codebook's training
   forward calls: K2 on a CUDA tensor, the plain version on a CPU tensor.
+- Counters, registered with ``utils/profile_utils`` at import: the
+  wrappers' launch attributes (``k1_launches``, ``k1f_launches``,
+  ``k1_tc_launches``, ``k2_launches``) and the rows K1's tensor-core path
+  re-scored exactly (``k1_rescored_rows``, ``k1_rescored_every_code_rows``),
+  counted on the card.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from lipvq_tpu_torch.ops import _build
+from lipvq_tpu_torch.utils import profile_utils
 
 # bound on the elements of the [rows, N, D] temporary of the difference form
 _REFERENCE_CHUNK_ELEMS = 1 << 24
@@ -293,7 +299,7 @@ def vq_nearest_expand(z_e: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor
 
 
 # tile shapes (rows, codes) of the lookup's configurations, as in
-# csrc/vq_nearest_tile.cuh; _bind checks them against the library
+# csrc/vq_nearest_tile.cuh; _declare checks them against the library
 LARGE, MEDIUM, SMALL = 0, 1, 2
 TILE_SHAPES = {LARGE: (128, 256), MEDIUM: (32, 64), SMALL: (32, 32)}
 # K1's tensor-core path (csrc/vq_nearest_tc.cuh): its tile, largest D and N
@@ -353,7 +359,7 @@ def plan_lookup(b: int, n: int, sms: int, d: int | None = None) -> LookupPlan:
 
 
 # K1f's configurations: tile shapes (rows, codes) and the largest D of each,
-# as in csrc/vq_nearest_fast.cu; _bind checks them against the library
+# as in csrc/vq_nearest_fast.cu; _declare checks them against the library
 FAST_WIDE, FAST_NARROW = 0, 1
 FAST_TILES = {FAST_WIDE: (256, 128), FAST_NARROW: (64, 16)}
 FAST_WIDE_MAX_D = 320
@@ -373,52 +379,43 @@ def plan_fast(b: int, n: int, d: int, sms: int) -> LookupPlan:
 
 
 _POINTERS = {"vq_nearest": 5, "vq_nearest_fast": 4, "vq_stats": 6}  # pointer args
-_LIBS: dict[str, ctypes.CDLL] = {}
 _SMS: dict[int, int] = {}
 _PLANS: dict[tuple, tuple[LookupPlan, int, int]] = {}
 
 
-def _bind(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with its entry point
-    ``<name>_launch`` declared: the pointers, six ints (B, N, D, config,
-    codes per split, splits), the stream."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = _build.load(name)
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fast = name == "vq_nearest_fast"
-        own = {"vq_nearest": 5, "vq_nearest_fast": 4}.get(name, 3)
-        for scratch, ints in ((getattr(lib, f"{name}_scratch_elems"), own),
-                              (lib.vq_lookup_scratch_elems, 3)):
-            scratch.argtypes = [ctypes.c_int] * ints
-            scratch.restype = ctypes.c_size_t
-        lib.vq_error_string.argtypes = [ctypes.c_int]
-        lib.vq_error_string.restype = ctypes.c_char_p
-        for config, shape in TILE_SHAPES.items():
-            got = (lib.vq_tile_rows(config), lib.vq_tile_codes(config))
-            if got != shape:
-                raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
-                                   f"library, {shape} in vq_lookup.py")
-        if name == "vq_nearest":
-            got = (lib.vq_tc_tile_rows(), lib.vq_tc_tile_codes(), lib.vq_tc_max_d(),
-                   lib.vq_tc_max_n())
-            if got != (*TC_TILE, TC_MAX_D, TC_MAX_N):
-                raise RuntimeError(f"{name}: the tensor-core tile and largest D and N are "
-                                   f"{got} in the library, {(*TC_TILE, TC_MAX_D, TC_MAX_N)} "
-                                   f"in vq_lookup.py")
-        if fast:
-            for config, shape in FAST_TILES.items():
-                got = (lib.vq_fast_tile_rows(config), lib.vq_fast_tile_codes(config),
-                       lib.vq_fast_max_d(config))
-                want = (*shape, FAST_WIDE_MAX_D if config == FAST_WIDE else FAST_MAX_D)
-                if got != want:
-                    raise RuntimeError(f"{name}: tile shape and largest D of config {config} "
-                                       f"are {got} in the library, {want} in vq_lookup.py")
-        _LIBS[name] = lib
-    return lib
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    """``_build.load``'s declaration of ``csrc/<name>.cu``: its entry point
+    ``<name>_launch`` takes the pointers, six ints (B, N, D, config, codes
+    per split, splits), the stream; the tile shapes must be this module's."""
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = ([ctypes.c_void_p] * _POINTERS[name] + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    own = {"vq_nearest": 5, "vq_nearest_fast": 4}.get(name, 3)
+    for scratch, ints in ((getattr(lib, f"{name}_scratch_elems"), own),
+                          (lib.vq_lookup_scratch_elems, 3)):
+        scratch.argtypes = [ctypes.c_int] * ints
+        scratch.restype = ctypes.c_size_t
+    for config, shape in TILE_SHAPES.items():
+        got = (lib.vq_tile_rows(config), lib.vq_tile_codes(config))
+        if got != shape:
+            raise RuntimeError(f"{name}: tile shape of config {config} is {got} in the "
+                               f"library, {shape} in vq_lookup.py")
+    if name == "vq_nearest":
+        got = (lib.vq_tc_tile_rows(), lib.vq_tc_tile_codes(), lib.vq_tc_max_d(),
+               lib.vq_tc_max_n())
+        if got != (*TC_TILE, TC_MAX_D, TC_MAX_N):
+            raise RuntimeError(f"{name}: the tensor-core tile and largest D and N are "
+                               f"{got} in the library, {(*TC_TILE, TC_MAX_D, TC_MAX_N)} "
+                               f"in vq_lookup.py")
+    if name == "vq_nearest_fast":
+        for config, shape in FAST_TILES.items():
+            got = (lib.vq_fast_tile_rows(config), lib.vq_fast_tile_codes(config),
+                   lib.vq_fast_max_d(config))
+            want = (*shape, FAST_WIDE_MAX_D if config == FAST_WIDE else FAST_MAX_D)
+            if got != want:
+                raise RuntimeError(f"{name}: tile shape and largest D of config {config} "
+                                   f"are {got} in the library, {want} in vq_lookup.py")
 
 
 def _plan(lib: ctypes.CDLL, name: str, dev: torch.device, b: int, n: int, d: int):
@@ -472,21 +469,6 @@ def _ids_and_scratch(b: int, scratch_elems: int, dev: torch.device):
     return buf, buf[:b], buf.data_ptr() + 4 * head
 
 
-def _launch(kernel: str, lib: ctypes.CDLL, name: str, dev: torch.device, ptrs, ints) -> None:
-    """Call ``<name>_launch`` on the current stream of ``dev``; raise on a
-    non-zero cudaError_t."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = getattr(lib, f"{name}_launch")
-    if dev.index == torch.cuda.current_device():
-        err = fn(*ptrs, *ints, stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*ptrs, *ints, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.vq_error_string(err).decode()} ({err})")
-
-
 def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
                     precision: str = "highest") -> torch.Tensor:
     """Kernel K1 on the card, or with ``precision="fast"`` kernel K1f (the
@@ -506,7 +488,7 @@ def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
     if fast and d > FAST_MAX_D:
         raise ValueError(f"K1f takes D <= {FAST_MAX_D} (its z tile lives in shared "
                          f"memory), got D={d}")
-    lib = _bind(name)
+    lib = _build.load(name, _declare)
     plan, scratch_elems, _ = _plan(lib, name, dev, b, n, d)
     tc = not fast and plan.config == TC
     if tc:
@@ -521,8 +503,8 @@ def vq_nearest_cuda(z_e: torch.Tensor, codebook: torch.Tensor,
     ptrs = [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), scratch]
     if not fast:
         ptrs.append(_rescore_counts(dev).data_ptr() if tc else None)
-    _launch(kernel, lib, name, dev, ptrs,
-            [b, n, d, plan.config, plan.codes_per_split, plan.splits])
+    _build.launch(lib, f"{name}_launch", dev, *ptrs,
+                  b, n, d, plan.config, plan.codes_per_split, plan.splits)
     if fast:
         vq_nearest_cuda.fast_launches += 1
     else:
@@ -580,16 +562,15 @@ def _vq_stats_launch(z_e: torch.Tensor, codebook: torch.Tensor):
     """Launch K2 and count it: (ids, counts, sums, order), ``order`` [B]
     int32 being the rows sorted stably by id (a view into the scratch)."""
     _check_inputs("K2", z_e, codebook)
-    lib = _bind("vq_stats")
+    lib = _build.load("vq_stats", _declare)
     (b, d), n, dev = z_e.shape, codebook.shape[0], z_e.device
     plan, scratch_elems, lookup_elems = _plan(lib, "vq_stats", dev, b, n, d)
     buf, ids, scratch = _ids_and_scratch(b, scratch_elems, dev)
     counts = torch.empty(n, dtype=torch.float32, device=dev)
     sums = torch.empty((n, d), dtype=torch.float32, device=dev)
-    _launch("K2", lib, "vq_stats", dev,
-            [z_e.data_ptr(), codebook.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-             sums.data_ptr(), scratch],
-            [b, n, d, plan.config, plan.codes_per_split, plan.splits])
+    _build.launch(lib, "vq_stats_launch", dev, z_e.data_ptr(), codebook.data_ptr(),
+                  ids.data_ptr(), counts.data_ptr(), sums.data_ptr(), scratch,
+                  b, n, d, plan.config, plan.codes_per_split, plan.splits)
     vq_nearest_with_stats_cuda.launches += 1
     start = len(buf) - scratch_elems + lookup_elems  # the sort's scratch starts with it
     order = buf[start:start + b]
@@ -609,6 +590,14 @@ def vq_nearest_with_stats_cuda(z_e: torch.Tensor, codebook: torch.Tensor):
 
 
 vq_nearest_with_stats_cuda.launches = 0
+profile_utils.register({
+    "k1_launches": lambda: vq_nearest_cuda.launches,
+    "k1f_launches": lambda: vq_nearest_cuda.fast_launches,
+    "k2_launches": lambda: vq_nearest_with_stats_cuda.launches,
+    "k1_tc_launches": lambda: vq_nearest_cuda.tc_launches,
+    "k1_rescored_rows": lambda: {i: t[0] for i, t in _RESCORED.items()},
+    "k1_rescored_every_code_rows": lambda: {i: t[1] for i, t in _RESCORED.items()},
+})
 
 
 # The three kernels as torch.library ops under the lipvq_tpu_torch namespace:

@@ -18,16 +18,18 @@ the profiler's clock (the epoch in ns, as kineto stamps host events).
 ``enable(annotate=True)`` also enters ``torch.profiler.record_function``
 for each span, so a profiler running at the same time shows the span on
 the device's timeline. ``totals`` sums the spans by name, with self time
-(the duration less what child spans cover), and the counters, the lookup
-kernels' launch counts among them. Torch is imported only where it is
-used: the host-side env modules import this one.
+(the duration less what child spans cover), and the counters: those
+``count`` adds to while recording, and those each kernel module declares
+with ``register`` when it is imported (its launches and the work they did),
+read as counts since ``reset``. This module knows no kernel module. Torch
+is imported only where it is used: the host-side env modules import this
+one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import sys
 import threading
 import time
 
@@ -41,8 +43,8 @@ _annotate = False
 _offset_ns = 0  # epoch ns minus perf_counter ns, taken at enable
 _records: list = []  # [name, start, end, parent record, root record (None: itself)]
 _counters: dict[str, int] = {}
-_launch_base: dict[str, int] = {}
-_rescored_base: dict = {}  # device index -> the card's re-scored counts at the last reset
+_readers: dict = {}  # counter name -> its reader, from ``register``
+_base: dict = {}  # counter name -> what its reader gave at the last ``reset``
 _local = threading.local()  # each thread's stack of open spans
 _count_lock = threading.Lock()
 
@@ -117,6 +119,16 @@ def count(name: str, n: int = 1) -> None:
             _counters[name] = _counters.get(name, 0) + n
 
 
+def register(readers: dict) -> None:
+    """Declare counters kept outside this module, {name: reader}, which
+    ``totals`` gives as counts since the last ``reset`` (since the process
+    started, before the first). A reader returns a host int, or a dict of
+    one-element tensors counted on the cards, one per card: ``reset``
+    copies those in stream order, without waiting, and ``totals`` reads
+    their sum less the copies, which waits for the cards."""
+    _readers.update(readers)
+
+
 def enable(annotate: bool = False) -> None:
     """Start recording spans and counters, adding to what is kept; with
     ``annotate`` each span is also a ``torch.profiler.record_function``."""
@@ -133,17 +145,14 @@ def disable() -> None:
 
 
 def reset() -> None:
-    """Forget the recorded spans and counters; the launch counts in
+    """Forget the recorded spans and counters; the registered counters in
     ``totals`` start again from zero."""
     _records.clear()
     _counters.clear()
-    _launch_base.clear()
-    _launch_base.update(_launches())
-    _rescored_base.clear()
-    vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
-    if vq is not None:
-        # a copy on the card, in stream order: no wait
-        _rescored_base.update({dev: t.clone() for dev, t in vq.rescored_rows().items()})
+    for name, read in _readers.items():
+        got = read()
+        _base[name] = ({k: t.clone() for k, t in got.items()} if isinstance(got, dict)
+                       else got)
 
 
 def recording() -> bool:
@@ -151,38 +160,12 @@ def recording() -> bool:
     return _on
 
 
-def _launches() -> dict[str, int]:
-    """The lookup kernels' launch counts since the process started, kept by
-    ``ops/vq_lookup.py`` on its wrappers, and the optimizer steps that took
-    the fused kernels or torch's path and the elements the kernels updated,
-    kept by ``ops/fused_adamw.py`` on its wrappers (0 where a module was
-    never imported)."""
-    vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
-    out = ({"k1_launches": 0, "k1f_launches": 0, "k2_launches": 0, "k1_tc_launches": 0}
-           if vq is None else
-           {"k1_launches": vq.vq_nearest_cuda.launches,
-            "k1f_launches": vq.vq_nearest_cuda.fast_launches,
-            "k2_launches": vq.vq_nearest_with_stats_cuda.launches,
-            "k1_tc_launches": vq.vq_nearest_cuda.tc_launches})
-    opt = sys.modules.get("lipvq_tpu_torch.ops.fused_adamw")
-    out.update({"optimizer_fused_steps": opt.adam_step_.steps if opt else 0,
-                "optimizer_fused_elems": opt.adam_step_.elems if opt else 0,
-                "optimizer_torch_steps": opt.torch_step_.steps if opt else 0})
-    return out
-
-
-def _rescored() -> dict[str, int]:
-    """The rows K1's tensor-core path re-scored exactly since the last
-    ``reset`` (and of them those re-scored over every code), summed over the
-    cards. They are counted on the card; reading them waits for it."""
-    rows = every = 0
-    vq = sys.modules.get("lipvq_tpu_torch.ops.vq_lookup")
-    for dev, t in (vq.rescored_rows().items() if vq is not None else ()):
-        base = _rescored_base.get(dev)
-        got = (t - base if base is not None else t).tolist()
-        rows += got[0]
-        every += got[1]
-    return {"k1_rescored_rows": rows, "k1_rescored_every_code_rows": every}
+def _since(got, base) -> int:
+    """A registered counter's count since the last ``reset``: ``got``, its
+    reader's value now, less ``base``, its value then (None: none taken)."""
+    if isinstance(got, dict):
+        return sum(int(t - (base or {}).get(k, 0)) for k, t in got.items())
+    return got - (base or 0)
 
 
 def records() -> list[tuple]:
@@ -200,12 +183,9 @@ def totals() -> dict:
     """{"spans": {name: {"n", "total_s", "self_s"}}, "counters": {name: n}}
     over the closed spans since the last ``reset``; self time is a span's
     duration less its child spans' (which run one after another inside
-    it). The counters hold the lookup kernels' launches since the reset,
-    K1's launches that took its tensor-core path, the rows that path
-    re-scored exactly (read from the card: this waits for it), and the
-    optimizer steps on the fused kernels (``optimizer_fused_steps``, over
-    ``optimizer_fused_elems`` elements) and on torch's path
-    (``optimizer_torch_steps``)."""
+    it). The counters hold what ``count`` added and, since the reset, the
+    counts of every registered counter (those counted on a card are read
+    from it: this waits for it)."""
     child_ns: dict[int, int] = {}
     for rec in _records:
         if rec[2] is not None and rec[3] is not None:
@@ -221,9 +201,8 @@ def totals() -> dict:
         t["total_s"] += dur / 1e9
         t["self_s"] += (dur - child_ns.get(id(rec), 0)) / 1e9
     counters = dict(_counters)
-    for k, v in _launches().items():
-        counters[k] = v - _launch_base.get(k, 0)
-    counters.update(_rescored())
+    for name, read in _readers.items():
+        counters[name] = _since(read(), _base.get(name))
     return {"spans": spans, "counters": counters}
 
 

@@ -8,11 +8,13 @@ repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from lipvq_tpu_torch.ops import fused_adamw, vq_lookup
+from lipvq_tpu_torch.ops import _build, fused_adamw, selective_scan, vq_lookup
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
     TC,
@@ -517,12 +519,26 @@ def test_k1f_scratch_holds_the_bf16_codebook_copy(cuda, b, n, d, splits, lookup,
     lookup's (cn [N] and, with splits, the partial distances and ids
     [splits, B], each rounded up to 4), 32 to align the copy to 128 bytes,
     then the bf16 copy [N, Dp] (2 to an element), Dp = D rounded up to 64."""
-    import lipvq_tpu_torch.ops.vq_lookup as vq_lookup
-
-    lib = vq_lookup._bind("vq_nearest_fast")
+    lib = _build.load("vq_nearest_fast", vq_lookup._declare)
     assert plan_fast(b, n, d, 132).splits == splits
     assert lib.vq_lookup_scratch_elems(b, n, splits) == lookup
     assert lib.vq_nearest_fast_scratch_elems(b, n, d, splits) == lookup + 32 + copy
+
+
+@pytest.mark.parametrize("module,name,entry,args", [
+    (vq_lookup, "vq_nearest", "vq_nearest_launch",
+     (None, None, None, None, None, 1, 1, 1, TC, 128, 2)),  # TC takes one code split
+    (selective_scan, "selective_scan", "selective_scan_fwd_launch",
+     (None,) * 7 + (1, 1, 1, 64)),  # more states than a warp has lanes
+    (fused_adamw, "fused_adamw", "fused_sq_norms",  # no group, nothing carried
+     (0, None, None, 0, None, None, 0, None, None, None, ctypes.byref(ctypes.c_int(0)))),
+], ids=["k1", "scan", "sq_norms"])
+def test_a_refused_launch_raises_with_the_library_error_text(cuda, module, name, entry, args):
+    """An entry point that returns a cudaError_t before it enqueues anything:
+    ``_build.launch`` raises with the library's own text and code."""
+    lib = _build.load(name, module._declare)
+    with pytest.raises(RuntimeError, match=rf"^{entry} failed: invalid argument \(1\)$"):
+        _build.launch(lib, entry, cuda, *args)
 
 
 def test_k1f_wrapper_checks_and_counts(cuda):

@@ -20,7 +20,7 @@ from lipvq_tpu_torch.config import config_factory
 from lipvq_tpu_torch.envs.env_synthetic import SyntheticKitchenEnv
 from lipvq_tpu_torch.envs.vector_env import VectorEnv
 from lipvq_tpu_torch.models.tokenizers.lipvq import LipVQVAE
-from lipvq_tpu_torch.ops import vq_lookup
+from lipvq_tpu_torch.ops import fused_adamw, selective_scan, vq_lookup
 from lipvq_tpu_torch.parallel.corpus import tokenize_array
 from lipvq_tpu_torch.utils import obs_utils, profile_utils, train_utils
 from lipvq_tpu_torch.utils.file_utils import get_shape_metadata_from_dataset
@@ -211,7 +211,59 @@ def test_totals_count_launches_and_counters_since_reset(monkeypatch):
     assert counters == {"rows": 5, "k1_launches": 3, "k1f_launches": 0, "k2_launches": 1,
                         "k1_tc_launches": 0, "optimizer_fused_steps": 0,
                         "optimizer_fused_elems": 0, "optimizer_torch_steps": 0,
-                        "k1_rescored_rows": 0, "k1_rescored_every_code_rows": 0}
+                        "k1_rescored_rows": 0, "k1_rescored_every_code_rows": 0,
+                        "ssm_scan_launches": 0, "ssm_scan_elems": 0}
+
+
+@pytest.fixture
+def registry(monkeypatch):
+    """``profile_utils.register`` into a copy of the registry, which the
+    test's end puts back."""
+    monkeypatch.setattr(profile_utils, "_readers", dict(profile_utils._readers))
+    monkeypatch.setattr(profile_utils, "_base", dict(profile_utils._base))
+
+
+def test_a_registered_host_counter_reads_as_its_count_since_reset(registry):
+    box = {"n": 11}
+    profile_utils.register({"things": lambda: box["n"]})
+    assert profile_utils.totals()["counters"]["things"] == 11  # before a reset: since start
+    profile_utils.reset()
+    box["n"] += 4
+    assert profile_utils.totals()["counters"]["things"] == 4
+    profile_utils.enable()  # recording plays no part
+    box["n"] += 2
+    assert profile_utils.totals()["counters"]["things"] == 6
+    profile_utils.reset()
+    assert profile_utils.totals()["counters"]["things"] == 0
+
+
+def test_a_registered_tensor_counter_is_snapshotted_at_reset(registry):
+    """A CPU tensor stands in for a card's: ``reset`` keeps a copy (later
+    adds in place do not reach it), ``totals`` subtracts it and sums over
+    the cards, a card first counted after the reset counting from 0."""
+    per_card = {0: torch.tensor([7, 3], dtype=torch.int64)}
+    profile_utils.register({"rows": lambda: {i: t[0] for i, t in per_card.items()},
+                            "every": lambda: {i: t[1] for i, t in per_card.items()}})
+    profile_utils.reset()
+    per_card[0] += torch.tensor([5, 1])
+    per_card[1] = torch.tensor([2, 2], dtype=torch.int64)
+    counters = profile_utils.totals()["counters"]
+    assert (counters["rows"], counters["every"]) == (7, 3)
+    assert type(counters["rows"]) is int
+
+
+def test_a_kernel_counter_needs_no_edit_of_profile_utils(monkeypatch):
+    """The kernel modules register their counters; ``profile_utils`` names
+    no ops module and looks none up."""
+    import inspect
+
+    src = inspect.getsource(profile_utils)
+    assert "lipvq_tpu_torch.ops" not in src and "sys.modules" not in src
+    scan, torch_step = selective_scan.selective_scan_cuda, fused_adamw.torch_step_
+    monkeypatch.setattr(scan, "launches", scan.launches + 2)
+    monkeypatch.setattr(torch_step, "steps", torch_step.steps + 1)
+    counters = profile_utils.totals()["counters"]
+    assert (counters["ssm_scan_launches"], counters["optimizer_torch_steps"]) == (2, 1)
 
 
 # -- the instrumented paths ----------------------------------------------------

@@ -49,16 +49,28 @@ all started together). Phases:
    on an idle card, of the ``ctypes`` wrapper and of ``vq_nearest`` through
    the registered op. K1 also runs at the profiler's largest low-dim batch
    (8000 x 1024 x 791) and its image step (80 x 1024 x 905).
-   The selective scan (``scan_phase``; ``ops/selective_scan.py``): at the
-   Jamba cell's call (192 x 30 x 5120 x 16), the icl_mamba arms' train and
-   served calls (50 and 16 x 30 x 1024 x 8) and a narrow one (10 x 10 x 24
-   x 8), a forward and a backward through ``selective_scan_cuda``: exactly
-   two launches and 2 b t d n elements counted; y, dx, ddt, dA, dB, dC and
-   dD within 1e-4 of ``scan_forward_plain`` / ``scan_backward_plain``'s
-   value plus 1e-5 of the tensor's largest (sums in another order); CUDA-event
-   medians, profiler time by kernel (every kernel named ``selective_scan``),
-   the plain versions' times and the bound (each tensor read or written once
+   The selective scan (``scan_phase``; ``ops/selective_scan.py``) in its
+   gated form, the one the Mamba block runs on the card: at the Jamba
+   cell's call (192 x 30 x 5120 x 16, bf16 dt, z and out), the icl_mamba
+   arms' train and served calls (50 and 16 x 30 x 1024 x 8, fp32) and a
+   narrow one (10 x 10 x 24 x 8, fp32), a forward and a backward through
+   ``gated_selective_scan``: exactly two launches and 2 b t d n elements
+   counted; out, dx, ddt, dA, dB, dC, dD and dz within 1e-4 (plus 2**-7
+   where bf16) of ``gated_scan_forward_plain`` / ``gated_scan_backward_plain``'s
+   value plus 1e-5 of the tensor's largest (sums in another order);
+   CUDA-event medians (the forward also keeping no steps, as served),
+   profiler time by kernel (every kernel named ``selective_scan``), the
+   plain versions' times and the bound (each tensor read or written once
    over the HBM rate, or 7 / 23 operations an element over the dense peak).
+   Then the Mamba mixer's chain (``mixer_case``) at the Jamba cell's layer
+   (192 x 30 x 5120 x 16, bf16 Dense outputs), from in_proj's output to
+   out_proj's and x_proj's operands with dt_proj's output given (the GEMMs
+   left out): the fused kernels (conv + SiLU, the gated scan) against the
+   composed PyTorch chain, each output and the gradients of every input
+   within 1e-4 of the composed chain's plus 1e-5 of the tensor's largest;
+   each side's CUDA-event time of a forward and backward and the fused
+   side's profiler time by kernel, beside each kernel's bytes over the HBM
+   rate.
    The optimizer (``optimizer_phase``; ``ops/fused_adamw.py``): the Jamba
    cell's parameters (the icl_mamba policy built on the meta device from
    its configuration: 256 fp32 tensors, 1.43 B elements) under its two
@@ -142,8 +154,10 @@ all started together). Phases:
    (``arms_phase``): bin, ln_act and raw on the GPT backbone, ln_act and
    LipVQ on icl_mamba, each serving 8 requests of 16 envs and taking 10
    train steps (K1 once per request and step for LipVQ only; the scan's
-   launches counted, some where a Mamba block runs, the icl_mamba backbone
-   or the ln_act tokenizer, and none elsewhere), its fp32
+   launches, the mixer's conv calls and its fused and composed forwards
+   counted: where a Mamba block runs, the icl_mamba backbone or the ln_act
+   tokenizer, every forward fused with one conv call, one more a backward,
+   and none elsewhere), its fp32
    forward on the card held against the CPU, and one fp32 step of the bin
    and the raw arm held against the CPU step by ``hold_step``. Then FAST
    (``fast_arm``): 10 train steps (the BPE refits on the first 8), 8
@@ -356,8 +370,9 @@ all started together). Phases:
    at its defaults (its JSON printed); ``config_gen/icl_xfmr_gen`` and
    ``hyperparam_helper`` into a temporary directory, one generated ICL
    config loaded by ``config_factory``.
-24. Output: a ``kernels`` JSON line (K1, K1f, K2 and the selective scan
-   with the launches of every path), the card line, and last the result line
+24. Output: a ``kernels`` JSON line (K1, K1f, K2, the gated selective
+   scan, the mixer's conv and the optimizer's passes, with the launches of
+   every path), the card line, and last the result line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -522,9 +537,12 @@ def launch_counts() -> tuple[int, int, int]:
 
 
 def zero_launch_counts() -> None:
-    """Set the launch counts of K1, K1f and K2 and the optimizer's counts
-    (``optimizer_counts``) to 0, just before a main path."""
+    """Set the launch counts of K1, K1f and K2, the optimizer's counts
+    (``optimizer_counts``) and the Mamba mixer's (``mixer_counts``) to 0,
+    just before a main path."""
+    from lipvq_tpu_torch.models.mamba import MambaBlock
     from lipvq_tpu_torch.ops import fused_adamw
+    from lipvq_tpu_torch.ops.causal_conv1d import causal_conv1d_silu
     from lipvq_tpu_torch.ops.vq_lookup import vq_nearest_cuda, vq_nearest_with_stats_cuda
 
     vq_nearest_cuda.launches = vq_nearest_cuda.fast_launches = 0
@@ -532,6 +550,18 @@ def zero_launch_counts() -> None:
     fused_adamw.sq_norms.launches = fused_adamw.adam_step_.launches = 0
     fused_adamw.adam_step_.steps = fused_adamw.adam_step_.elems = 0
     fused_adamw.torch_step_.steps = 0
+    causal_conv1d_silu.launches = 0
+    MambaBlock.fused_forwards = MambaBlock.composed_forwards = 0
+
+
+def mixer_counts() -> tuple[int, int, int]:
+    """The Mamba mixer's counts since the last reset: the conv kernels'
+    calls (one a forward, one a backward) and the block's forwards on the
+    card by path, fused and composed."""
+    from lipvq_tpu_torch.models.mamba import MambaBlock
+    from lipvq_tpu_torch.ops.causal_conv1d import causal_conv1d_silu
+
+    return causal_conv1d_silu.launches, MambaBlock.fused_forwards, MambaBlock.composed_forwards
 
 
 def optimizer_counts() -> dict[str, int]:
@@ -1117,23 +1147,28 @@ ARM_SWITCHES = {"vq": {"vq_vae_enabled": True, "ln_act_enabled": False},
                 "fast": {"fast_enabled": True, "ln_act_enabled": False}}
 
 
-# the Jamba cell's scan call, the icl_mamba arms' (6 x 512, d_state 8: 50
-# pairs a train step, 16 envs a request) and a narrow one
-SCAN_SHAPES = {"jamba": (192, 30, 5120, 16), "arm_train": (50, 30, 1024, 8),
-               "arm_serve": (16, 30, 1024, 8), "narrow": (10, 10, 24, 8)}
+# the gated scan's calls (the Mamba block's on the card) and the Dense
+# layers' dtype: the Jamba cell's (bf16), the icl_mamba arms' (6 x 512,
+# d_state 8, fp32: 50 pairs a train step, 16 envs a request) and a narrow
+# one (the ln_act tokenizer's d_inner 24)
+SCAN_SHAPES = {"jamba": (192, 30, 5120, 16, torch.bfloat16),
+               "arm_train": (50, 30, 1024, 8, torch.float32),
+               "arm_serve": (16, 30, 1024, 8, torch.float32),
+               "narrow": (10, 10, 24, 8, torch.float32)}
 SCAN_OPS = (7, 23)  # per element (b, t, d, n), forward and backward
 
 
-def scan_bound(b: int, t: int, d: int, n: int) -> tuple[float, float]:
-    """Least ms of the scan's forward and backward call: each tensor read
-    or written once over the HBM rate (forward x, dt, B, C, A, D in and y
-    out; backward those with dy in, the six gradients out), or the
-    operations over the dense peak, whichever is larger."""
+def scan_bound(b: int, t: int, d: int, n: int, size: int) -> tuple[float, float]:
+    """Least ms of the gated scan's forward and backward call, dt, z, out
+    and their gradients of ``size`` bytes an element: each tensor read or
+    written once over the HBM rate (forward x, dt, z, B, C, A, D in and out
+    out; backward those with out's gradient in, the seven gradients out),
+    or the operations over the dense peak, whichever is larger."""
     e, btd, btn = b * t * d * n, b * t * d, b * t * n
     fwd = max(SCAN_OPS[0] * e / PEAK_BF16_FLOPS,
-              4 * (3 * btd + 2 * btn + d * n + d) / PEAK_BYTES_PER_S)
+              ((4 + 3 * size) * btd + 4 * (2 * btn + d * n + d)) / PEAK_BYTES_PER_S)
     bwd = max(SCAN_OPS[1] * e / PEAK_BF16_FLOPS,
-              4 * (5 * btd + 4 * btn + 2 * d * n + 2 * d) / PEAK_BYTES_PER_S)
+              ((8 + 5 * size) * btd + 4 * (4 * btn + 2 * d * n + 2 * d)) / PEAK_BYTES_PER_S)
     return 1e3 * fwd, 1e3 * bwd
 
 
@@ -1143,65 +1178,166 @@ def scan_counts() -> tuple[int, int]:
     return selective_scan_cuda.launches, selective_scan_cuda.elems
 
 
+MIXER_SHAPE = (192, 30, 5120, 16)  # the Jamba cell's mixer: b, t, d_inner, d_state
+
+
+def mixer_chain(fused: bool, h, dt, A, B, C, D, w, bias):
+    """(out_proj's operand, x_proj's operand) of the Mamba block's chain from
+    in_proj's output h, dt_proj's output dt given: ``MambaBlock._fused``'s
+    kernels or ``._composed``'s PyTorch operations, less their GEMMs."""
+    from lipvq_tpu_torch.ops import causal_conv1d
+    from lipvq_tpu_torch.ops import selective_scan as ss
+
+    if fused:
+        xh, z = h.chunk(2, dim=-1)
+        xs, xs_op = causal_conv1d.causal_conv1d_silu(xh, w, bias, copy=True)
+        return ss.gated_selective_scan(xs, dt, A, B, C, D, z), xs_op
+    t, k = h.shape[1], w.shape[0]
+    xs, z = h.float().chunk(2, dim=-1)
+    xp = torch.nn.functional.pad(xs, (0, 0, k - 1, 0))
+    xs = torch.nn.functional.silu(sum(w[j] * xp[:, j:j + t] for j in range(k)) + bias)
+    y = ss.selective_scan(xs, torch.nn.functional.softplus(dt.float()), A, B, C, D)
+    return (y * torch.nn.functional.silu(z)).to(h.dtype), xs.to(h.dtype)
+
+
+def mixer_case(card: str) -> dict:
+    """The mixer's chain at ``MIXER_SHAPE``: fused against composed (module
+    docstring, phase 2)."""
+    b, t, d, n = MIXER_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(26)
+    bf16 = torch.bfloat16
+    h = torch.randn(b, t, 2 * d, generator=g, device="cuda").to(bf16)
+    dt = (1.5 * torch.randn(b, t, d, generator=g, device="cuda") - 2.0).to(bf16)
+    A = -torch.rand(d, n, generator=g, device="cuda") * 2.0 - 0.1
+    B, C = (torch.randn(b, t, n, generator=g, device="cuda") for _ in range(2))
+    D = torch.randn(d, generator=g, device="cuda")
+    w = torch.randn(4, d, generator=g, device="cuda") / 2.0
+    bias = 0.1 * torch.randn(d, generator=g, device="cuda")
+    args = [v.requires_grad_() for v in (h, dt, A, B, C, D, w, bias)]
+    grads_out = [torch.randn(b, t, d, generator=g, device="cuda").to(bf16) for _ in range(2)]
+
+    def step(fused):
+        outs = mixer_chain(fused, *args)
+        return [o.detach() for o in outs], torch.autograd.grad(outs, args, grads_out)
+
+    want, want_g = step(False)
+    calls = mixer_counts()[0]
+    got, got_g = step(True)
+    calls = mixer_counts()[0] - calls
+    if calls != 2:
+        raise AssertionError(f"mixer: {calls} conv kernel calls for one forward and backward")
+    names = ("out", "xs_op", "dh", "ddt", "dA", "dB", "dC", "dD", "dconv_kernel", "dconv_bias")
+    worst, unequal = {}, {}
+    for name, a, e in zip(names, (*got, *got_g), (*want, *want_g)):
+        unequal[name] = float((a != e).float().mean())  # the share not bit-equal
+        a, e = a.float(), e.float()
+        atol = 1e-5 * float(e.abs().max())
+        worst[name] = float(((a - e).abs() / (atol + 1e-4 * e.abs())).max())
+        if worst[name] > 1:
+            print(f"mixer {name}: worst {worst[name]}, unequal share {unequal[name]}")
+    if max(worst.values()) > 1:
+        raise AssertionError(f"mixer: fused against composed beyond 1e-4: {worst}")
+    del want, want_g, got, got_g
+    ms = {side: cuda_ms(lambda: step(side == "fused"), 10) for side in ("composed", "fused")}
+    _, kernels = profile_device(lambda: step(True), 5)
+    conv = {k: v for k, v in kernels.items() if "causal_conv1d" in k}
+    scan = {k: v for k, v in kernels.items() if "selective_scan" in k}
+    if not conv or not scan:
+        raise AssertionError(f"mixer: kernels {sorted(kernels)}")
+    btd, btn = b * t * d, b * t * n
+    # bytes each kernel pair must move: conv x (bf16) in, xs (fp32) and its
+    # copy out, then x, both gradients in and dx out; the scan x (fp32), dt,
+    # z in and out out, then those with out's gradient in and dx (fp32), ddt,
+    # dz out, B and C (and their gradients) once each way
+    conv_bytes = (8 * btd, 10 * btd)
+    scan_bytes = (10 * btd + 8 * btn, 18 * btd + 16 * btn)
+    bound = {"conv": [1e3 * v / PEAK_BYTES_PER_S for v in conv_bytes],
+             "scan": [1e3 * v / PEAK_BYTES_PER_S for v in scan_bytes]}
+    out = {"shape": [b, t, d, n], "launches": calls, "worst_in_tolerance": worst,
+           "unequal_share": unequal, "ms": ms,
+           "conv_kernel_ms": conv, "scan_kernel_ms": scan, "bound_ms": bound,
+           "kernel_ms": {k: v for k, v in kernels.items() if k not in conv and k not in scan}}
+    print(f"mixer {(b, t, d, n)}: fused against composed within rtol 1e-4 / atol 1e-5 of the "
+          f"largest (worst in units of the tolerance {worst}; share of elements not bit-equal "
+          f"{unequal}); forward + backward {ms} ms; "
+          f"conv kernels {conv} ms (bound {bound['conv']}), scan kernels {scan} ms (bound "
+          f"{bound['scan']}), other kernels {out['kernel_ms']} [{card}]")
+    return out
+
+
 def scan_phase(card: str) -> dict:
-    """The fused selective scan against its plain versions at the shapes of
-    ``SCAN_SHAPES`` (module docstring, phase 2)."""
+    """The gated selective scan, the form the Mamba block runs on the card,
+    against its plain versions at the shapes of ``SCAN_SHAPES``, then the
+    mixer's chain (module docstring, phase 2)."""
     from lipvq_tpu_torch.ops import selective_scan as ss
 
     results = {}
-    for label, (b, t, d, n) in SCAN_SHAPES.items():
+    for label, (b, t, d, n, dtype) in SCAN_SHAPES.items():
         g = torch.Generator(device="cuda").manual_seed(16)
         x = torch.randn(b, t, d, generator=g, device="cuda")
-        dt = torch.nn.functional.softplus(torch.randn(b, t, d, generator=g, device="cuda"))
+        dt = (1.5 * torch.randn(b, t, d, generator=g, device="cuda") - 2.0).to(dtype)
         A = -torch.rand(d, n, generator=g, device="cuda") * 2.0 - 0.1
         B, C = (torch.randn(b, t, n, generator=g, device="cuda") for _ in range(2))
         D = torch.randn(d, generator=g, device="cuda")
-        args = [v.requires_grad_() for v in (x, dt, A, B, C, D)]
+        # the gate, a half of in_proj's output (rows 2d apart)
+        z = torch.randn(b, t, 2 * d, generator=g, device="cuda").to(dtype)[..., d:]
+        args = [v.requires_grad_() for v in (x, dt, A, B, C, D)] + [z.requires_grad_()]
         before = scan_counts()
-        y = ss.selective_scan_cuda(*args)
-        dy = torch.randn(b, t, d, generator=g, device="cuda")
-        grads = torch.autograd.grad(y, args, dy)
+        out = ss.gated_selective_scan(*args)
+        dout = torch.randn(b, t, d, generator=g, device="cuda").to(dtype)
+        grads = torch.autograd.grad(out, args, dout)
         torch.cuda.synchronize()
-        launches, elems = (a - z for a, z in zip(scan_counts(), before))
+        launches, elems = (a - c for a, c in zip(scan_counts(), before))
         if (launches, elems) != (2, 2 * b * t * d * n):
             raise AssertionError(f"scan {label}: {launches} launches of {elems} elements for "
                                  f"one forward and backward of {(b, t, d, n)}")
         plain = [v.detach() for v in args]
         with torch.no_grad():
-            want = (ss.scan_forward_plain(*plain), *ss.scan_backward_plain(*plain, dy))
+            want = (ss.gated_scan_forward_plain(*plain),
+                    *ss.gated_scan_backward_plain(*plain, dout))
         worst = {}
-        for name, got, w in zip(("y", "dx", "ddt", "dA", "dB", "dC", "dD"),
-                                (y.detach(), *grads), want):
+        for name, got, w in zip(("out", "dx", "ddt", "dA", "dB", "dC", "dD", "dz"),
+                                (out.detach(), *grads), want):
+            # a bf16 result of fp32 values that agree to fp32 rounding may
+            # also round to the next bf16 value (up to 2**-7 of it)
+            rtol = 1e-4 + (2.0**-7 if got.dtype == torch.bfloat16 else 0.0)
+            got, w = got.float(), w.float()
             atol = 1e-5 * float(w.abs().max())
-            torch.testing.assert_close(got, w, rtol=1e-4, atol=atol, msg=f"scan {label} {name}")
+            torch.testing.assert_close(got, w, rtol=rtol, atol=atol, msg=f"scan {label} {name}")
             # the worst element's error in units of its tolerance
-            worst[name] = float(((got - w).abs() / (atol + 1e-4 * w.abs())).max())
-        del y, grads, want
-        fwd_ms = cuda_ms(lambda: ss._forward_cuda(*plain), 20)
-        bwd_ms = cuda_ms(lambda: ss._backward_cuda(*plain, dy), 20)
-        fwd_dev, fwd_kernels = profile_device(lambda: ss._forward_cuda(*plain), 10)
-        bwd_dev, bwd_kernels = profile_device(lambda: ss._backward_cuda(*plain, dy), 10)
+            worst[name] = float(((got - w).abs() / (atol + rtol * w.abs())).max())
+        del out, grads, want
+        _, steps = ss._gated_forward_cuda(*plain)
+        fwd_ms = cuda_ms(lambda: ss._gated_forward_cuda(*plain), 20)
+        serve_ms = cuda_ms(lambda: ss._gated_forward_cuda(*plain, keep_steps=False), 20)
+        bwd_ms = cuda_ms(lambda: ss._backward_cuda(*plain[:6], dout, plain[6], steps), 20)
+        fwd_dev, fwd_kernels = profile_device(lambda: ss._gated_forward_cuda(*plain), 10)
+        bwd_dev, bwd_kernels = profile_device(
+            lambda: ss._backward_cuda(*plain[:6], dout, plain[6], steps), 10)
         named = {**fwd_kernels, **bwd_kernels}
         if not named or not all("selective_scan" in k for k in named):
             raise AssertionError(f"scan {label}: kernels {sorted(named)}")
         with torch.no_grad():
-            plain_fwd_ms = cuda_ms(lambda: ss.scan_forward_plain(*plain), 3)
-            plain_bwd_ms = cuda_ms(lambda: ss.scan_backward_plain(*plain, dy), 3)
-        bound = scan_bound(b, t, d, n)
+            plain_fwd_ms = cuda_ms(lambda: ss.gated_scan_forward_plain(*plain), 3)
+            plain_bwd_ms = cuda_ms(lambda: ss.gated_scan_backward_plain(*plain, dout), 3)
+        bound = scan_bound(b, t, d, n, dtype.itemsize)
         results[label] = {
-            "shape": [b, t, d, n], "launches": launches, "elems": elems,
-            "worst_in_tolerance": worst, "ms": [fwd_ms, bwd_ms],
+            "shape": [b, t, d, n], "dtype": str(dtype), "launches": launches, "elems": elems,
+            "worst_in_tolerance": worst, "ms": [fwd_ms, bwd_ms], "forward_no_steps_ms": serve_ms,
             "device_ms": [fwd_dev, bwd_dev], "kernel_ms": named,
             "plain_ms": [plain_fwd_ms, plain_bwd_ms], "bound_ms": list(bound),
             "share": [None if dv is None else bd / dv for bd, dv in zip(bound, (fwd_dev, bwd_dev))]}
-        print(f"scan {label} {(b, t, d, n)}: 2 launches, {elems} elements; y and the six "
-              f"gradients within rtol 1e-4 / atol 1e-5 of the largest of the plain versions "
-              f"(worst in units of the tolerance {worst}); forward {fwd_ms:.4f} ms (device "
-              f"{fwd_dev} ms), backward {bwd_ms:.4f} ms (device {bwd_dev} ms): {named}; plain "
+        print(f"scan {label} {(b, t, d, n)} {dtype}: gated, 2 launches, {elems} elements; out "
+              f"and the seven gradients within rtol 1e-4 (+2**-7 in bf16) / atol 1e-5 of the "
+              f"largest of the plain versions (worst in units of the tolerance {worst}); "
+              f"forward {fwd_ms:.4f} ms (device {fwd_dev} ms; {serve_ms:.4f} ms keeping no "
+              f"steps), backward {bwd_ms:.4f} ms (device {bwd_dev} ms): {named}; plain "
               f"{plain_fwd_ms:.3f} / {plain_bwd_ms:.3f} ms; bound {bound[0]:.4f} / "
               f"{bound[1]:.4f} ms [{card}]")
-        del plain, args, dy
+        del plain, args, dout, steps
         torch.cuda.empty_cache()
+    results["mixer"] = mixer_case(card)
+    torch.cuda.empty_cache()
     return results
 
 
@@ -2164,7 +2300,8 @@ def arms_phase(card: str) -> dict:
     the GPT backbone, ln_act and LipVQ on icl_mamba. Each is built on the
     card, serves 8 requests of 16 envs and takes 10 train steps (launches
     counted: K1 once per request and step for LipVQ, never for the others;
-    K1f and K2 never); its fp32 forward on the card is held against the CPU
+    K1f and K2 never; the scan and the mixer's conv only where a Mamba
+    block runs, every mixer forward fused); its fp32 forward on the card is held against the CPU
     (rtol 1e-3 / atol 1e-4, as the served flagship's); one fp32 step of the
     bin and the raw arm is held against the CPU step by ``hold_step`` (the
     running bounds, step count and spectral-norm vectors among the buffers)."""
@@ -2202,12 +2339,12 @@ def arms_phase(card: str) -> dict:
         zero_launch_counts()
         scan0 = scan_counts()
         served = [policy.batched(o, context) for o in requests]
-        serve_counts = launch_counts()
+        serve_counts, serve_mixer = launch_counts(), mixer_counts()
         scan1 = scan_counts()
         loader = DataLoader(items, BATCH, seed=5)
         zero_launch_counts()
         log = run_epoch(algo, loader, epoch=1, num_steps=ARM_STEPS)
-        train_counts = launch_counts()
+        train_counts, train_mixer = launch_counts(), mixer_counts()
         scan2 = scan_counts()
         k1 = arm == "vq"
         if serve_counts != (ARM_REQUESTS * k1, 0, 0) or train_counts != (ARM_STEPS * k1, 0, 0):
@@ -2217,6 +2354,12 @@ def arms_phase(card: str) -> dict:
         mamba_block = algo_name == "icl_mamba" or arm == "ln_act"
         if (min(scans) > 0) != mamba_block or (max(scans) > 0) != mamba_block:
             raise AssertionError(f"{label}: scan launches {scans} serving and training")
+        # (conv calls, fused, composed forwards): every forward fused, one
+        # conv call each, and one more a backward while training
+        (sc, sf, sp), (tc, tf, tp) = serve_mixer, train_mixer
+        if mamba_block != (sf > 0 and tf > 0) or sp or tp or sc != sf or not tf <= tc <= 2 * tf:
+            raise AssertionError(f"{label}: mixer counts (conv calls, fused, composed) "
+                                 f"{serve_mixer} serving and {train_mixer} training")
         if not all(a.shape == (N_ENVS, AC_DIM) and np.isfinite(a).all() for a in served):
             raise AssertionError(f"{label}: served actions not finite of shape (16, 12)")
         if not all(np.isfinite(v) for v in log.values()):
@@ -2252,7 +2395,7 @@ def arms_phase(card: str) -> dict:
         top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:5])
         results[label] = {
             "serve_launches": serve_counts, "train_launches": train_counts, "log": log,
-            "scan_launches": scans,
+            "scan_launches": scans, "mixer_counts": {"serve": serve_mixer, "train": train_mixer},
             "fp32_forward_max_abs_err": fwd_err, "request_ms": request_ms,
             "request_busy_ms": request_busy,
             "request_idle_share": None if request_busy is None else 1 - request_busy / request_ms,
@@ -2262,7 +2405,8 @@ def arms_phase(card: str) -> dict:
         r = results[label]
         print(f"arm {label}: {ARM_REQUESTS} requests of {N_ENVS} envs and {ARM_STEPS} steps of "
               f"batch {BATCH}, launches (K1, K1f, K2) {serve_counts} / {train_counts}, of the "
-              f"scan {scans[0]} / {scans[1]}; Loss "
+              f"scan {scans[0]} / {scans[1]}, mixer (conv calls, fused, composed) "
+              f"{serve_mixer} / {train_mixer}; Loss "
               f"{log['Loss']:.4f}; fp32 card == CPU within rtol 1e-3 / atol 1e-4 (max abs "
               f"{fwd_err:.3g}); request {request_ms:.3f} ms (device busy {request_busy} ms, "
               f"idle share {r['request_idle_share']}), step {step_ms:.3f} ms (device busy "
@@ -6507,7 +6651,7 @@ def main() -> int:
         print(f"{tool}: {out[-1] if 'nvcc' in tool else out[0]}")
     t0 = time.perf_counter()
     logs = _build.build(["vq_nearest", "vq_nearest_fast", "vq_stats", "selective_scan",
-                         "fused_adamw"])
+                         "causal_conv1d", "fused_adamw"])
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for name, (_, log) in logs.items():
         for line in log.splitlines():
@@ -6617,7 +6761,8 @@ def main() -> int:
     k1_paths["rollout_device_cache"] = dc["k1_rollout"]
     k1f_paths["device_cache_script"] = dc["k1f"]
     k2_paths["device_cache_script"] = dc["k2"]
-    scan_paths = {f"scan {label}": r["launches"] for label, r in scan.items()}
+    scan_paths = {f"scan {label}": r["launches"] for label, r in scan.items()
+                  if label != "mixer"}
     # the optimizer's kernels, as the library reported their launches
     opt_paths = {"optimizer jamba": optimizer["counts"]["launches"] + optimizer["launches"],
                  "optimizer adam_l2": optimizer["adam_l2"]["counts"]["launches"],
@@ -6625,9 +6770,14 @@ def main() -> int:
                     for label in ("train", "train_ema")},
                  **{f"baseline {label}": baselines[label]["optimizer"]["launches"]
                     for label, _, _ in BASELINES}}
+    conv_paths = {"mixer case": scan["mixer"]["launches"]}
+    fused_paths = {}
     for label, r in arms.items():
         if "scan_launches" in r:
             scan_paths[f"arm {label}"] = sum(r["scan_launches"])
+            for part, (conv, fused, _) in r["mixer_counts"].items():
+                conv_paths[f"arm {label} {part}"] = conv
+                fused_paths[f"arm {label} {part}"] = fused
     for paths, i in ((k1_paths, 0), (k1f_paths, 1), (k2_paths, 2)):
         paths["import"] = imported["launches"][i]
         for label in ("lowdim", "lowdim_ema", "image"):
@@ -6717,11 +6867,22 @@ def main() -> int:
         "route": "cuda",
         "source": "lipvq_tpu_torch/ops/csrc/selective_scan.cu",
         "replaces": "lipvq_tpu/models/mamba.py:34",
+        "form": "gated: softplus of dt in, y * silu(z) out (the Mamba block's on the card)",
         "launches": sum(scan_paths.values()),
         "launches_by_path": scan_paths,
         **{k: scan["jamba"][k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                           "worst_in_tolerance")},
-        "shapes": scan,
+        "shapes": {label: r for label, r in scan.items() if label != "mixer"},
+        "card": card,
+    }, {
+        "name": "causal_conv1d and the gated selective scan",
+        "route": "cuda",
+        "source": "lipvq_tpu_torch/ops/csrc/causal_conv1d.cu, selective_scan.cu",
+        "replaces": "lipvq_tpu_torch/models/mamba.py's composed chain (MambaBlock._composed)",
+        **scan["mixer"],
+        "launches": sum(conv_paths.values()),
+        "launches_by_path": conv_paths,
+        "ssm_mixer_fused_by_path": fused_paths,
         "card": card,
     }, {
         "name": "fused_adamw",

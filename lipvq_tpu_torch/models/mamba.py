@@ -12,6 +12,17 @@ summation order differs from the scan's tree, so the two agree to fp32
 rounding, not bit for bit); on the card the fused kernel, which keeps the
 state on chip and recomputes it in the backward.
 
+On the card the block takes the chain between ``in_proj``'s output and
+``out_proj``'s operand into two kernels (``MambaBlock._fuses``): the conv,
+its bias and SiLU in one (``ops/causal_conv1d.py``, which also writes
+``x_proj``'s operand in the compute dtype), and softplus of dt, the scan
+and the gate y * silu(z) in the other (``ops/selective_scan.py``'s gated
+scan), each with its backward; the same values in fp32, rounded to the
+compute dtype where the composed chain rounds. On the CPU, and where
+``selective_scan`` here is not the ops module's own (a fault planted on
+it), the composed chain runs. The counters ``ssm_mixer_fused`` and
+``ssm_mixer_composed`` count the block's forwards on the card by path.
+
 The block follows mamba_ssm's defaults: d_inner = expand * d_model, dt_rank
 = ceil(d_model / 16), a depthwise causal convolution of width d_conv (an
 unrolled stencil) + SiLU, data-dependent (dt, B, C), ``dt_proj``'s bias the
@@ -54,7 +65,10 @@ from lipvq_tpu_torch.models.transformer import (
     RMSNorm,
     cast_linear,
 )
+from lipvq_tpu_torch.ops import causal_conv1d
+from lipvq_tpu_torch.ops import selective_scan as scan_ops
 from lipvq_tpu_torch.ops.selective_scan import selective_scan
+from lipvq_tpu_torch.utils import profile_utils
 from lipvq_tpu_torch.utils.profile_utils import span
 
 
@@ -82,6 +96,10 @@ class MambaBlock(nn.Module):
     ``compute_dtype`` from ``out_proj``). ``dt_rank`` 0 is ceil(d_model /
     16); ``dt_bc_norm`` puts RMSNorms (``dt_norm``, ``b_norm``, ``c_norm``,
     eps ``norm_eps``) on dt, B and C."""
+
+    # forwards on the card by path (module docstring)
+    fused_forwards = 0
+    composed_forwards = 0
 
     def __init__(self, d_model: int, d_state: int = 8, d_conv: int = 4, expand: int = 2,
                  dt_rank: int = 0, dt_bc_norm: bool = False, norm_eps: float = LN_EPS,
@@ -115,20 +133,62 @@ class MambaBlock(nn.Module):
             self.D.fill_(1.0)
 
     def forward(self, x):
-        t, cd = x.shape[1], self.compute_dtype
-        # .float() is a no-op on the fp32 path
-        xs, z = _dense(self.in_proj, x, cd).float().chunk(2, dim=-1)
-        # depthwise causal conv over time: pad left d_conv - 1
-        xp = F.pad(xs, (0, 0, self.d_conv - 1, 0))
-        xs = sum(self.conv_kernel[k] * xp[:, k:k + t] for k in range(self.d_conv)) + self.conv_bias
-        xs = F.silu(xs)
+        h = _dense(self.in_proj, x, self.compute_dtype)
+        if self._fuses(h):
+            MambaBlock.fused_forwards += 1
+            return self._fused(h)
+        if h.is_cuda:
+            MambaBlock.composed_forwards += 1
+        return self._composed(h)
+
+    def _fuses(self, h) -> bool:
+        """Whether the kernels take this forward: ``in_proj``'s output h on
+        the card and the scan not replaced here. The kernels raise on
+        tensors they do not take (a wider stencil, more states)."""
+        return h.is_cuda and selective_scan is scan_ops.selective_scan
+
+    def _project(self, xs):
+        """(``dt_proj``'s output, B, C) from the conv's output (or its
+        copy in the compute dtype)."""
+        cd = self.compute_dtype
         dt, B, C = _dense(self.x_proj, xs, cd).float().split(
             [self.dt_rank, self.d_state, self.d_state], dim=-1)
         if self.dt_bc_norm:
             dt, B, C = self.dt_norm(dt), self.b_norm(B), self.c_norm(C)
-        dt = F.softplus(_dense(self.dt_proj, dt, cd).float())
+        return _dense(self.dt_proj, dt, cd), B, C
+
+    def _composed(self, h):
+        """The chain in PyTorch operations, from ``in_proj``'s output h."""
+        t, cd = h.shape[1], self.compute_dtype
+        # .float() is a no-op on the fp32 path
+        xs, z = h.float().chunk(2, dim=-1)
+        # depthwise causal conv over time: pad left d_conv - 1
+        xp = F.pad(xs, (0, 0, self.d_conv - 1, 0))
+        xs = sum(self.conv_kernel[k] * xp[:, k:k + t] for k in range(self.d_conv)) + self.conv_bias
+        xs = F.silu(xs)
+        dt, B, C = self._project(xs)
+        dt = F.softplus(dt.float())
         y = selective_scan(xs, dt, -torch.exp(self.A_log), B, C, self.D)
         return _dense(self.out_proj, y * F.silu(z), cd)
+
+    def _fused(self, h):
+        """The chain in the two kernels, from ``in_proj``'s output h: the
+        halves are read in place, and their gradients meet in ``chunk``'s
+        backward."""
+        cd = self.compute_dtype
+        xh, z = h.chunk(2, dim=-1)
+        if cd is None:
+            xs = xs_op = causal_conv1d.causal_conv1d_silu(xh, self.conv_kernel, self.conv_bias)
+        else:
+            xs, xs_op = causal_conv1d.causal_conv1d_silu(xh, self.conv_kernel, self.conv_bias,
+                                                         copy=True)
+        dt, B, C = self._project(xs_op)
+        out = scan_ops.gated_selective_scan(xs, dt, -torch.exp(self.A_log), B, C, self.D, z)
+        return _dense(self.out_proj, out, cd)
+
+
+profile_utils.register({"ssm_mixer_fused": lambda: MambaBlock.fused_forwards,
+                        "ssm_mixer_composed": lambda: MambaBlock.composed_forwards})
 
 
 class MambaBackbone(nn.Module):

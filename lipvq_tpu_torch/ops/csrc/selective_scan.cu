@@ -41,13 +41,31 @@
 //        dDv sum over the block's sequences.
 //   reduce: sums each partial over its blocks in order. No atomics: the
 //        result is the same on every run.
+//
+// Gated. The Mamba mixer's call takes the chain at the scan's two ends
+// (mamba_ssm's delta_softplus and z): dt comes as dt_proj's output and the
+// forward applies softplus in fp32 where it reads it, and keeps the fp32
+// steps for the backward (the accurate expf and log1pf cost as much as a
+// channel's 16 states in these instruction-bound kernels; the backward would
+// need them in each of its passes); the forward writes out = y * silu(z),
+// z the gate half of in_proj's output (rows ldz elements apart), in place
+// of y; the backward takes out's gradient, recomputes y with the states,
+// and writes the gate's gradient dz and dt_proj output's gradient (ddt
+// times softplus'). dt, z, out and their gradients are of one element
+// type, fp32 or bf16 (rounded to nearest even); everything else, the state
+// and every formula stay fp32 (csrc/ssm_mixer.cuh). The plain scan is the
+// same template with fp32 elements and no gate.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "ssm_mixer.cuh"
+
 namespace {
+
+using namespace ssm_mixer;
 
 constexpr int FWD_THREADS = 128;
 constexpr int RED_THREADS = 256;
@@ -74,12 +92,35 @@ __host__ __device__ constexpr int bwd_threads(int ns) { return ns <= 8 ? 256 : 2
 
 int groups_of(int batch) { return (batch + BATCH_GROUP - 1) / BATCH_GROUP; }
 
-template <int NS>
+// One step of a state, exp(dt A) h + (dt x) B, and one term of y, C h + p,
+// each with one fixed rounding (explicit fused multiply-adds), so that the
+// backward's recomputed states and y equal the forward's bit for bit.
+__device__ __forceinline__ float next_state(float h, float dt_a2, float u, float b) {
+  return __fmaf_rn(exp2f(dt_a2), h, __fmul_rn(u, b));
+}
+__device__ __forceinline__ float add_term(float p, float c, float h) { return __fmaf_rn(c, h, p); }
+
+// the step's dt from its stored value: softplus of dt_proj's output when gated
+template <bool GATED, typename E>
+__device__ __forceinline__ float step_of(E v) {
+  if constexpr (GATED) return softplus(to_float(v));
+  else return to_float(v);
+}
+
+// the backward's step at element e: the forward's fp32 steps when gated
+template <bool GATED, typename E>
+__device__ __forceinline__ float step_at(const E* dt, const float* steps, size_t e) {
+  if constexpr (GATED) return steps[e];
+  else return to_float(dt[e]);
+}
+
+template <int NS, typename E, bool GATED>
 __global__ void __launch_bounds__(FWD_THREADS)
-selective_scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+selective_scan_fwd_kernel(const float* __restrict__ x, const E* __restrict__ dt,
                           const float* __restrict__ A, const float* __restrict__ Bm,
                           const float* __restrict__ Cm, const float* __restrict__ Dv,
-                          float* __restrict__ y, int batch, int T, int D, int N) {
+                          const E* __restrict__ z, E* __restrict__ y,
+                          float* __restrict__ steps, int batch, int T, int D, int N, int ldz) {
   // a chunk of steps of the block's x and dt, and of the sequence's Bm and Cm
   __shared__ float sx[2][CHUNK][FWD_THREADS];
   __shared__ float bc[2][CHUNK][NS];
@@ -104,7 +145,10 @@ selective_scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__
       for (int i = 0; i < len; ++i) {
         const size_t e = ((size_t)b * T + t0 + i) * D + ch;
         sx[0][i][threadIdx.x] = live ? x[e] : 0.f;
-        sx[1][i][threadIdx.x] = live ? dt[e] : 0.f;
+        const float st = live ? step_of<GATED>(dt[e]) : 0.f;
+        sx[1][i][threadIdx.x] = st;
+        if constexpr (GATED)
+          if (live && steps != nullptr) steps[e] = st;
       }
       __syncthreads();
       if (!live) continue;
@@ -113,10 +157,15 @@ selective_scan_fwd_kernel(const float* __restrict__ x, const float* __restrict__
         float p = 0.f;
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          h[n] = exp2f(dtv * a2[n]) * h[n] + u * bc[0][i][n];
-          p += bc[1][i][n] * h[n];
+          h[n] = next_state(h[n], dtv * a2[n], u, bc[0][i][n]);
+          p = add_term(p, bc[1][i][n], h[n]);
         }
-        y[((size_t)b * T + t0 + i) * D + ch] = p + dd * xv;
+        const float yv = __fmaf_rn(dd, xv, p);
+        if constexpr (GATED)
+          y[((size_t)b * T + t0 + i) * D + ch] =
+              from_float<E>(yv * silu(to_float(z[((size_t)b * T + t0 + i) * ldz + ch])));
+        else
+          y[((size_t)b * T + t0 + i) * D + ch] = yv;
       }
     }
   }
@@ -149,15 +198,17 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NS], int lane) {
   return v[0];
 }
 
-template <int NS>
+template <int NS, typename E, bool GATED>
 __global__ void __launch_bounds__(bwd_threads(NS))
-selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dt,
+selective_scan_bwd_kernel(const float* __restrict__ x, const E* __restrict__ dt,
                           const float* __restrict__ A, const float* __restrict__ Bm,
                           const float* __restrict__ Cm, const float* __restrict__ Dv,
-                          const float* __restrict__ dy, float* __restrict__ dx,
-                          float* __restrict__ ddt, float* __restrict__ part_b,
-                          float* __restrict__ part_c, float* __restrict__ part_a,
-                          float* __restrict__ part_d, int batch, int T, int D, int N) {
+                          const E* __restrict__ z, const float* __restrict__ steps,
+                          const E* __restrict__ dy, float* __restrict__ dx,
+                          E* __restrict__ ddt, E* __restrict__ dz,
+                          float* __restrict__ part_b, float* __restrict__ part_c,
+                          float* __restrict__ part_a, float* __restrict__ part_d, int batch,
+                          int T, int D, int N, int ldz) {
   constexpr int THR = bwd_threads(NS);
   constexpr int WB = THR / 32;
   constexpr int SHIFT = NS == 4 ? 3 : NS == 8 ? 2 : NS == 16 ? 1 : 0;
@@ -204,11 +255,11 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
       for (int n = 0; n < NS; ++n) h[n] = 0.f;
       for (int t = 0; t < t0; ++t) {
         const size_t e = ((size_t)b * T + t) * D + ch;
-        const float dtv = live ? dt[e] : 0.f, u = live ? dtv * x[e] : 0.f;
+        const float dtv = live ? step_at<GATED>(dt, steps, e) : 0.f, u = live ? dtv * x[e] : 0.f;
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
           const float bv = n < N ? Bm[((size_t)b * T + t) * N + n] : 0.f;
-          h[n] = exp2f(dtv * a2[n]) * h[n] + u * bv;
+          h[n] = next_state(h[n], dtv * a2[n], u, bv);
         }
       }
       // pass 1: the state at the start of each segment
@@ -221,26 +272,30 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
           const int i = s * SEG + k;
           if (i < len) {
             const size_t e = ((size_t)b * T + t0 + i) * D + ch;
-            const float dtv = live ? dt[e] : 0.f, u = live ? dtv * x[e] : 0.f;
+            const float dtv = live ? step_at<GATED>(dt, steps, e) : 0.f;
+            const float u = live ? dtv * x[e] : 0.f;
 #pragma unroll
-            for (int n = 0; n < NS; ++n) h[n] = exp2f(dtv * a2[n]) * h[n] + u * bc[i * NS + n];
+            for (int n = 0; n < NS; ++n) h[n] = next_state(h[n], dtv * a2[n], u, bc[i * NS + n]);
           }
         }
       }
       // pass 2: the segments from the last, each walked backwards
       for (int s = nseg - 1; s >= 0; --s) {
-        float hs[SEG][NS], xs[SEG], dts[SEG], dys[SEG];
+        // dys: y's gradient, or when gated out's; dtr, zs: dt's stored value, the gate
+        float hs[SEG][NS], xs[SEG], dts[SEG], dys[SEG], dtr[SEG], zs[SEG];
 #pragma unroll
         for (int n = 0; n < NS; ++n) h[n] = ck[(s * NS + n) * THR + threadIdx.x];
 #pragma unroll
         for (int k = 0; k < SEG; ++k) {
           const int i = s * SEG + k;
-          xs[k] = dts[k] = dys[k] = 0.f;
+          xs[k] = dts[k] = dys[k] = dtr[k] = zs[k] = 0.f;
           if (i < len && live) {
             const size_t e = ((size_t)b * T + t0 + i) * D + ch;
             xs[k] = x[e];
-            dts[k] = dt[e];
-            dys[k] = dy[e];
+            dtr[k] = to_float(dt[e]);
+            dts[k] = step_at<GATED>(dt, steps, e);
+            dys[k] = to_float(dy[e]);
+            if constexpr (GATED) zs[k] = to_float(z[((size_t)b * T + t0 + i) * ldz + ch]);
           }
         }
 #pragma unroll
@@ -249,14 +304,23 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
 #pragma unroll
           for (int n = 0; n < NS; ++n) {
             const float prev = k > 0 ? hs[k > 0 ? k - 1 : 0][n] : h[n];
-            hs[k][n] = exp2f(dts[k] * a2[n]) * prev + u * bc[min(s * SEG + k, CHUNK - 1) * NS + n];
+            const float bv = bc[min(s * SEG + k, CHUNK - 1) * NS + n];
+            hs[k][n] = next_state(prev, dts[k] * a2[n], u, bv);
           }
         }
 #pragma unroll
         for (int k = SEG - 1; k >= 0; --k) {
           const int i = s * SEG + k;
           if (i < len) {  // the same for every thread: the butterflies see the whole warp
-            const float xv = xs[k], dtv = dts[k], dyv = dys[k], u = dtv * xv;
+            const float xv = xs[k], dtv = dts[k], u = dtv * xv;
+            float dyv = dys[k], dzv = 0.f;
+            if constexpr (GATED) {  // y as the forward sums it, then the gate's product
+              float p = 0.f;
+#pragma unroll
+              for (int n = 0; n < NS; ++n) p = add_term(p, bc[CHUNK * NS + i * NS + n], hs[k][n]);
+              dzv = silu_grad(zs[k], dyv * __fmaf_rn(dd, xv, p));
+              dyv = dyv * silu(zs[k]);
+            }
             float gb[NS], gc[NS], s_a = 0.f, s_b = 0.f;
 #pragma unroll
             for (int n = 0; n < NS; ++n) {
@@ -274,7 +338,12 @@ selective_scan_bwd_kernel(const float* __restrict__ x, const float* __restrict__
             }
             if (live) {
               const size_t e = ((size_t)b * T + t0 + i) * D + ch;
-              ddt[e] = s_a * LN2 + s_b * xv;
+              if constexpr (GATED) {
+                ddt[e] = from_float<E>(softplus_grad(dtr[k], s_a * LN2 + s_b * xv));
+                dz[e] = from_float<E>(dzv);
+              } else {
+                ddt[e] = s_a * LN2 + s_b * xv;
+              }
               dx[e] = s_b * dtv + dd * dyv;
               dsum += dyv * xv;
             }
@@ -334,13 +403,14 @@ cudaError_t reduce(const float* part, float* out, int outer, int K, int inner,
   return cudaGetLastError();
 }
 
-template <int NS>
-cudaError_t launch_fwd(const float* x, const float* dt, const float* A, const float* Bm,
-                       const float* Cm, const float* Dv, float* y, int batch, int T, int D,
-                       int N, cudaStream_t s) {
+template <int NS, typename E, bool GATED>
+cudaError_t launch_fwd(const float* x, const void* dt, const float* A, const float* Bm,
+                       const float* Cm, const float* Dv, const void* z, void* y, float* steps,
+                       int batch, int T, int D, int N, int ldz, cudaStream_t s) {
   const dim3 grid((D + FWD_THREADS - 1) / FWD_THREADS, batch < MAX_GRID_Y ? batch : MAX_GRID_Y);
-  selective_scan_fwd_kernel<NS><<<grid, FWD_THREADS, 0, s>>>(x, dt, A, Bm, Cm, Dv, y, batch, T,
-                                                             D, N);
+  selective_scan_fwd_kernel<NS, E, GATED><<<grid, FWD_THREADS, 0, s>>>(
+      x, static_cast<const E*>(dt), A, Bm, Cm, Dv, static_cast<const E*>(z), static_cast<E*>(y),
+      steps, batch, T, D, N, ldz);
   return cudaGetLastError();
 }
 
@@ -351,28 +421,68 @@ size_t bwd_smem_bytes(int ns) {
   return sizeof(float) * ((size_t)NSEG * ns * thr + 2 * CHUNK * ns + 2 * (thr / 32) * CHUNK * ns);
 }
 
-template <int NS>
-cudaError_t launch_bwd(const float* x, const float* dt, const float* A, const float* Bm,
-                       const float* Cm, const float* Dv, const float* dy, float* dx,
-                       float* ddt, float* dA, float* dB, float* dC, float* dD, float* scratch,
-                       int batch, int T, int D, int N, cudaStream_t s) {
+template <int NS, typename E, bool GATED>
+cudaError_t launch_bwd(const float* x, const void* dt, const float* A, const float* Bm,
+                       const float* Cm, const float* Dv, const void* z, const float* steps,
+                       const void* dy, float* dx, void* ddt, void* dz, float* dA, float* dB,
+                       float* dC, float* dD, float* scratch, int batch, int T, int D, int N,
+                       int ldz, cudaStream_t s) {
   const int nblk = bwd_blocks(D, NS), ngrp = groups_of(batch);
   float* part_b = scratch;
   float* part_c = part_b + (size_t)batch * nblk * T * N;
   float* part_a = part_c + (size_t)batch * nblk * T * N;
   float* part_d = part_a + (size_t)ngrp * D * N;
   const size_t smem = bwd_smem_bytes(NS);
-  cudaError_t err = cudaFuncSetAttribute(selective_scan_bwd_kernel<NS>,
+  cudaError_t err = cudaFuncSetAttribute(selective_scan_bwd_kernel<NS, E, GATED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
-  selective_scan_bwd_kernel<NS><<<dim3(nblk, ngrp), bwd_threads(NS), smem, s>>>(
-      x, dt, A, Bm, Cm, Dv, dy, dx, ddt, part_b, part_c, part_a, part_d, batch, T, D, N);
+  selective_scan_bwd_kernel<NS, E, GATED><<<dim3(nblk, ngrp), bwd_threads(NS), smem, s>>>(
+      x, static_cast<const E*>(dt), A, Bm, Cm, Dv, static_cast<const E*>(z), steps,
+      static_cast<const E*>(dy), dx, static_cast<E*>(ddt), static_cast<E*>(dz), part_b, part_c,
+      part_a, part_d, batch, T, D, N, ldz);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = reduce(part_b, dB, batch, nblk, T * N, s)) != cudaSuccess) return err;
   if ((err = reduce(part_c, dC, batch, nblk, T * N, s)) != cudaSuccess) return err;
   if ((err = reduce(part_a, dA, 1, ngrp, D * N, s)) != cudaSuccess) return err;
   return reduce(part_d, dD, 1, ngrp, D, s);
+}
+
+template <typename E, bool GATED>
+int fwd(const float* x, const void* dt, const float* A, const float* Bm, const float* Cm,
+        const float* Dv, const void* z, void* y, float* steps, int batch, int T, int D, int N,
+        int ldz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SCAN_FWD(NS) \
+  launch_fwd<NS, E, GATED>(x, dt, A, Bm, Cm, Dv, z, y, steps, batch, T, D, N, ldz, s)
+  switch (states_of(N)) {
+    case 4: return SCAN_FWD(4);
+    case 8: return SCAN_FWD(8);
+    case 16: return SCAN_FWD(16);
+    case 32: return SCAN_FWD(32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SCAN_FWD
+}
+
+template <typename E, bool GATED>
+int bwd(const float* x, const void* dt, const float* A, const float* Bm, const float* Cm,
+        const float* Dv, const void* z, const float* steps, const void* dy, float* dx,
+        void* ddt, void* dz, float* dA, float* dB, float* dC, float* dD, void* scratch,
+        int batch, int T, int D, int N, int ldz, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scratch);
+#define SCAN_BWD(NS)                                                                     \
+  launch_bwd<NS, E, GATED>(x, dt, A, Bm, Cm, Dv, z, steps, dy, dx, ddt, dz, dA, dB, dC, dD, \
+                           sc, batch, T, D, N, ldz, s)
+  switch (states_of(N)) {
+    case 4: return SCAN_BWD(4);
+    case 8: return SCAN_BWD(8);
+    case 16: return SCAN_BWD(16);
+    case 32: return SCAN_BWD(32);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SCAN_BWD
 }
 
 }  // namespace
@@ -400,14 +510,25 @@ size_t selective_scan_bwd_scratch_elems(int batch, int T, int D, int N) {
 int selective_scan_fwd_launch(const float* x, const float* dt, const float* A, const float* Bm,
                               const float* Cm, const float* Dv, float* y, int batch, int T,
                               int D, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (states_of(N)) {
-    case 4: return launch_fwd<4>(x, dt, A, Bm, Cm, Dv, y, batch, T, D, N, s);
-    case 8: return launch_fwd<8>(x, dt, A, Bm, Cm, Dv, y, batch, T, D, N, s);
-    case 16: return launch_fwd<16>(x, dt, A, Bm, Cm, Dv, y, batch, T, D, N, s);
-    case 32: return launch_fwd<32>(x, dt, A, Bm, Cm, Dv, y, batch, T, D, N, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd<float, false>(x, dt, A, Bm, Cm, Dv, nullptr, y, nullptr, batch, T, D, N, 0, stream);
+}
+
+// The mixer's call: dt [B, T, D] dt_proj's output (softplus applied here),
+// z [B, T, D] the gate with rows ldz elements apart (ldz >= D), out
+// [B, T, D] = y * silu(z); dt, z and out of type `dtype` (ssm_mixer::Dtype);
+// steps [B, T, D] fp32, softplus(dt), for the backward, or null where no
+// backward follows (then nothing is written there). Otherwise as
+// selective_scan_fwd_launch.
+int selective_scan_gated_fwd_launch(const float* x, const void* dt, const float* A,
+                                    const float* Bm, const float* Cm, const float* Dv,
+                                    const void* z, void* out, float* steps, int batch, int T,
+                                    int D, int N, int ldz, int dtype, void* stream) {
+  if (dtype == F32)
+    return fwd<float, true>(x, dt, A, Bm, Cm, Dv, z, out, steps, batch, T, D, N, ldz, stream);
+  if (dtype == BF16)
+    return fwd<__nv_bfloat16, true>(x, dt, A, Bm, Cm, Dv, z, out, steps, batch, T, D, N, ldz,
+                                    stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The gradients of the forward's inputs from dy [B, T, D]: dx, ddt [B, T, D],
@@ -418,18 +539,27 @@ int selective_scan_bwd_launch(const float* x, const float* dt, const float* A, c
                               const float* Cm, const float* Dv, const float* dy, float* dx,
                               float* ddt, float* dA, float* dB, float* dC, float* dD,
                               void* scratch, int batch, int T, int D, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sc = static_cast<float*>(scratch);
-#define SCAN_BWD(NS)                                                                       \
-  launch_bwd<NS>(x, dt, A, Bm, Cm, Dv, dy, dx, ddt, dA, dB, dC, dD, sc, batch, T, D, N, s)
-  switch (states_of(N)) {
-    case 4: return SCAN_BWD(4);
-    case 8: return SCAN_BWD(8);
-    case 16: return SCAN_BWD(16);
-    case 32: return SCAN_BWD(32);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SCAN_BWD
+  return bwd<float, false>(x, dt, A, Bm, Cm, Dv, nullptr, nullptr, dy, dx, ddt, nullptr, dA, dB,
+                           dC, dD, scratch, batch, T, D, N, 0, stream);
+}
+
+// The gradients of the gated call's inputs from dout [B, T, D], with the
+// forward's steps: dx [B, T, D] fp32, ddt and dz [B, T, D] (contiguous) of
+// type `dtype`, dA, dB, dC, dD fp32. Otherwise as selective_scan_bwd_launch
+// and selective_scan_gated_fwd_launch.
+int selective_scan_gated_bwd_launch(const float* x, const void* dt, const float* A,
+                                    const float* Bm, const float* Cm, const float* Dv,
+                                    const void* z, const float* steps, const void* dout,
+                                    float* dx, void* ddt, void* dz, float* dA, float* dB,
+                                    float* dC, float* dD, void* scratch, int batch, int T,
+                                    int D, int N, int ldz, int dtype, void* stream) {
+  if (dtype == F32)
+    return bwd<float, true>(x, dt, A, Bm, Cm, Dv, z, steps, dout, dx, ddt, dz, dA, dB, dC, dD,
+                            scratch, batch, T, D, N, ldz, stream);
+  if (dtype == BF16)
+    return bwd<__nv_bfloat16, true>(x, dt, A, Bm, Cm, Dv, z, steps, dout, dx, ddt, dz, dA, dB,
+                                    dC, dD, scratch, batch, T, D, N, ldz, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""Kernels K1, K1f and K2, the selective scan and the optimizer's two passes
-on the card against their plain PyTorch versions (and torch's own step).
+"""Kernels K1, K1f and K2, the selective scan, the Mamba mixer's causal conv
+and gated scan, and the optimizer's two passes on the card against their
+plain PyTorch versions (and torch's own step).
 
 These tests need an NVIDIA GPU and nvcc and skip without them. The machine
 with the card has no JAX, so this file imports none and runs without the
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from lipvq_tpu_torch.ops import _build, fused_adamw, selective_scan, vq_lookup
+from lipvq_tpu_torch.ops import _build, causal_conv1d, fused_adamw, selective_scan, vq_lookup
 from lipvq_tpu_torch.ops.vq_lookup import (
     FAST_MAX_D,
     TC,
@@ -530,9 +531,11 @@ def test_k1f_scratch_holds_the_bf16_codebook_copy(cuda, b, n, d, splits, lookup,
      (None, None, None, None, None, 1, 1, 1, TC, 128, 2)),  # TC takes one code split
     (selective_scan, "selective_scan", "selective_scan_fwd_launch",
      (None,) * 7 + (1, 1, 1, 64)),  # more states than a warp has lanes
+    (causal_conv1d, "causal_conv1d", "causal_conv1d_fwd_launch",
+     (None, 1) + (None,) * 4 + (1, 1, 1, 5, 0)),  # a stencil wider than it is built for
     (fused_adamw, "fused_adamw", "fused_sq_norms",  # no group, nothing carried
      (0, None, None, 0, None, None, 0, None, None, None, ctypes.byref(ctypes.c_int(0)))),
-], ids=["k1", "scan", "sq_norms"])
+], ids=["k1", "scan", "conv", "sq_norms"])
 def test_a_refused_launch_raises_with_the_library_error_text(cuda, module, name, entry, args):
     """An entry point that returns a cudaError_t before it enqueues anything:
     ``_build.launch`` raises with the library's own text and code."""
@@ -770,7 +773,7 @@ def _close(got, want, name):
     dC, up to b x d x t terms): each element within 1e-4 of its value plus
     1e-5 of the tensor's largest."""
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()),
-                               msg=name)
+                               msg=lambda m: f"{name}: {m}")
 
 
 @pytest.mark.parametrize("b,t,d,n", [(192, 30, 5120, 16), (3, 70, 100, 8), (5, 10, 33, 32),
@@ -849,6 +852,178 @@ def test_hybrid_step_on_the_card_counts_its_scans(cuda):
     b, t = 3, 3 * cfg["context_length"]
     assert counters["ssm_scan_launches"] == 2 * mamba_layers
     assert counters["ssm_scan_elems"] == 2 * mamba_layers * b * t * 2 * 64 * 4
+
+
+# -- the mixer's chain (ops/causal_conv1d.py, the gated scan) ------------------
+
+def _close_in(got, want, name):
+    """``_close`` in the tensors' own type: a bf16 result computed in fp32
+    from values that agree to fp32 rounding may also round to the next
+    bf16 value (up to 2**-7 of it)."""
+    rtol = 1e-4 + (2.0**-7 if got.dtype == torch.bfloat16 else 0.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * float(want.abs().max().float()),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("b,t,d,k,dtype", [
+    (192, 30, 5120, 4, torch.bfloat16), (3, 70, 100, 4, torch.float32),
+    (2, 150, 24, 3, torch.bfloat16), (4, 2, 33, 4, torch.float32), (1, 1, 1, 1, torch.float32),
+    (9, 10, 26, 2, torch.bfloat16)],
+    ids=["jamba", "two_chunks", "narrow_three_chunks", "t_short", "one", "d26"])
+def test_causal_conv1d_kernel_matches_its_plain_version(cuda, b, t, d, k, dtype):
+    """x a half of a Dense output (rows 2d apart), with the copy in x's type:
+    xs and its copy, then the gradients from both outputs'."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(b, t, 2 * d, generator=g, device=cuda).to(dtype)[..., :d]
+    w = torch.randn(k, d, generator=g, device=cuda) / k ** 0.5
+    bias = 0.1 * torch.randn(d, generator=g, device=cuda)
+    args = [x.requires_grad_(), w.requires_grad_(), bias.requires_grad_()]
+    xs, xs_copy = causal_conv1d.causal_conv1d_silu(*args, copy=True)
+    assert xs.dtype == torch.float32 and torch.equal(xs_copy, xs.detach().to(dtype))
+    dxs = torch.randn(b, t, d, generator=g, device=cuda)
+    dxs_copy = torch.randn(b, t, d, generator=g, device=cuda).to(dtype)
+    grads = torch.autograd.grad((xs, xs_copy), args, (dxs, dxs_copy))
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        plain = [a.detach() for a in args]
+        _close_in(xs.detach(), causal_conv1d.conv_silu_forward_plain(*plain), "xs")
+        want = causal_conv1d.conv_silu_backward_plain(*plain, dxs, dxs_copy)
+    for name, got, w_ in zip(("dx", "dw", "dbias"), grads, want):
+        _close_in(got, w_, name)
+
+
+def _gated_args(b, t, d, n, dtype, dev, seed=0):
+    """x, dt_proj's output (one step past softplus's threshold), A, B, C, D
+    and the gate as a half of a Dense output (rows 2d apart)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, d, generator=g, device=dev)
+    dt = (1.5 * torch.randn(b, t, d, generator=g, device=dev) - 2.0)
+    dt[0, 0, 0] = 25.0
+    A = -torch.rand(d, n, generator=g, device=dev) * 2.0 - 0.1
+    B, C = (torch.randn(b, t, n, generator=g, device=dev) for _ in range(2))
+    D = torch.randn(d, generator=g, device=dev)
+    z = torch.randn(b, t, 2 * d, generator=g, device=dev).to(dtype)[..., d:]
+    return [x, dt.to(dtype), A, B, C, D, z]
+
+
+@pytest.mark.parametrize("b,t,d,n,dtype", [
+    (192, 30, 5120, 16, torch.bfloat16), (3, 70, 100, 8, torch.float32),
+    (5, 10, 33, 32, torch.bfloat16), (1, 1, 1, 1, torch.float32), (9, 10, 26, 4, torch.bfloat16),
+    (4, 33, 24, 3, torch.float32)],
+    ids=["jamba", "three_chunks", "d33_n32", "one", "d26", "d24_n3"])
+def test_gated_scan_kernel_matches_its_plain_version(cuda, b, t, d, n, dtype):
+    args = [v.requires_grad_() for v in _gated_args(b, t, d, n, dtype, cuda)]
+    scan = selective_scan.selective_scan_cuda
+    launches, elems = scan.launches, scan.elems
+    out = selective_scan.gated_selective_scan(*args)
+    assert out.dtype == dtype
+    dout = torch.randn(b, t, d, device=cuda).to(dtype)
+    grads = torch.autograd.grad(out, args, dout)
+    torch.cuda.synchronize()
+    assert (scan.launches, scan.elems) == (launches + 2, elems + 2 * b * t * d * n)
+    with torch.no_grad():
+        plain = [v.detach() for v in args]
+        _close_in(out.detach(), selective_scan.gated_scan_forward_plain(*plain), "out")
+        want = selective_scan.gated_scan_backward_plain(*plain, dout)
+    for name, got, w in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dz"), grads, want):
+        assert got.dtype == w.dtype, name
+        _close_in(got, w, name)
+
+
+@pytest.mark.parametrize("b,t,d,n,dtype", [
+    (192, 30, 5120, 16, torch.bfloat16), (9, 10, 26, 4, torch.float32)], ids=["jamba", "d26"])
+def test_gated_scan_keeps_no_steps_without_a_gradient(cuda, b, t, d, n, dtype):
+    """Without a gradient to take the forward writes no steps, and its
+    output is the same, bit for bit."""
+    args = _gated_args(b, t, d, n, dtype, cuda)
+    kept, steps = selective_scan._gated_forward_cuda(*args)
+    bare, none = selective_scan._gated_forward_cuda(*args, keep_steps=False)
+    assert steps is not None and none is None and torch.equal(bare, kept)
+    with torch.inference_mode():
+        served = selective_scan.gated_selective_scan(*args)
+    assert torch.equal(served, kept)
+
+
+def _mixer(cuda, d_model, d_state, dt_rank, norm, compute_dtype, seed=0, d_conv=4):
+    """A Mamba block on the card with Mamba's spread of decays and steps
+    (A_log = log(1..n), the dt bias a log-uniform dt's inverse softplus) and
+    a conv bias that is not zero."""
+    import math
+
+    from lipvq_tpu_torch.models.base_nets import seeded_init
+    from lipvq_tpu_torch.models.mamba import MambaBlock
+
+    block = seeded_init(MambaBlock(d_model, d_state=d_state, d_conv=d_conv, dt_rank=dt_rank,
+                                   dt_bc_norm=norm, norm_eps=1e-6, compute_dtype=compute_dtype),
+                        torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        u = torch.rand(block.d_inner, generator=g)
+        step = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        block.dt_proj.bias.copy_(step + torch.log(-torch.expm1(-step)))
+        block.conv_bias.normal_(0, 0.1, generator=g)
+    return block.to(cuda)
+
+
+@pytest.mark.parametrize("d_model,b,t,n,dt_rank,norm,bf16", [
+    (2560, 192, 30, 16, 160, True, True), (512, 50, 30, 8, 0, False, False),
+    (12, 6, 30, 8, 0, False, False), (13, 5, 7, 4, 0, True, False)],
+    ids=["jamba_layer", "arm_train", "d_inner24", "d_inner26"])
+def test_fused_mamba_block_matches_the_composed_block_on_the_card(cuda, d_model, b, t, n,
+                                                                 dt_rank, norm, bf16):
+    """The block's fused and composed chains from the same in_proj output:
+    the output, the input's gradient and every parameter's."""
+    from lipvq_tpu_torch.models.mamba import _dense
+
+    cd = torch.bfloat16 if bf16 else None
+    block = _mixer(cuda, d_model, n, dt_rank, norm, cd)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(b, t, d_model, generator=g, device=cuda)
+    dout = torch.randn(b, t, d_model, generator=g, device=cuda)
+    names, params = zip(*sorted(block.named_parameters()))
+    got = []
+    for path in (block._composed, block._fused):
+        xi = x.clone().requires_grad_()
+        h = _dense(block.in_proj, xi, cd)
+        assert block._fuses(h)
+        out = path(h)
+        grads = torch.autograd.grad(out, [xi, *params], dout.to(out.dtype))
+        got.append((out.detach(), grads))
+        del h, out
+    (want, want_g), (out, out_g) = got
+    _close(out.float(), want.float(), "out")
+    for name, a, w in zip(("x", *names), out_g, want_g):
+        _close(a, w, name)
+
+
+def test_mamba_block_counts_its_forwards_by_path(cuda, monkeypatch):
+    from lipvq_tpu_torch.models import mamba
+    from lipvq_tpu_torch.utils import profile_utils
+
+    block = _mixer(cuda, 12, 8, 0, False, None)
+    x = torch.randn(2, 5, 12, device=cuda)
+    profile_utils.reset()
+    block(x)
+    block(x)
+    counters = profile_utils.totals()["counters"]
+    assert (counters["ssm_mixer_fused"], counters["ssm_mixer_composed"]) == (2, 0)
+    assert counters["causal_conv1d_launches"] == 2
+    # a scan put in the ops module's place (a planted fault) takes the composed chain
+    monkeypatch.setattr(mamba, "selective_scan", lambda *args: selective_scan.selective_scan(*args))
+    block(x)
+    counters = profile_utils.totals()["counters"]
+    assert (counters["ssm_mixer_fused"], counters["ssm_mixer_composed"]) == (2, 1)
+    assert counters["causal_conv1d_launches"] == 2
+
+
+@pytest.mark.parametrize("d_conv,d_state", [(5, 8), (4, 33)], ids=["d_conv5", "d_state33"])
+def test_mamba_block_on_the_card_raises_on_what_the_kernels_do_not_take(cuda, d_conv, d_state):
+    """A wider stencil or more states than the kernels are built for fail
+    loudly on the card, and do not fall back to PyTorch's operations."""
+    block = _mixer(cuda, 12, d_state, 0, False, None, d_conv=d_conv)
+    with pytest.raises(ValueError, match="takes"):
+        block(torch.randn(2, 5, 12, device=cuda))
 
 
 # -- the optimizer's two passes (ops/fused_adamw.py, csrc/fused_adamw.cu) ------

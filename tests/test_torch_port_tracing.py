@@ -212,7 +212,9 @@ def test_totals_count_launches_and_counters_since_reset(monkeypatch):
                         "k1_tc_launches": 0, "optimizer_fused_steps": 0,
                         "optimizer_fused_elems": 0, "optimizer_torch_steps": 0,
                         "k1_rescored_rows": 0, "k1_rescored_every_code_rows": 0,
-                        "ssm_scan_launches": 0, "ssm_scan_elems": 0}
+                        "ssm_scan_launches": 0, "ssm_scan_elems": 0,
+                        "ssm_mixer_fused": 0, "ssm_mixer_composed": 0,
+                        "causal_conv1d_launches": 0}
 
 
 @pytest.fixture
